@@ -1,0 +1,296 @@
+"""AIR module + proving context.
+
+Counterpart of ``genstark_tpu/air/module.py`` (`AirModule`,
+`ProvingContext` and the input layout), trimmed to the prover's main path:
+trace generation is the Python host interpreter (`_generate_trace_pyhost`
+there; the native C++ generator and the device trace scan are not ported
+yet), the trace ships as standard-form u32 limbs [R, L, T], and
+`evaluate_transition_constraints` evaluates the constraint DAG over a
+domain with the torch DeviceField.
+
+Domain conventions (identical to the JAX package):
+  execution domain   size T            root w_t = w^ext
+  composition domain size T*cf         root w_c = w^(ext/cf)
+  evaluation domain  size T*ext        root w  ("context.root_of_unity")
+with cf = 2^ceil(log2(max constraint degree)).
+"""
+
+from __future__ import annotations
+
+from functools import cached_property
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..field.limbs import ints_to_limbs, limbs_to_ints
+from .ir import (AirSchema, CyclicRegister, InputRegister, MaskRegister,
+                 compile_host_fn, eval_device)
+
+
+def default_extension_factor(max_degree: int) -> int:
+    """Smallest power of 2 strictly greater than 2*maxDegree."""
+    e = 2
+    while e <= 2 * max_degree:
+        e *= 2
+    return e
+
+
+def composition_factor(max_degree: int) -> int:
+    return max(1, 1 << (max_degree - 1).bit_length()) if max_degree > 1 else 1
+
+
+class AirModule:
+    def __init__(self, schema: AirSchema, extension_factor: Optional[int] = None):
+        self.schema = schema
+        self.field = schema.field
+        maxdeg = schema.max_constraint_degree
+        self.max_constraint_degree = maxdeg
+        self.composition_factor = composition_factor(maxdeg)
+        ext = extension_factor or default_extension_factor(maxdeg)
+        if ext & (ext - 1) or ext < 2:
+            raise ValueError("extension factor must be a power of 2, at least 2")
+        if ext > 32:
+            raise ValueError("extension factor cannot be greater than 32")
+        self.extension_factor = ext
+
+    @property
+    def trace_register_count(self) -> int:
+        return self.schema.trace_width
+
+    @property
+    def secret_input_count(self) -> int:
+        return self.schema.secret_input_count
+
+    def init_proving_context(self, inputs: Optional[Sequence] = None,
+                             seed: Optional[Sequence[int]] = None) -> "ProvingContext":
+        return ProvingContext(self, inputs or [], list(seed or []))
+
+
+def _nested_shape(values, rank: int) -> List[int]:
+    """Shape of a (uniform) nested input list; validates uniformity."""
+    if rank == 0:
+        return []
+    if not isinstance(values, (list, tuple)) or not values:
+        raise ValueError("input register requires a non-empty (nested) list")
+    if rank == 1:
+        return [len(values)]
+    sub = [_nested_shape(v, rank - 1) for v in values]
+    if any(s != sub[0] for s in sub):
+        raise ValueError("nested input lists must be uniform")
+    return [len(values)] + sub[0]
+
+
+def _flatten(values, rank: int) -> List:
+    if rank <= 1:
+        return list(values)
+    out = []
+    for v in values:
+        out.extend(_flatten(v, rank - 1))
+    return out
+
+
+def compute_input_layout(schema: AirSchema, shapes: Sequence[Sequence[int]]):
+    """Given per-input-register shapes, derive each register's value span
+    and the trace length (span rules documented on InputRegister)."""
+    input_regs = schema.input_registers
+    if len(shapes) != len(input_regs):
+        raise ValueError("input shape count mismatch")
+    shape_of = {k: list(shapes[slot]) for slot, k in enumerate(input_regs)}
+    children: Dict[int, List[int]] = {}
+    for k in input_regs:
+        reg = schema.static_registers[k]
+        if len(shape_of[k]) != reg.rank:
+            raise ValueError(
+                f"input register {k}: shape rank {len(shape_of[k])} != declared rank {reg.rank}")
+        if reg.parent is not None:
+            children.setdefault(reg.parent, []).append(k)
+        if reg.peer is not None and shape_of[k] != shape_of[reg.peer]:
+            raise ValueError(f"peer input registers {k} and {reg.peer} must share shape")
+
+    spans: Dict[int, int] = {}
+
+    def span(k: int) -> int:
+        if k in spans:
+            return spans[k]
+        reg = schema.static_registers[k]
+        if reg.steps is not None:
+            s = reg.steps
+        elif reg.peer is not None:
+            s = span(reg.peer)
+        elif children.get(k):
+            c0 = children[k][0]
+            for c in children[k][1:]:
+                if shape_of[c][-1] != shape_of[c0][-1]:
+                    raise ValueError("sibling child inputs must share the last dimension")
+            s = shape_of[c0][-1] * span(c0)
+        else:
+            s = schema.base_steps
+        spans[k] = s
+        return s
+
+    trace_length = schema.base_steps if not input_regs else None
+    for k in input_regs:
+        reg = schema.static_registers[k]
+        if reg.parent is not None and shape_of[k][:-1] != shape_of[reg.parent]:
+            raise ValueError(
+                f"child input {k} shape must extend parent {reg.parent} shape")
+        n = 1
+        for d in shape_of[k]:
+            n *= d
+        t = n * span(k)
+        if trace_length is None:
+            trace_length = t
+        elif t != trace_length:
+            raise ValueError(
+                f"inconsistent input spans: register {k} implies trace length {t}, "
+                f"others imply {trace_length}")
+    return trace_length, spans
+
+
+class ProvingContext:
+    def __init__(self, module: AirModule, inputs: Sequence, seed: List[int]):
+        schema = module.schema
+        self.schema = schema
+        self.field = module.field
+        input_regs = schema.input_registers
+        if len(inputs) != len(input_regs):
+            raise ValueError(
+                f"expected inputs for {len(input_regs)} input registers, got {len(inputs)}")
+        self.input_values: Dict[int, List[int]] = {}
+        self.input_shapes: List[List[int]] = []
+        for slot, k in enumerate(input_regs):
+            reg: InputRegister = schema.static_registers[k]
+            shape = _nested_shape(inputs[slot], reg.rank)
+            values = [int(v) % self.field.modulus for v in _flatten(inputs[slot], reg.rank)]
+            if reg.binary and any(v not in (0, 1) for v in values):
+                raise ValueError("binary input register requires 0/1 values")
+            self.input_values[k] = values
+            self.input_shapes.append(shape)
+        trace_length, self.input_spans = compute_input_layout(schema, self.input_shapes)
+        if trace_length < 2 or trace_length & (trace_length - 1):
+            raise ValueError("trace length must be a power of 2, at least 2")
+        ext = module.extension_factor
+        self.trace_length = trace_length
+        self.extension_factor = ext
+        self.evaluation_domain_size = trace_length * ext
+        self.composition_domain_size = trace_length * module.composition_factor
+        # generator of the evaluation domain
+        self.root_of_unity = self.field.get_root_of_unity(self.evaluation_domain_size)
+        self.seed = [int(s) % self.field.modulus for s in seed]
+        self._trace_std = None
+
+    @property
+    def constraint_degrees(self) -> List[int]:
+        return self.schema.constraint_degrees
+
+    # ----- static register columns (host) ------------------------------------
+    def _cyclic_pattern(self, k: int) -> Optional[List[int]]:
+        """Periodic pattern for register k if it is cyclic-like (cycle/mask).
+        Mask period = the source input register's value span."""
+        reg = self.schema.static_registers[k]
+        if isinstance(reg, CyclicRegister):
+            return [v % self.field.modulus for v in reg.values]
+        if isinstance(reg, MaskRegister):
+            span = self.input_spans[reg.source]
+            src = self.schema.static_registers[reg.source]
+            pattern = [0] * span
+            pattern[src.shift % span] = 1
+            if reg.inverted:
+                pattern = [1 - v for v in pattern]
+            return pattern
+        return None
+
+    @cached_property
+    def static_columns(self) -> List[List[int]]:
+        """Per static register: the full column of T standard-form ints."""
+        T = self.trace_length
+        cols = []
+        for k, reg in enumerate(self.schema.static_registers):
+            pattern = self._cyclic_pattern(k)
+            if pattern is not None:
+                if len(pattern) > T:
+                    raise ValueError(
+                        f"cyclic register {k} period {len(pattern)} exceeds trace length {T}")
+                cols.append(pattern * (T // len(pattern)))
+            elif isinstance(reg, InputRegister):
+                values = self.input_values[k]
+                span = self.input_spans[k]
+                expanded = [v for v in values for _ in range(span)]
+                if len(expanded) != T:
+                    raise ValueError("input register span does not match trace length")
+                if reg.shift:
+                    s = (-reg.shift) % T
+                    expanded = expanded[s:] + expanded[:s] if s else expanded
+                cols.append(expanded)
+            else:
+                raise TypeError(f"unknown static register {type(reg)}")
+        return cols
+
+    def static_column_limbs(self, k: int, L: int) -> np.ndarray:
+        """Standard-form 16-bit limbs [L, T] of static column k, built from
+        the distinct values (numpy tile/repeat/roll)."""
+        T = self.trace_length
+        reg = self.schema.static_registers[k]
+        pattern = self._cyclic_pattern(k)
+        if pattern is not None:
+            return np.tile(ints_to_limbs(pattern, L), (1, T // len(pattern)))
+        if isinstance(reg, InputRegister):
+            col = np.repeat(ints_to_limbs(self.input_values[k], L),
+                            self.input_spans[k], axis=1)
+            if col.shape[1] != T:
+                raise ValueError("input register span does not match trace length")
+            return np.roll(col, reg.shift, axis=1) if reg.shift else col
+        return ints_to_limbs(self.static_columns[k], L)
+
+    def statics_std(self) -> np.ndarray:
+        """All static columns as standard-form limbs, u32 [K, L, T]."""
+        L = self.field.params.L
+        K = len(self.schema.static_registers)
+        if K == 0:
+            return np.zeros((0, L, self.trace_length), dtype=np.uint32)
+        return np.stack([self.static_column_limbs(k, L) for k in range(K)])
+
+    # ----- execution trace (host) ---------------------------------------------
+    def generate_execution_trace_std(self) -> np.ndarray:
+        """Run the AIR on the host: standard-form limbs, u32 [R, L, T]."""
+        if self._trace_std is None:
+            schema = self.schema
+            p = self.field.modulus
+            T = self.trace_length
+            R = schema.trace_width
+            init_fn = compile_host_fn(schema.init, p)
+            step_fn = compile_host_fn(schema.transition, p)
+            cols = self.static_columns
+            K = len(cols)
+            statics = [[cols[k][t] for k in range(K)] for t in range(T)] if K \
+                else [[]] * T
+            state = init_fn([0] * R, statics[0], self.seed)
+            rows = [state]
+            for t in range(T - 1):
+                state = step_fn(state, statics[t])
+                rows.append(state)
+            L = self.field.params.L
+            flat = [rows[t][r] for r in range(R) for t in range(T)]
+            self._trace_std = np.asarray(ints_to_limbs(flat, L)).reshape(
+                L, R, T).transpose(1, 0, 2).copy()
+        return self._trace_std
+
+    def trace_value_host(self, register: int, step: int) -> int:
+        """Standard-form python int at (register, step) of the host trace."""
+        col = self.generate_execution_trace_std()[register, :, step:step + 1]
+        return limbs_to_ints(col)[0]
+
+    # ----- transition constraints over a domain ------------------------------
+    def evaluate_transition_constraints(self, dev, p_evals: torch.Tensor,
+                                        n_evals: torch.Tensor,
+                                        static_evals) -> torch.Tensor:
+        """Constraint-DAG evaluation over any domain: p_evals / n_evals
+        [R, L, N], static_evals list of [L, N], all Montgomery -> [C, L, N]."""
+        schema = self.schema
+        env = {"dev": dev, "ndim": 1,
+               "trace": [p_evals[r] for r in range(schema.trace_width)],
+               "next": [n_evals[r] for r in range(schema.trace_width)],
+               "static": list(static_evals)}
+        cache = {}
+        return torch.stack([eval_device(c, env, cache) for c in schema.constraints])

@@ -1,0 +1,207 @@
+"""Device-side prime-field arithmetic over torch tensors of 16-bit limbs.
+
+Counterpart of ``genstark_tpu/field/device.py`` (the surface the prover's
+main path uses).  Layout: an array of N elements is ``int32[L, N]`` — limbs
+along the leading axis, each limb a value below 2^16, exactly the bits of
+the JAX package's ``uint32[L, N]``.  Arithmetic widens to int64 inside, so
+no intermediate can wrap (torch has no uint32 add, shift or compare on the
+CPU).  Values on the device are kept in Montgomery form (x*R mod p with
+R = 2^(16 L)) unless a caller documents standard form.
+
+Every function is plain torch on whatever device its inputs lie: this is
+the arithmetic of the elementwise parts of the prover, and the plain
+version beside each CUDA kernel.  The JAX package's Pallas tile dispatch
+(elementwise and outer-table kernels) is not on the port's path.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from .limbs import LIMB_BITS, LIMB_MASK, MontParams, int_to_limbs, ints_to_limbs, limbs_to_ints
+
+_I64 = torch.int64
+_I32 = torch.int32
+
+
+class DeviceField:
+    """Vectorized Montgomery arithmetic for one prime modulus on one device."""
+
+    def __init__(self, params: MontParams, device):
+        self.params = params
+        self.L = params.L
+        self.p = params.modulus
+        self.n0p = params.n0p
+        self.device = torch.device(device)
+        self._p64 = torch.as_tensor(params.p_limbs.astype(np.int64),
+                                    device=self.device)
+
+    # ----- host <-> device conversion ---------------------------------------
+    def from_numpy(self, arr: np.ndarray) -> torch.Tensor:
+        """numpy u32 16-bit limbs (any shape) -> int32 tensor on the device."""
+        return torch.from_numpy(np.ascontiguousarray(arr).astype(np.int32)).to(self.device)
+
+    def to_numpy(self, t: torch.Tensor) -> np.ndarray:
+        """int32 limb tensor -> numpy u32 (the JAX package's layout)."""
+        return t.detach().cpu().numpy().astype(np.uint32)
+
+    def from_ints(self, values: Sequence[int], to_mont: bool = True) -> torch.Tensor:
+        arr = self.from_numpy(ints_to_limbs(values, self.L))
+        return self._to_mont(arr) if to_mont else arr
+
+    def to_ints(self, t: torch.Tensor, from_mont: bool = True) -> List[int]:
+        if from_mont:
+            t = self._from_mont(t)
+        return limbs_to_ints(self.to_numpy(t).reshape(self.L, -1))
+
+    def const(self, value: int, shape=(), to_mont: bool = True) -> torch.Tensor:
+        """Broadcastable constant: [L] + [1]*len(shape)."""
+        if to_mont:
+            value = (value * self.params.R_mod) % self.p
+        limbs = int_to_limbs(value % self.p, self.L)
+        return self.from_numpy(limbs).reshape((self.L,) + (1,) * len(shape))
+
+    def one(self, shape=()) -> torch.Tensor:
+        """Montgomery representation of 1, broadcastable over shape."""
+        return self.const(1, shape)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros((self.L,) + tuple(shape), dtype=_I32, device=self.device)
+
+    def outer_table(self, outer: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
+        """[L, nj] x [L, s] -> [L, nj*s], t[j*s + k] = outer[j]*inner[k]
+        (factored power-table regeneration)."""
+        full = self.mont_mul(outer[:, :, None], inner[:, None, :])
+        return full.reshape(self.L, outer.shape[1] * inner.shape[1])
+
+    # ----- Montgomery core --------------------------------------------------
+    def _align(self, a: torch.Tensor, b: torch.Tensor):
+        """Batch axes broadcast right-aligned AFTER the limb axis: a
+        lower-rank operand gets singleton batch dims right after axis 0."""
+        L = self.L
+        if a.dim() < b.dim():
+            a = a.reshape((L,) + (1,) * (b.dim() - a.dim()) + tuple(a.shape[1:]))
+        elif b.dim() < a.dim():
+            b = b.reshape((L,) + (1,) * (a.dim() - b.dim()) + tuple(b.shape[1:]))
+        return a.to(_I64), b.to(_I64)
+
+    def _plimbs(self, ndim: int) -> torch.Tensor:
+        return self._p64.reshape((self.L,) + (1,) * ndim)
+
+    def mont_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """SOS Montgomery multiplication: a*b*R^-1 mod p, canonical.
+
+        a, b: int32/int64 [L, ...] broadcast-compatible, limbs < 2^16.  Same
+        lazy-accumulator schedule as the JAX DeviceField.mont_mul: partial
+        products split into lo/hi halves added into a [2L+1, ...]
+        accumulator, carries resolved once per reduction step."""
+        L = self.L
+        a, b = self._align(a, b)
+        shape = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+        acc = torch.zeros((2 * L + 1,) + tuple(shape), dtype=_I64, device=a.device)
+        for i in range(L):
+            prod = a[i][None] * b                          # [L, ...]
+            acc[i:i + L] += prod & LIMB_MASK
+            acc[i + 1:i + L + 1] += prod >> LIMB_BITS
+        p = self._plimbs(len(shape))
+        c = torch.zeros(shape, dtype=_I64, device=a.device)
+        for i in range(L):
+            x = acc[i] + c
+            m = ((x & LIMB_MASK) * self.n0p) & LIMB_MASK
+            mp = m[None] * p                               # [L, ...]
+            c = (x + (mp[0] & LIMB_MASK)) >> LIMB_BITS
+            if L > 1:
+                acc[i + 1:i + L] += mp[1:] & LIMB_MASK
+            acc[i + 1:i + L + 1] += mp >> LIMB_BITS
+        t = []
+        for k in range(L):
+            s = acc[L + k] + c
+            t.append(s & LIMB_MASK)
+            c = s >> LIMB_BITS
+        return self._cond_sub_p(t, c)
+
+    def _cond_sub_p(self, limbs: List[torch.Tensor], carry: torch.Tensor) -> torch.Tensor:
+        """Given value = carry*2^(16L) + limbs < 2p, subtract p if >= p."""
+        diff = []
+        borrow = torch.zeros_like(limbs[0])
+        for j in range(self.L):
+            s = limbs[j] - int(self.params.p_limbs[j]) - borrow
+            diff.append(s & LIMB_MASK)
+            borrow = (s < 0).to(_I64)
+        take = (carry != 0) | (borrow == 0)
+        return torch.where(take, torch.stack(diff), torch.stack(limbs)).to(_I32)
+
+    def _add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        a, b = self._align(a, b)
+        s = a + b
+        t = []
+        c = torch.zeros_like(s[0])
+        for j in range(self.L):
+            v = s[j] + c
+            t.append(v & LIMB_MASK)
+            c = v >> LIMB_BITS
+        return self._cond_sub_p(t, c)
+
+    def _sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        a, b = self._align(a, b)
+        d = a - b
+        t = []
+        borrow = torch.zeros_like(d[0])
+        for j in range(self.L):
+            v = d[j] - borrow
+            t.append(v & LIMB_MASK)
+            borrow = (v < 0).to(_I64)
+        # if the difference went negative, add p back
+        t2 = []
+        c = torch.zeros_like(borrow)
+        for j in range(self.L):
+            v = t[j] + int(self.params.p_limbs[j]) + c
+            t2.append(v & LIMB_MASK)
+            c = v >> LIMB_BITS
+        out = torch.where(borrow.bool(), torch.stack(t2), torch.stack(t))
+        return out.to(_I32)
+
+    def _neg(self, a: torch.Tensor) -> torch.Tensor:
+        return self._sub(self.zeros(a.shape[1:]), a)
+
+    def _sqr(self, a: torch.Tensor) -> torch.Tensor:
+        return self.mont_mul(a, a)
+
+    def _to_mont(self, a: torch.Tensor) -> torch.Tensor:
+        r2 = self.from_numpy(self.params.r2_limbs).reshape((self.L,) + (1,) * (a.dim() - 1))
+        return self.mont_mul(a, r2)
+
+    def _from_mont(self, a: torch.Tensor) -> torch.Tensor:
+        one = self.from_numpy(int_to_limbs(1, self.L)).reshape(
+            (self.L,) + (1,) * (a.dim() - 1))
+        return self.mont_mul(a, one)
+
+    # ----- derived ops ------------------------------------------------------
+    def _exp_static(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """a^e for a small python-int exponent (square-and-multiply)."""
+        e %= (self.p - 1) if self.p > 2 else 1
+        if e == 0:
+            return self.one(a.shape[1:]).expand(a.shape).contiguous()
+        if e >= (1 << 24):
+            raise ValueError("exp_static is for small static exponents")
+        result = None
+        base = a
+        while e:
+            if e & 1:
+                result = base if result is None else self.mont_mul(result, base)
+            e >>= 1
+            if e:
+                base = self.mont_mul(base, base)
+        return result
+
+    def combine_many_mont(self, vectors, coeffs_mont: torch.Tensor) -> torch.Tensor:
+        """sum_k coeffs_mont[:, k] * vectors[k]; vectors: list of [L, N],
+        coeffs_mont: [L, K] device coefficients."""
+        acc = None
+        for k in range(len(vectors)):
+            term = self.mont_mul(vectors[k], coeffs_mont[:, k:k + 1])
+            acc = term if acc is None else self._add(acc, term)
+        return acc

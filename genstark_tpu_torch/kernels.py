@@ -1,0 +1,254 @@
+"""Build, load and launch the port's CUDA kernels.
+
+The four kernels live in ``csrc/`` (dft_level.cu, hash.cu, lcomb_tail.cu,
+sharing field.cuh).  At first use they are compiled by ``nvcc`` for
+``sm_90a`` into ONE shared library with a plain C interface, under
+``_build/<hash of the sources>/``, and loaded with ctypes.  Nothing is built
+or imported when this module is imported.
+
+Each wrapper below checks device, dtype, shape and contiguity, launches on
+the current CUDA stream, raises if the launch failed, and adds one to its
+entry in ``launch_counts``.  The wrappers take CUDA tensors only: the
+modules that own a kernel (ntt/dft.py, hash/__init__.py,
+protocol/lincomb_kernel.py) send CPU tensors to their plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+_SOURCES = ("dft_level.cu", "hash.cu", "lcomb_tail.cu")
+_HEADERS = ("field.cuh",)
+_LIB_NAME = "libgenstark_kernels.so"
+
+# Launch counts per kernel (kernel 1: dft_level; 2: hash_words; 3:
+# hash_limbs; 4: lcomb_tail).  A wrapper adds one where it launches.
+launch_counts = {"dft_level": 0, "hash_words": 0, "hash_limbs": 0, "lcomb_tail": 0}
+
+_lib = None
+build_info = {}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in _HEADERS + _SOURCES:
+        with open(os.path.join(_CSRC, name), "rb") as fh:
+            h.update(name.encode() + b"\0" + fh.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def build() -> str:
+    """Compile the kernels (once per source hash) and return the library
+    path.  Records the build seconds and the compiler's register report in
+    `build_info`."""
+    out_dir = os.path.join(_BUILD, _source_hash())
+    lib_path = os.path.join(out_dir, _LIB_NAME)
+    if os.path.exists(lib_path):
+        build_info.setdefault("seconds", 0.0)
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", tmp] + [os.path.join(_CSRC, s) for s in _SOURCES]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_info["seconds"] = time.monotonic() - t0
+    build_info["log"] = proc.stdout + proc.stderr
+    with open(os.path.join(out_dir, "build.log"), "w") as fh:
+        fh.write(" ".join(cmd) + "\n" + build_info["log"])
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_info['log'][-4000:]}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.gs_dft_level.argtypes = [I, P, P, I, I, I, P, P, I, I, I, I, P, P, P, I, P]
+        lib.gs_dft_level.restype = I
+        lib.gs_hash_words.argtypes = [I, P, I, I, LL, P, P]
+        lib.gs_hash_words.restype = I
+        lib.gs_hash_limbs.argtypes = [I, P, I, I, LL, LL, LL, P, P]
+        lib.gs_hash_limbs.restype = I
+        lib.gs_lcomb_tail.argtypes = [I, P, P, P, P, P]
+        lib.gs_lcomb_tail.restype = I
+        _lib = lib
+    return _lib
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
+
+
+def _require(t: torch.Tensor, what: str, dtype, shape=None) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _field_words(dev) -> np.ndarray:
+    return np.concatenate([dev.params.p_limbs.astype(np.uint32),
+                           np.asarray([dev.n0p], dtype=np.uint32)])
+
+
+def _u32p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.c_void_p)
+
+
+# ----------------------------------------------------------------- kernel 1
+def dft_level(dev, w8, x8, m: int, rest: int, tw, out_digits: bool):
+    """Kernel 1 (csrc/dft_level.cu): contract of ntt.dft.run_dft_level_ref."""
+    from .ntt.dft import epilogue_constants
+    L = dev.L
+    D = 2 * L + 1
+    cols = x8.shape[2]
+    _require(w8, "w8", torch.int8, (D, m, m))
+    _require(x8, "x8", torch.int8, (D, m, cols))
+    mode, tw_a, tw_b, s, tc = 0, None, None, 1, 1
+    if rest > 1:
+        if cols % rest:
+            raise ValueError(f"cols={cols} is not a multiple of rest={rest}")
+        if "p" in tw:
+            mode, tw_a = 1, tw["p"]
+            tc = tw_a.shape[2]
+            _require(tw_a, "panel", torch.int32, (L, m, tc))
+            if tc < rest:
+                raise ValueError("direct panel narrower than rest")
+        else:
+            mode, tw_a, tw_b = 2, tw["a"], tw["b"]
+            s = tw_b.shape[2]
+            _require(tw_a, "twiddle A", torch.int32, (rest // s, L, m))
+            _require(tw_b, "twiddle B", torch.int32, (L, m, s))
+    n_out = D if out_digits else L
+    out = torch.empty((n_out, m, cols), dtype=torch.int8 if out_digits else torch.int32,
+                      device=x8.device)
+    corr, consts = epilogue_constants(dev.p)
+    epi = np.ascontiguousarray(np.concatenate([corr, consts.reshape(-1)]).astype(np.uint32))
+    fw = np.ascontiguousarray(_field_words(dev))
+    rc = _load().gs_dft_level(
+        L, w8.data_ptr(), x8.data_ptr(), m, cols, mode,
+        tw_a.data_ptr() if tw_a is not None else None,
+        tw_b.data_ptr() if tw_b is not None else None,
+        max(rest, 1), s, tc, int(out_digits), out.data_ptr(),
+        _u32p(fw), _u32p(epi), consts.shape[0], _stream(x8))
+    _check(rc, "dft_level")
+    launch_counts["dft_level"] += 1
+    return out
+
+
+# -------------------------------------------------------------- kernels 2, 3
+_ALGO = {"sha256": 0, "blake2s256": 1}
+
+
+def hash_words(algorithm: str, words: torch.Tensor, msg_bytes: int) -> torch.Tensor:
+    """Kernel 2 (csrc/hash.cu gs_hash_words): int32 [W, B] LE words ->
+    int32 [8, B] digests."""
+    n_words, batch = words.shape
+    _require(words, "words", torch.int32)
+    if msg_bytes != 4 * n_words:
+        raise ValueError("hash_words takes whole-word messages")
+    out = torch.empty((8, batch), dtype=torch.int32, device=words.device)
+    rc = _load().gs_hash_words(_ALGO[algorithm], words.data_ptr(), n_words,
+                               msg_bytes, batch, out.data_ptr(), _stream(words))
+    _check(rc, "hash_words")
+    launch_counts["hash_words"] += 1
+    return out
+
+
+def hash_limbs(algorithm: str, base: torch.Tensor, n_vec: int, L: int,
+               vec_stride: int, limb_stride: int, batch: int) -> torch.Tensor:
+    """Kernel 3 (csrc/hash.cu gs_hash_limbs): message b = LE bytes of
+    element b of each of n_vec limb vectors, element (v, limb, b) at
+    base.flat[v*vec_stride + limb*limb_stride + b]."""
+    _require(base, "limbs", torch.int32)
+    last = (n_vec - 1) * vec_stride + (L - 1) * limb_stride + batch
+    if last > base.numel():
+        raise ValueError("limb view exceeds the tensor")
+    out = torch.empty((8, batch), dtype=torch.int32, device=base.device)
+    rc = _load().gs_hash_limbs(_ALGO[algorithm], base.data_ptr(), n_vec, L,
+                               vec_stride, limb_stride, batch, out.data_ptr(),
+                               _stream(base))
+    _check(rc, "hash_limbs")
+    launch_counts["hash_limbs"] += 1
+    return out
+
+
+# ----------------------------------------------------------------- kernel 4
+def lcomb_tail(dev, qe, b_stack, e_std, dom_parts, incr_parts, inv_series,
+               x_last_mont_limbs: np.ndarray, b_coeffs, l_coeffs,
+               b_inc: bool, ps_inc: bool, ext: int) -> torch.Tensor:
+    """Kernel 4 (csrc/lcomb_tail.cu): contract of
+    protocol.lincomb_kernel.lcomb_tail_ref."""
+    L, Ne = qe.shape
+    B, V = b_stack.shape[0], e_std.shape[0]
+    dom_o, dom_i = dom_parts
+    nj, s = dom_o.shape[1], dom_i.shape[1]
+    if nj * s != Ne:
+        raise ValueError("factored domain table does not cover Ne")
+    nb, nl = b_coeffs.shape[1], l_coeffs.shape[1]
+    if nb != B * (2 if b_inc else 1) or nl != V * (2 if ps_inc else 1):
+        raise ValueError("coefficient counts do not match the vectors")
+    if (b_inc or ps_inc) and incr_parts is None:
+        raise ValueError("raised copies need the incr table")
+    _require(qe, "qe", torch.int32, (L, Ne))
+    _require(b_stack, "b", torch.int32, (B, L, Ne))
+    _require(e_std, "e", torch.int32, (V, L, Ne))
+    _require(dom_o, "dom outer", torch.int32, (L, nj))
+    _require(dom_i, "dom inner", torch.int32, (L, s))
+    if incr_parts is not None:
+        _require(incr_parts[0], "incr outer", torch.int32, (L, nj))
+        _require(incr_parts[1], "incr inner", torch.int32, (L, s))
+    _require(inv_series, "inv series", torch.int32, (L, ext))
+    _require(b_coeffs, "b coeffs", torch.int32, (L, nb))
+    _require(l_coeffs, "l coeffs", torch.int32, (L, nl))
+    out = torch.empty((L, Ne), dtype=torch.int32, device=qe.device)
+    tensors = [qe, b_stack if B else None, e_std, dom_o, dom_i,
+               incr_parts[0] if incr_parts is not None else None,
+               incr_parts[1] if incr_parts is not None else None,
+               inv_series, b_coeffs, l_coeffs, out]
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[t.data_ptr() if t is not None else None for t in tensors])
+    dims = (ctypes.c_longlong * 10)(Ne, nj, s, ext, B, V, nb, nl, int(b_inc), int(ps_inc))
+    fw = np.ascontiguousarray(_field_words(dev))
+    xl = np.ascontiguousarray(np.asarray(x_last_mont_limbs, dtype=np.uint32))
+    rc = _load().gs_lcomb_tail(L, ptrs, dims, _u32p(fw), _u32p(xl), _stream(qe))
+    _check(rc, "lcomb_tail")
+    launch_counts["lcomb_tail"] += 1
+    return out

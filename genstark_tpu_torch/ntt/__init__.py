@@ -1,0 +1,140 @@
+"""NTT / iNTT as chained digit-matmul DFT levels.
+
+Counterpart of the multi-level transform in ``genstark_tpu/ntt/__init__.py``
+(`mxu_table_specs` :255, `MxuPlan` :291, `mxu_transform_core` :353).  Every
+transform over p32 or p128 runs through the DFT level of ``ntt/dft.py`` at
+every size; other fields raise NotImplementedError (not ported yet).
+
+An n-point transform is split into q levels of size m_1 * ... * m_q = n
+(Bailey / 4-step generalized).  Natural order in and out.  Level 1's digit
+matrix carries a uniform `scale`, which folds the iNTT's n^-1 or the LDE's
+R^-1 into the transform for free; level l's twiddle w_l^(k * (col % rest))
+is fused into that level's epilogue, and every level but the last emits
+int8 digit planes that the next level consumes directly.
+
+The port's own level split: levels of at most 2^6 points (one level for
+n < 128), split near-equally.  The DFT kernel runs one thread per output,
+so a level costs m * D^2 multiply-adds per point — small levels win until
+the per-level passes dominate.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..field.device import DeviceField
+from . import dft
+
+MAX_LEVEL_BITS = 6
+
+
+@lru_cache(maxsize=None)
+def dft_levels(n: int):
+    """Level sizes for an n-point transform (n a power of two)."""
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"transform size {n} is not a power of two >= 2")
+    bits = n.bit_length() - 1
+    q = max(1, -(-bits // MAX_LEVEL_BITS))
+    base, extra = divmod(bits, q)
+    return tuple(1 << (base + (1 if i < extra else 0)) for i in range(q))
+
+
+def _twiddle_split(rest: int) -> int:
+    """Inner size s of the factored twiddle for `rest` columns, or 0 for a
+    direct [L, m, rest] panel (rest up to 2^MAX_LEVEL_BITS)."""
+    if rest <= (1 << MAX_LEVEL_BITS):
+        return 0
+    b = rest.bit_length() - 1
+    return 1 << (-(-b // 2))
+
+
+def table_specs(field, n: int, root: int, scale: int = 1):
+    """Host-side table recipe for one transform: (digit-matrix roots per
+    level, twiddle spec per level).  A twiddle spec is None (rest == 1),
+    ("d", w_l, rest) for a direct panel, or ("f", A_seed, rest//s, B_seed, s)
+    for the factored pair A[k, h] = w_l^(k*h*s), B[k, t] = w_l^(k*t)."""
+    levels = dft_levels(n)
+    p = field.modulus
+    root %= p
+    w8_roots, tws = [], []
+    n_l = n
+    for m in levels:
+        rest = n_l // m
+        w_l = pow(root, n // n_l, p)        # canonical n_l-root wrt `root`
+        w8_roots.append(pow(w_l, rest, p))  # canonical m-root
+        if rest == 1:
+            tws.append(None)
+        else:
+            s = _twiddle_split(rest)
+            tws.append(("d", w_l, rest) if s == 0 else
+                       ("f", pow(w_l, s, p), rest // s, w_l, s))
+        n_l = rest
+    return w8_roots, tws
+
+
+class DftPlan:
+    """Device tables for one (field, n, root, scale): per-level W digit
+    planes (int8; level 1 carries the scale) and twiddle tables (int32
+    Montgomery), all on the DeviceField's device."""
+
+    def __init__(self, field, dev: DeviceField, n: int, root: int, scale: int = 1):
+        if dft.solinas_spec(field.modulus) is None or field.params.L not in (2, 8):
+            raise NotImplementedError(
+                "only p32 and p128 have a ported transform; the other fields "
+                "wait for the radix-2 kernels and wider DFT kernels")
+        self.n = n
+        self.levels = dft_levels(n)
+        w8_roots, tws = table_specs(field, n, root, scale)
+        params = field.params
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev.device)
+        self.w8s = [to_dev(dft.w_digits(field, m, r, scale if lvl == 0 else 1))
+                    for lvl, (m, r) in enumerate(zip(self.levels, w8_roots))]
+        self.tws = []
+        for m, spec in zip(self.levels, tws):
+            if spec is None:
+                self.tws.append(None)
+            elif spec[0] == "d":
+                _, w_l, rest = spec
+                self.tws.append({"p": dev.from_numpy(
+                    dft._direct_panel_np(params, w_l, m, rest))})
+            else:
+                _, a_seed, ca, b_seed, sb = spec
+                # A stored [h, L, m] (the JAX kernel's layout)
+                self.tws.append({
+                    "a": dev.from_numpy(np.transpose(
+                        dft._panel_grid_np(params, a_seed, m, ca), (2, 0, 1))),
+                    "b": dev.from_numpy(dft._panel_grid_np(params, b_seed, m, sb))})
+
+
+def transform(dev: DeviceField, a: torch.Tensor, plan: DftPlan) -> torch.Tensor:
+    """Multi-level NTT: a [..., L, n] -> [..., L, n], natural order in and
+    out, equal to the radix-2 transform times the plan's folded scale."""
+    n = plan.n
+    levels = plan.levels
+    q = len(levels)
+    L = a.shape[-2]
+    batch_shape = tuple(a.shape[:-2])
+    x = a.reshape((-1, L, n))
+    Bc = x.shape[0]
+    cur = x.permute(1, 0, 2)                           # [L, Bc, n]
+    pre, rest = Bc, n
+    digits = False                                     # cur holds int8 digits
+    for lvl, m in enumerate(levels):
+        rest //= m
+        curv = cur.reshape(cur.shape[0], pre, m, rest)
+        d = curv if digits else dft.encode_digits(curv)
+        d = d.permute(0, 2, 1, 3).reshape(d.shape[0], m, pre * rest).contiguous()
+        out_dig = lvl < q - 1
+        o = dft.run_dft_level(dev, plan.w8s[lvl], d, m, rest,
+                              plan.tws[lvl] if rest > 1 else None, out_digits=out_dig)
+        cur = o.reshape(o.shape[0], m * pre, rest)     # pre' = (k_lvl, pre)
+        digits = out_dig
+        pre *= m
+    # cur: [L, k_q, ..., k_1, Bc] -> [Bc, L, (k_q, ..., k_1)]
+    cur = cur.reshape((L,) + tuple(reversed(levels)) + (Bc,))
+    perm = (q + 1, 0) + tuple(range(1, q + 1))
+    out = cur.permute(perm).reshape(Bc, L, n)
+    return out.reshape(batch_shape + (L, n))

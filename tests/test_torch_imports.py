@@ -1,0 +1,34 @@
+"""The port stands alone: no file under genstark_tpu_torch/ (nor
+chip_smoke.py or examples/mimc_torch.py) imports jax or genstark_tpu."""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "genstark_tpu")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "examples", "mimc_torch.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "genstark_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in sorted(names) if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
