@@ -1,8 +1,11 @@
 """MiMC STARK on the PyTorch port — the same AIR as examples/mimc.py
-(x' = x^3 + k, 64 cyclic round constants, 128-bit field, blake2s256,
-ext=16, exe=48, fri=24), importing only genstark_tpu_torch.
+(x' = x^3 + k, 64 cyclic round constants, blake2s256, ext=16, exe=48,
+fri=24; the 128-bit field by default, or any field of the port such as
+P256, the reference's mimc256), importing only genstark_tpu_torch.
 
-    python -m examples.mimc_torch [steps] [device]
+    python -m examples.mimc_torch [steps] [device] [modulus name]
+
+e.g. `python -m examples.mimc_torch 8192 cuda P256`.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 from genstark_tpu_torch import instantiate
 from genstark_tpu_torch.air import AirSchema, CyclicRegister, InputRegister
 from genstark_tpu_torch.air.ir import nxt, seed, static, trace
+from genstark_tpu_torch import field as fields
 from genstark_tpu_torch.field import P128, create_prime_field
 from genstark_tpu_torch.protocol import Assertion
 
@@ -76,6 +80,8 @@ if __name__ == "__main__":
     from genstark_tpu_torch.utils import Logger
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 2 ** 13
     dev = sys.argv[2] if len(sys.argv) > 2 else "cuda"
-    log = Logger().start(f"MiMC-128, {n} steps, on {dev}")
-    _, data = prove_mimc(n, dev)
+    name = sys.argv[3].upper() if len(sys.argv) > 3 else "P128"
+    modulus = getattr(fields, name)
+    log = Logger().start(f"MiMC over {name}, {n} steps, on {dev}")
+    _, data = prove_mimc(n, dev, modulus=modulus)
     log(f"proof {len(data)} bytes, sha256 {hashlib.sha256(data).hexdigest()}")

@@ -3,8 +3,8 @@
 The port of the JAX package ``genstark_tpu`` to one NVIDIA Hopper GPU.  It
 imports torch and numpy only: never jax, never genstark_tpu.  Host-only code
 (limb codecs, host field, AIR IR, query sampling, proof codec) is carried as
-trimmed copies; the four kernels the main path reaches are hand-written
-CUDA for sm_90a in ``csrc/`` (see kernels.py).
+trimmed copies; the kernels the prover reaches are hand-written CUDA for
+sm_90a in ``csrc/`` (see kernels.py).
 
 - `instantiate(schema, options, device)` builds a Stark from an AirSchema on
   one explicit torch device; `air.convert.schema_from_reference` rebuilds a

@@ -23,7 +23,10 @@
 // limb load is contiguous across a warp), all products stay in registers
 // and the combined vector is written once — the dozen full-domain passes of
 // the unfused formulation become one.  The TPU kernel's 8-sublane guard
-// does not apply: any L in {2, 8}, any Ne, s and ext.
+// does not apply: any L in {2, 4, 8, 14, 16} (p32 to p256), any Ne, s and
+// ext.  At L = 16 a thread holds five 16-limb elements and the 33-word
+// product accumulator; ptxas's report (chip_smoke.py prints it) says whether
+// that spills.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -150,7 +153,10 @@ extern "C" int gs_lcomb_tail(int L, void* const* ptrs, const long long* dims,
   auto st = static_cast<cudaStream_t>(stream);
   switch (L) {
     case 2: return gs::launch_tail<2>(a, f, st);
+    case 4: return gs::launch_tail<4>(a, f, st);
     case 8: return gs::launch_tail<8>(a, f, st);
+    case 14: return gs::launch_tail<14>(a, f, st);
+    case 16: return gs::launch_tail<16>(a, f, st);
     default: return cudaErrorInvalidValue;
   }
 }

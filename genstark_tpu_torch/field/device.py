@@ -3,15 +3,22 @@
 Counterpart of ``genstark_tpu/field/device.py`` (the surface the prover's
 main path uses).  Layout: an array of N elements is ``int32[L, N]`` — limbs
 along the leading axis, each limb a value below 2^16, exactly the bits of
-the JAX package's ``uint32[L, N]``.  Arithmetic widens to int64 inside, so
-no intermediate can wrap (torch has no uint32 add, shift or compare on the
-CPU).  Values on the device are kept in Montgomery form (x*R mod p with
+the JAX package's ``uint32[L, N]``.  The plain versions widen to int64
+inside, so no intermediate can wrap (torch has no uint32 add, shift or
+compare on the CPU); the kernels read the int32 limbs as uint32.  Values on the device are kept in Montgomery form (x*R mod p with
 R = 2^(16 L)) unless a caller documents standard form.
 
-Every function is plain torch on whatever device its inputs lie: this is
-the arithmetic of the elementwise parts of the prover, and the plain
-version beside each CUDA kernel.  The JAX package's Pallas tile dispatch
-(elementwise and outer-table kernels) is not on the port's path.
+Two layers, as in the JAX package (`DeviceField` over `field/pallas_ops.py`):
+
+- the plain versions `mont_mul_ref`, `add_ref`, `sub_ref` and
+  `outer_table_ref`: plain torch on whatever device their inputs lie.  They
+  are the arithmetic of kernels 5 (`field_ew`) and 6 (`outer_table`), and the
+  plain versions that other kernels' plain versions are built from;
+- the public ops `mont_mul`, `_add`, `_sub` and `outer_table` (and every op
+  derived from them): a CPU tensor runs the plain version; any other tensor
+  launches kernel 5 or 6 (csrc/field_ops.cu) or raises.  The kernels take
+  any L, any broadcast and any strides, so none of the JAX package's TPU
+  dispatch rules (2^16-element minimum, 2048-lane tiles, L >= 8) applies.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .. import kernels
 from .limbs import LIMB_BITS, LIMB_MASK, MontParams, int_to_limbs, ints_to_limbs, limbs_to_ints
 
 _I64 = torch.int64
@@ -71,13 +79,35 @@ class DeviceField:
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros((self.L,) + tuple(shape), dtype=_I32, device=self.device)
 
+    # ----- the public ops: plain version on the CPU, kernels elsewhere -----
+    def mont_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """a*b*R^-1 mod p over int32 [L, ...] broadcast-compatible operands."""
+        if a.device.type == "cpu":
+            return self.mont_mul_ref(a, b)
+        return kernels.field_ew(self, "mul", a, b)
+
+    def _add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if a.device.type == "cpu":
+            return self.add_ref(a, b)
+        return kernels.field_ew(self, "add", a, b)
+
+    def _sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if a.device.type == "cpu":
+            return self.sub_ref(a, b)
+        return kernels.field_ew(self, "sub", a, b)
+
     def outer_table(self, outer: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
         """[L, nj] x [L, s] -> [L, nj*s], t[j*s + k] = outer[j]*inner[k]
         (factored power-table regeneration)."""
-        full = self.mont_mul(outer[:, :, None], inner[:, None, :])
+        if outer.device.type == "cpu":
+            return self.outer_table_ref(outer, inner)
+        return kernels.outer_table(self, outer, inner)
+
+    # ----- plain versions of kernels 5 and 6 --------------------------------
+    def outer_table_ref(self, outer: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
+        full = self.mont_mul_ref(outer[:, :, None], inner[:, None, :])
         return full.reshape(self.L, outer.shape[1] * inner.shape[1])
 
-    # ----- Montgomery core --------------------------------------------------
     def _align(self, a: torch.Tensor, b: torch.Tensor):
         """Batch axes broadcast right-aligned AFTER the limb axis: a
         lower-rank operand gets singleton batch dims right after axis 0."""
@@ -91,7 +121,7 @@ class DeviceField:
     def _plimbs(self, ndim: int) -> torch.Tensor:
         return self._p64.reshape((self.L,) + (1,) * ndim)
 
-    def mont_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def mont_mul_ref(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """SOS Montgomery multiplication: a*b*R^-1 mod p, canonical.
 
         a, b: int32/int64 [L, ...] broadcast-compatible, limbs < 2^16.  Same
@@ -134,7 +164,7 @@ class DeviceField:
         take = (carry != 0) | (borrow == 0)
         return torch.where(take, torch.stack(diff), torch.stack(limbs)).to(_I32)
 
-    def _add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def add_ref(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a, b = self._align(a, b)
         s = a + b
         t = []
@@ -145,7 +175,7 @@ class DeviceField:
             c = v >> LIMB_BITS
         return self._cond_sub_p(t, c)
 
-    def _sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def sub_ref(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a, b = self._align(a, b)
         d = a - b
         t = []
@@ -179,7 +209,7 @@ class DeviceField:
             (self.L,) + (1,) * (a.dim() - 1))
         return self.mont_mul(a, one)
 
-    # ----- derived ops ------------------------------------------------------
+    # ----- derived ops (through the public ops) ------------------------------
     def _exp_static(self, a: torch.Tensor, e: int) -> torch.Tensor:
         """a^e for a small python-int exponent (square-and-multiply)."""
         e %= (self.p - 1) if self.p > 2 else 1

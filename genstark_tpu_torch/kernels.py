@@ -1,15 +1,16 @@
 """Build, load and launch the port's CUDA kernels.
 
-The four kernels live in ``csrc/`` (dft_level.cu, hash.cu, lcomb_tail.cu,
-sharing field.cuh).  At first use they are compiled by ``nvcc`` for
-``sm_90a`` into ONE shared library with a plain C interface, under
-``_build/<hash of the sources>/``, and loaded with ctypes.  Nothing is built
-or imported when this module is imported.
+The kernels live in ``csrc/`` (dft_level.cu, hash.cu, lcomb_tail.cu,
+field_ops.cu, butterfly.cu, sharing field.cuh).  At first use each source is
+compiled by its own ``nvcc`` for ``sm_90a`` (all started together), and the
+objects are linked into ONE shared library with a plain C interface, under
+``_build/<hash of the sources>/``, loaded with ctypes.  Nothing is built or
+imported when this module is imported.
 
-Each wrapper below checks device, dtype, shape and contiguity, launches on
-the current CUDA stream, raises if the launch failed, and adds one to its
-entry in ``launch_counts``.  The wrappers take CUDA tensors only: the
-modules that own a kernel (ntt/dft.py, hash/__init__.py,
+Each wrapper below checks device, dtype, shape and layout, launches on the
+current CUDA stream, raises if the launch failed, and adds one to its entry
+in ``launch_counts``.  The wrappers take CUDA tensors only: the modules that
+own a kernel (field/device.py, ntt/dft.py, ntt/radix2.py, hash/__init__.py,
 protocol/lincomb_kernel.py) send CPU tensors to their plain versions.
 """
 
@@ -27,13 +28,24 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-_SOURCES = ("dft_level.cu", "hash.cu", "lcomb_tail.cu")
+_SOURCES = ("dft_level.cu", "hash.cu", "lcomb_tail.cu", "field_ops.cu", "butterfly.cu")
 _HEADERS = ("field.cuh",)
 _LIB_NAME = "libgenstark_kernels.so"
 
+# Limb counts the field kernels are instantiated for (p32, p64, p128, p224,
+# p256).
+FIELD_LS = (2, 4, 8, 14, 16)
+# Elementwise kernel: batch dimensions after coalescing.
+EW_MAX_DIMS = 4
+# Butterfly kernel: one block holds a whole local transform of L x n int32
+# limbs in shared memory, at most the 227 KB a block may opt in to.
+SMEM_BYTES = 232448
+
 # Launch counts per kernel (kernel 1: dft_level; 2: hash_words; 3:
-# hash_limbs; 4: lcomb_tail).  A wrapper adds one where it launches.
-launch_counts = {"dft_level": 0, "hash_words": 0, "hash_limbs": 0, "lcomb_tail": 0}
+# hash_limbs; 4: lcomb_tail; 5: field_ew; 6: outer_table; 8: butterfly).  A
+# wrapper adds one where it launches.
+launch_counts = {"dft_level": 0, "hash_words": 0, "hash_limbs": 0, "lcomb_tail": 0,
+                 "field_ew": 0, "outer_table": 0, "butterfly": 0}
 
 _lib = None
 build_info = {}
@@ -62,26 +74,42 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile the kernels (once per source hash) and return the library
-    path.  Records the build seconds and the compiler's register report in
-    `build_info`."""
+    path: one nvcc per source, all running at once, then one link.  Records
+    the build seconds and the compiler's register report in `build_info`."""
     out_dir = os.path.join(_BUILD, _source_hash())
     lib_path = os.path.join(out_dir, _LIB_NAME)
     if os.path.exists(lib_path):
         build_info.setdefault("seconds", 0.0)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp] + [os.path.join(_CSRC, s) for s in _SOURCES]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC"]
+    objs = [os.path.join(out_dir, f"{src}.{tag}.o") for src in _SOURCES]
+    cmds = [[nvcc] + flags + ["-Xptxas", "-v", "-c", "-o", obj, os.path.join(_CSRC, src)]
+            for src, obj in zip(_SOURCES, objs)]
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [src for src, p in zip(_SOURCES, procs) if p.returncode != 0]
+    tmp = f"{lib_path}.{tag}"
+    link = [nvcc] + flags + ["-shared", "-o", tmp] + objs
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append("link")
     build_info["seconds"] = time.monotonic() - t0
-    build_info["log"] = proc.stdout + proc.stderr
+    build_info["log"] = "\n".join(logs)
     with open(os.path.join(out_dir, "build.log"), "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + build_info["log"])
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_info['log'][-4000:]}")
+        fh.write("\n".join(" ".join(c) for c in cmds + [link]) + "\n" + build_info["log"])
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{build_info['log'][-6000:]}")
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -99,6 +127,12 @@ def _load():
         lib.gs_hash_limbs.restype = I
         lib.gs_lcomb_tail.argtypes = [I, P, P, P, P, P]
         lib.gs_lcomb_tail.restype = I
+        lib.gs_field_ew.argtypes = [I, I, P, P, P, P, P, I, P, P, P]
+        lib.gs_field_ew.restype = I
+        lib.gs_outer_table.argtypes = [I, P, I, P, I, P, P, P]
+        lib.gs_outer_table.restype = I
+        lib.gs_butterfly.argtypes = [I, P, P, P, P, P, I, I, I, P, P]
+        lib.gs_butterfly.restype = I
         _lib = lib
     return _lib
 
@@ -108,12 +142,12 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
 
 
-def _require(t: torch.Tensor, what: str, dtype, shape=None) -> None:
+def _require(t: torch.Tensor, what: str, dtype, shape=None, contiguous: bool = True) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
@@ -130,6 +164,16 @@ def _field_words(dev) -> np.ndarray:
 
 def _u32p(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.c_void_p)
+
+
+def _i64s(values):
+    return (ctypes.c_longlong * max(1, len(values)))(*values)
+
+
+def _field_l(dev) -> int:
+    if dev.L not in FIELD_LS:
+        raise ValueError(f"the field kernels take L in {FIELD_LS}, not {dev.L}")
+    return dev.L
 
 
 # ----------------------------------------------------------------- kernel 1
@@ -251,4 +295,115 @@ def lcomb_tail(dev, qe, b_stack, e_std, dom_parts, incr_parts, inv_series,
     rc = _load().gs_lcomb_tail(L, ptrs, dims, _u32p(fw), _u32p(xl), _stream(qe))
     _check(rc, "lcomb_tail")
     launch_counts["lcomb_tail"] += 1
+    return out
+
+
+# ----------------------------------------------------------- kernels 5, 6
+_EW_OPS = {"mul": 0, "add": 1, "sub": 2}
+
+
+def _coalesce(shape, strides_a, strides_b):
+    """Drop unit dims and merge neighbours that are one run in both
+    operands (a broadcast dim has stride 0 and merges with another)."""
+    dims = [(n, sa, sb) for n, sa, sb in zip(shape, strides_a, strides_b) if n != 1]
+    out = []
+    for n, sa, sb in dims:
+        if out and out[-1][1] == sa * n and out[-1][2] == sb * n:
+            m, _, _ = out[-1]
+            out[-1] = (m * n, sa, sb)
+        else:
+            out.append((n, sa, sb))
+    return out or [(1, 0, 0)]
+
+
+def field_ew(dev, op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Kernel 5 (csrc/field_ops.cu gs_field_ew): mul (Montgomery), add or
+    sub mod p of int32 [L, ...] operands with the DeviceField's broadcast
+    rule (batch axes right-aligned after the limb axis; a scalar [L, 1...]
+    may stand on either side).  Any strides; the result is a new
+    contiguous int32 [L, *broadcast shape]."""
+    L = _field_l(dev)
+    _require(a, "a", torch.int32, contiguous=False)
+    _require(b, "b", torch.int32, contiguous=False)
+    if a.shape[0] != L or b.shape[0] != L:
+        raise ValueError(f"operands must have {L} limbs on axis 0: {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dim() < b.dim():
+        a = a[(slice(None),) + (None,) * (b.dim() - a.dim())]
+    elif b.dim() < a.dim():
+        b = b[(slice(None),) + (None,) * (a.dim() - b.dim())]
+    shape = tuple(torch.broadcast_shapes(a.shape[1:], b.shape[1:]))
+    out = torch.empty((L,) + shape, dtype=torch.int32, device=a.device)
+    if out.numel() == 0:
+        return out
+    bstr = lambda t: [0 if t.shape[1 + i] == 1 else t.stride(1 + i) for i in range(len(shape))]
+    dims = _coalesce(shape, bstr(a), bstr(b))
+    if len(dims) > EW_MAX_DIMS:
+        raise ValueError(f"field_ew takes at most {EW_MAX_DIMS} batch dims after coalescing, "
+                         f"got shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    fw = np.ascontiguousarray(_field_words(dev))
+    rc = _load().gs_field_ew(
+        _EW_OPS[op], L, a.data_ptr(), _i64s([a.stride(0)] + [d[1] for d in dims]),
+        b.data_ptr(), _i64s([b.stride(0)] + [d[2] for d in dims]), out.data_ptr(),
+        len(dims), _i64s([d[0] for d in dims]), _u32p(fw), _stream(out))
+    _check(rc, "field_ew")
+    launch_counts["field_ew"] += 1
+    return out
+
+
+def outer_table(dev, outer: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
+    """Kernel 6 (csrc/field_ops.cu gs_outer_table): [L, nj] x [L, s] ->
+    [L, nj*s], t[j*s + k] = outer[j]*inner[k] (Montgomery)."""
+    L = _field_l(dev)
+    _require(outer, "outer", torch.int32, contiguous=False)
+    _require(inner, "inner", torch.int32, contiguous=False)
+    if outer.dim() != 2 or inner.dim() != 2 or outer.shape[0] != L or inner.shape[0] != L:
+        raise ValueError(f"outer_table takes [L, nj] and [L, s], got {tuple(outer.shape)}, "
+                         f"{tuple(inner.shape)}")
+    outer, inner = outer.contiguous(), inner.contiguous()
+    nj, s = outer.shape[1], inner.shape[1]
+    out = torch.empty((L, nj * s), dtype=torch.int32, device=outer.device)
+    if out.numel() == 0:
+        return out
+    fw = np.ascontiguousarray(_field_words(dev))
+    rc = _load().gs_outer_table(L, outer.data_ptr(), nj, inner.data_ptr(), s,
+                                out.data_ptr(), _u32p(fw), _stream(out))
+    _check(rc, "outer_table")
+    launch_counts["outer_table"] += 1
+    return out
+
+
+# ----------------------------------------------------------------- kernel 8
+def butterfly_max_n(L: int) -> int:
+    """Largest local transform one block holds in shared memory."""
+    n = 1
+    while 2 * n * L * 4 <= SMEM_BYTES:
+        n *= 2
+    return n
+
+
+def butterfly(dev, x: torch.Tensor, table: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
+    """Kernel 8 (csrc/butterfly.cu gs_butterfly): contract of
+    ntt.radix2.butterfly_ref.  x [B, G, L, n] (any strides): B*G local
+    n-point transforms; table [L, n/2] the local root's powers
+    (Montgomery); out [B, G, L, n] (any strides, not overlapping x), or a
+    new contiguous tensor."""
+    L = _field_l(dev)
+    _require(x, "x", torch.int32, contiguous=False)
+    if x.dim() != 4 or x.shape[2] != L:
+        raise ValueError(f"butterfly takes x [B, G, {L}, n], got {tuple(x.shape)}")
+    B, G, _, n = x.shape
+    if n < 2 or n & (n - 1) or n > butterfly_max_n(L):
+        raise ValueError(f"local size {n} must be a power of two in [2, {butterfly_max_n(L)}]")
+    _require(table, "table", torch.int32, (L, n // 2))
+    if out is None:
+        out = torch.empty((B, G, L, n), dtype=torch.int32, device=x.device)
+    _require(out, "out", torch.int32, (B, G, L, n), contiguous=False)
+    if B * G == 0:
+        return out
+    fw = np.ascontiguousarray(_field_words(dev))
+    rc = _load().gs_butterfly(L, x.data_ptr(), _i64s(list(x.stride())), out.data_ptr(),
+                              _i64s(list(out.stride())), table.data_ptr(), B, G,
+                              n.bit_length() - 1, _u32p(fw), _stream(x))
+    _check(rc, "butterfly")
+    launch_counts["butterfly"] += 1
     return out

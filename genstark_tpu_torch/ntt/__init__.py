@@ -1,9 +1,15 @@
-"""NTT / iNTT as chained digit-matmul DFT levels.
+"""NTT / iNTT: chained digit-matmul DFT levels (p32, p128) or the radix-2
+path (every other field).
 
-Counterpart of the multi-level transform in ``genstark_tpu/ntt/__init__.py``
-(`mxu_table_specs` :255, `MxuPlan` :291, `mxu_transform_core` :353).  Every
-transform over p32 or p128 runs through the DFT level of ``ntt/dft.py`` at
-every size; other fields raise NotImplementedError (not ported yet).
+`make_plan` picks the route per field, as the JAX package's
+`ntt_core_table` (:493) does: the digit DFT for the solinas fields with a
+ported DFT kernel, the radix-2 plan of ``ntt/radix2.py`` (kernel 8, the
+four-step split) for the others.  `transform` runs either plan.
+
+The digit route is the counterpart of the multi-level transform in
+``genstark_tpu/ntt/__init__.py`` (`mxu_table_specs` :255, `MxuPlan` :291,
+`mxu_transform_core` :353): every transform over p32 or p128 runs through
+the DFT level of ``ntt/dft.py`` at every size.
 
 An n-point transform is split into q levels of size m_1 * ... * m_q = n
 (Bailey / 4-step generalized).  Natural order in and out.  Level 1's digit
@@ -26,7 +32,8 @@ import numpy as np
 import torch
 
 from ..field.device import DeviceField
-from . import dft
+from . import dft, radix2
+from .radix2 import Radix2Plan
 
 MAX_LEVEL_BITS = 6
 
@@ -75,16 +82,21 @@ def table_specs(field, n: int, root: int, scale: int = 1):
     return w8_roots, tws
 
 
+def digit_dft_field(field) -> bool:
+    """True for the fields the digit DFT takes (p32, p128)."""
+    return dft.solinas_spec(field.modulus) is not None and field.params.L in (2, 8)
+
+
 class DftPlan:
     """Device tables for one (field, n, root, scale): per-level W digit
     planes (int8; level 1 carries the scale) and twiddle tables (int32
     Montgomery), all on the DeviceField's device."""
 
     def __init__(self, field, dev: DeviceField, n: int, root: int, scale: int = 1):
-        if dft.solinas_spec(field.modulus) is None or field.params.L not in (2, 8):
+        if not digit_dft_field(field):
             raise NotImplementedError(
-                "only p32 and p128 have a ported transform; the other fields "
-                "wait for the radix-2 kernels and wider DFT kernels")
+                "the digit DFT takes p32 and p128 only; make_plan gives the "
+                "radix-2 plan for the other fields")
         self.n = n
         self.levels = dft_levels(n)
         w8_roots, tws = table_specs(field, n, root, scale)
@@ -109,9 +121,24 @@ class DftPlan:
                     "b": dev.from_numpy(dft._panel_grid_np(params, b_seed, m, sb))})
 
 
-def transform(dev: DeviceField, a: torch.Tensor, plan: DftPlan) -> torch.Tensor:
-    """Multi-level NTT: a [..., L, n] -> [..., L, n], natural order in and
-    out, equal to the radix-2 transform times the plan's folded scale."""
+def make_plan(field, dev: DeviceField, n: int, root: int, scale: int = 1):
+    """The transform plan for one (field, n, root, scale): a DftPlan for
+    p32 and p128, a Radix2Plan for any other field."""
+    if digit_dft_field(field):
+        return DftPlan(field, dev, n, root, scale)
+    return Radix2Plan(field, dev, n, root, scale)
+
+
+def transform(dev: DeviceField, a: torch.Tensor, plan) -> torch.Tensor:
+    """a [..., L, n] -> [..., L, n], natural order in and out, equal to the
+    radix-2 transform times the plan's folded scale."""
+    if isinstance(plan, Radix2Plan):
+        return radix2.transform(dev, a, plan)
+    return _digit_transform(dev, a, plan)
+
+
+def _digit_transform(dev: DeviceField, a: torch.Tensor, plan: DftPlan) -> torch.Tensor:
+    """Multi-level NTT through the DFT levels of a DftPlan."""
     n = plan.n
     levels = plan.levels
     q = len(levels)

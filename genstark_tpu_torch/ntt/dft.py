@@ -204,8 +204,8 @@ def diags_to_limbs(dev: DeviceField, acc: torch.Tensor) -> torch.Tensor:
     shape = (L,) + (1,) * (acc.dim() - 1)
     for j in range(1, len(strict) // L):
         c_j = dev.from_numpy(consts[j - 1]).reshape(shape)
-        red = dev.mont_mul(torch.stack(strict[L * j:L * (j + 1)]), c_j)
-        out = dev._add(out, red)
+        red = dev.mont_mul_ref(torch.stack(strict[L * j:L * (j + 1)]), c_j)
+        out = dev.add_ref(out, red)
     return out
 
 
@@ -218,7 +218,9 @@ def run_dft_level_ref(dev: DeviceField, w8: torch.Tensor, x8: torch.Tensor,
     Returns int32[L, m, cols] or, with out_digits, int8[D, m, cols].
 
     All D x D digit-plane products run as ONE float64 matrix product
-    (exact: every partial sum is below m * 2^14 < 2^53)."""
+    (exact: every partial sum is below m * 2^14 < 2^53).  The field
+    arithmetic is the plain field's (`mont_mul_ref`, `add_ref`), so on the
+    card this launches no kernel of the port."""
     L = dev.L
     D = 2 * L + 1
     cols = x8.shape[2]
@@ -232,14 +234,14 @@ def run_dft_level_ref(dev: DeviceField, w8: torch.Tensor, x8: torch.Tensor,
     if rest > 1:
         if "p" in tw:
             ov = out.reshape(L, m, cols // rest, rest)
-            ov = dev.mont_mul(ov, tw["p"][:, :, None, :rest])
+            ov = dev.mont_mul_ref(ov, tw["p"][:, :, None, :rest])
         else:
             A = tw["a"].permute(1, 2, 0)               # [h, L, m] -> [L, m, h]
             Bt = tw["b"]
             s = Bt.shape[-1]
             ov = out.reshape(L, m, cols // rest, rest // s, s)
-            ov = dev.mont_mul(ov, A[:, :, None, :, None])
-            ov = dev.mont_mul(ov, Bt[:, :, None, None, :])
+            ov = dev.mont_mul_ref(ov, A[:, :, None, :, None])
+            ov = dev.mont_mul_ref(ov, Bt[:, :, None, None, :])
         out = ov.reshape(L, m, cols)
     return encode_digits(out) if out_digits else out
 

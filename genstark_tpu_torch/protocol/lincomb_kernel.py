@@ -28,23 +28,33 @@ from ..field.limbs import int_to_limbs
 def lcomb_tail_ref(dev, qe, b_stack, e_std, dom_parts, incr_parts, inv_series,
                    x_last_int: int, b_coeffs, l_coeffs, b_inc: bool,
                    ps_inc: bool, ext: int) -> torch.Tensor:
-    """Plain torch tail: [L, Ne] standard-form L(x)."""
+    """Plain torch tail: [L, Ne] standard-form L(x).  Built from the plain
+    field (`*_ref`), so on the card it launches no kernel of the port."""
     Ne = qe.shape[1]
     B, V = b_stack.shape[0], e_std.shape[0]
-    dom = dev.outer_table(*dom_parts)
-    zinv = dev.mont_mul(dev._sub(dom, dev.const(x_last_int, shape=(1,))),
-                        inv_series.repeat(1, Ne // ext))
-    acc = dev.mont_mul(qe, zinv)
-    incr = dev.outer_table(*incr_parts) if incr_parts is not None else None
+    mul, add = dev.mont_mul_ref, dev.add_ref
+
+    def combine(vectors, coeffs):
+        acc = None
+        for k, v in enumerate(vectors):
+            term = mul(v, coeffs[:, k:k + 1])
+            acc = term if acc is None else add(acc, term)
+        return acc
+
+    dom = dev.outer_table_ref(*dom_parts)
+    zinv = mul(dev.sub_ref(dom, dev.const(x_last_int, shape=(1,))),
+               inv_series.repeat(1, Ne // ext))
+    acc = mul(qe, zinv)
+    incr = dev.outer_table_ref(*incr_parts) if incr_parts is not None else None
     ba = [b_stack[k] for k in range(B)]
     if b_inc:
-        ba += [dev.mont_mul(v, incr) for v in ba[:B]]
+        ba += [mul(v, incr) for v in ba[:B]]
     if ba:
-        acc = dev._add(acc, dev.combine_many_mont(ba, b_coeffs))
+        acc = add(acc, combine(ba, b_coeffs))
     ps = [e_std[v] for v in range(V)]
     if ps_inc:
-        ps += [dev.mont_mul(v, incr) for v in ps[:V]]
-    return dev._add(acc, dev.combine_many_mont(ps, l_coeffs))
+        ps += [mul(v, incr) for v in ps[:V]]
+    return add(acc, combine(ps, l_coeffs))
 
 
 def lcomb_tail(dev, qe, b_stack, e_std, dom_parts, incr_parts, inv_series,

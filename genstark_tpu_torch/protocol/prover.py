@@ -18,10 +18,12 @@ device and single program, with the transcript on the host:
 4. host: query positions from queries.py, batch-proof plans (as
    `_host_plans`), ONE device gather of every proof byte, and `_assemble`.
 
-Every transform is a chain of DFT levels (kernel 1; ntt/__init__.py).
+Every transform is a chain of DFT levels (kernel 1) for p32 and p128, and
+the radix-2 path (kernels 8 and 5) for the other fields (ntt/__init__.py).
 Power tables longer than 4096 entries are uploaded factored — outer powers
 of seed^s and inner powers of seed — and regenerated on the device by one
-broadcast Montgomery multiply (or consumed factored by kernel 4).
+outer-table multiply (kernel 6; or consumed factored by kernel 4).  Every
+other field op is one elementwise kernel launch (kernel 5).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from torch.profiler import record_function
 
 from ..field.limbs import ints_to_limbs, limbs_to_ints, power_series_mont_np
 from ..merkle import assemble_batch, build_tree_flat, level_offset, plan_batch, tree_row_count
-from ..ntt import DftPlan, transform
+from ..ntt import make_plan, transform
 from .composition import CompositionPolynomial
 from .fri import MAX_REMAINDER_LENGTH, fold, get_augmented_positions, verify_remainder
 from .lincomb import LinearCombination
@@ -148,9 +150,10 @@ class Prover:
             return t[1], t[2]
         return self.dev.one((1,)), t[1]
 
-    def _get_plans(self) -> Dict[str, DftPlan]:
-        """DFT-level plans per transform: the scale folds T^-1 / Nc^-1 into
-        the inverse transforms and R^-1 into the standard-form LDE."""
+    def _get_plans(self) -> Dict[str, object]:
+        """Transform plans (digit DFT or radix-2, ntt.make_plan): the scale
+        folds T^-1 / Nc^-1 into the inverse transforms and R^-1 into the
+        standard-form LDE."""
         if self._plans is None:
             field, f = self.field, self.field.host
             p = field.modulus
@@ -163,7 +166,7 @@ class Prover:
                 "w_Nc": (Nc, f.get_root_of_unity(Nc), 1),
                 "w_Nc_inv": (Nc, f.inv(f.get_root_of_unity(Nc)), f.inv(Nc % p)),
             }
-            self._plans = {k: DftPlan(field, self.dev, n, root, scale)
+            self._plans = {k: make_plan(field, self.dev, n, root, scale)
                            for k, (n, root, scale) in specs.items()}
         return self._plans
 

@@ -112,14 +112,6 @@ def test_level_split():
         assert max(levels) <= 64 and len(levels) == max(1, -(-bits // 6))
 
 
-@pytest.mark.parametrize("name", ["P64", "P224", "P256"])
-def test_other_fields_raise(name):
-    from genstark_tpu_torch import field as fields
-    field = create_prime_field(getattr(fields, name))
-    with pytest.raises(NotImplementedError):
-        DftPlan(field, field.device_field("cpu"), 64, field.get_root_of_unity(64))
-
-
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The kernel entry takes CUDA tensors only: nothing falls back."""
     _, dev, w8, x8, _ = _level_inputs(P128, 8, 1, "none", seed=0)
