@@ -1,8 +1,10 @@
 """Chip smoke test of the PyTorch port: builds the CUDA kernels, checks each
-against its plain torch version on the card, proves the pinned toy proofs,
-the bench configuration (MiMC-128, 2^13 steps, secret input 3) and MiMC-256
-at 2^13 steps (the radix-2 path), and prints one JSON line per contract at
-the end.
+against its plain torch version on the card, measures the card's ceilings
+with the two probe kernels, proves the pinned toy proofs, the bench
+configuration (MiMC-128, 2^13 steps, secret input 3), MiMC-256 at 2^13 steps
+(the radix-2 path) and MiMC-256 at 2^18 and 2^20 steps (the large-domain
+path: direct radix-2 route with the stage kernels), and prints one JSON
+line per contract at the end.
 
     python3 chip_smoke.py
 
@@ -37,12 +39,35 @@ P64_64_PIN = (4614, "8f2cc12a4eea675682570374637c919519eb1c5628201c0d5b99a9a5892
 # MiMC-256, 2^13 steps, the bench options, secret input 3: the JAX package's
 # proof on the CPU (tests/test_torch_prover_fields.py recomputes it).
 MIMC256_PIN = (118019, "da7b087ffccb38cf15a6bafd33a0905c30dddd81881229018dc3f6a3f6b97236")
+# MiMC-256 at 2^18 steps (T = 2^18, Nc = 2^20, Ne = 2^22: every LDE to Ne on
+# the direct route), the bench options, secret input 3: the port's proof
+# from its plain versions on the CPU (`python -m examples.mimc_torch 262144 cpu
+# P256`, which prints its time and peak host memory).
+LARGE_STEPS = 2 ** 18
+LARGE_PIN = (197428, "77ac03bf41603b6dc55ee72ec00680901a5d0d8929cf792f2b7a61268ca8ad2f")
+# One more rung at 2^20 steps (Ne = 2^24): no pin; each kernel it launches is
+# held against its plain version at its largest shapes, and three proves
+# must agree.
+LARGEST_STEPS = 2 ** 20
+# The direct route's transform size on the 2^18-step path (Ne).
+LARGE_N = 2 ** 22
 
 # Kernels each main path must launch.
 BENCH_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
                  "outer_table")
 MIMC256_KERNELS = ("hash_words", "hash_limbs", "lcomb_tail", "field_ew", "outer_table",
                    "butterfly")
+LARGE_KERNELS = ("bfly_stage", "bfly_stage_split", "butterfly", "field_ew", "outer_table",
+                 "hash_words", "hash_limbs", "lcomb_tail")
+PROBE_KERNELS = ("mont_chain", "u32_chain")
+
+# The card's memory rate for the bytes bound, and its dense int8
+# tensor-core rate (one multiply-add is 2 ops) for kernel 1's digit
+# products (H100 SXM data sheet).
+MEM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+# u32 ops per blake2s compression: 10 rounds of 8 G functions of 14 ops.
+BLAKE2S_BLOCK_OPS = 10 * 8 * 14
 
 
 class SmokeFailure(Exception):
@@ -60,16 +85,8 @@ def require(cond: bool, what: str) -> None:
 
 def cuda_ms(fn, reps: int = 5) -> float:
     """Mean milliseconds of fn() on the card (CUDA events, one warm-up)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from genstark_tpu_torch.roofline import event_ms
+    return event_ms(fn, reps)
 
 
 def max_abs_err(a, b) -> int:
@@ -95,6 +112,8 @@ def check_dft(dev, field, rng, results):
     plan = DftPlan(field, dev, n, field.get_root_of_unity(n), 1)
     rest = n
     err, k_ms, p_ms = 0, 0.0, 0.0
+    D = 2 * dev.L + 1
+    n_bytes, work = 0, []
     for lvl, m in enumerate(plan.levels):
         rest //= m
         cols = n // m
@@ -118,9 +137,17 @@ def check_dft(dev, field, rng, results):
             if field.modulus.bit_length() == 128 and out_digits == (lvl < len(plan.levels) - 1):
                 k_ms += km
                 p_ms += pm
+                tw_bytes = sum(t.numel() * 4 for t in (tw or {}).values())
+                n_bytes += (D * m * cols + D * m * m + tw_bytes
+                            + (D * m * cols if out_digits else 4 * dev.L * m * cols))
+                # m*D^2 int8 digit multiply-adds per output (2 ops each, at
+                # the card's int8 tensor-core rate), then 1 (direct panel)
+                # or 2 (factored) Montgomery products for the twiddle
+                work += [("int8_mma", 2 * m * cols * m * D * D),
+                         (("mont", dev.L), m * cols * {"none": 0, "direct": 1, "factored": 2}[mode])]
     results["dft_level"]["max_abs_err"] = max(results["dft_level"]["max_abs_err"], err)
     if field.modulus.bit_length() == 128:
-        results["dft_level"].update(ms=k_ms, plain_ms=p_ms)
+        results["dft_level"].update(ms=k_ms, plain_ms=p_ms, bytes=n_bytes, work=work)
 
 
 def check_hash_words(dev, rng, results):
@@ -150,7 +177,8 @@ def check_hash_words(dev, rng, results):
         r = results["hash_words"]
         r["max_abs_err"] = max(r["max_abs_err"], e)
         if algo == "blake2s256":
-            r.update(ms=km, plain_ms=pm)
+            r.update(ms=km, plain_ms=pm, bytes=(64 + 32) * (Ne // 2),
+                     work=[("u32", (Ne // 2) * BLAKE2S_BLOCK_OPS)])
 
 
 def check_hash_limbs(dev, field, rng, results, record_times: bool = True):
@@ -191,7 +219,9 @@ def check_hash_limbs(dev, field, rng, results, record_times: bool = True):
         r = results["hash_limbs"]
         r["max_abs_err"] = max(r["max_abs_err"], e1, e2)
         if algo == "blake2s256" and record_times:
-            r.update(ms=km, plain_ms=pm)
+            # leaves: 2 vectors of L int32 limbs read, one digest written
+            r.update(ms=km, plain_ms=pm, bytes=(2 * L * 4 + 32) * Ne,
+                     work=[("u32", Ne * BLAKE2S_BLOCK_OPS * -(-2 * elem // 64))])
 
 
 def check_tail(dev, field, rng, results, record_times: bool = True):
@@ -225,7 +255,12 @@ def check_tail(dev, field, rng, results, record_times: bool = True):
     r = results["lcomb_tail"]
     r["max_abs_err"] = max(r["max_abs_err"], e)
     if record_times:
-        r.update(ms=km, plain_ms=pm)
+        # qe, b, e read and the output written at L int32 limbs per
+        # position, the small tables once; 13 Montgomery products per
+        # position (dom, zinv, qe, incr, 3 per b, 3 per e with raised copies)
+        tables = sum(t.numel() for t in (*dom, *incr, inv_series, b_coeffs, l_coeffs)) * 4
+        r.update(ms=km, plain_ms=pm, bytes=(2 + B + V) * L * 4 * Ne + tables,
+                 work=[(("mont", L), (4 + 3 * B + 3 * V) * Ne)])
 
 
 def p_minus_1(field, n: int):
@@ -260,7 +295,8 @@ def check_field_ew(device, fields, rng, results):
                 require(err == 0, "field_ew kernel != plain version")
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 if dev.L == 16 and n == 2 ** 17 and op == "mul":
-                    r.update(ms=km, plain_ms=pm)
+                    r.update(ms=km, plain_ms=pm, bytes=3 * dev.L * 4 * n,
+                             work=[(("mont", dev.L), n)])
 
 
 def check_outer(device, fields, rng, results):
@@ -279,7 +315,8 @@ def check_outer(device, fields, rng, results):
         require(e == 0, "outer_table kernel != plain version")
         r["max_abs_err"] = max(r["max_abs_err"], e)
         if dev.L == 16:
-            r.update(ms=km, plain_ms=pm)
+            r.update(ms=km, plain_ms=pm, bytes=(512 + 256 + 512 * 256) * dev.L * 4,
+                     work=[(("mont", dev.L), 512 * 256)])
 
 
 def check_butterfly(device, fields, rng, results):
@@ -323,7 +360,10 @@ def check_butterfly(device, fields, rng, results):
             require(err == 0, "butterfly kernel != plain version")
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if L == 16 and n == 2 ** 17:
-                r.update(ms=km, plain_ms=pm)
+                # two passes, each reading and writing the array once; one
+                # Montgomery product per butterfly, (n/2) log2 n in all
+                r.update(ms=km, plain_ms=pm, bytes=2 * 2 * L * 4 * n,
+                         work=[(("mont", L), (n // 2) * (n.bit_length() - 1))])
             if n == 2 ** 17:
                 xb = dev.from_numpy(random_elements(rng, field.modulus, L, 2 * n))
                 xb = xb.reshape(L, 2, n).permute(1, 0, 2)
@@ -332,6 +372,352 @@ def check_butterfly(device, fields, rng, results):
                 print(f"radix-2 transform p{field.modulus.bit_length()} n={n} B=2 (R^-1 "
                       f"folded), kernel path vs plain path: max_abs_err={e}", flush=True)
                 require(e == 0, "radix-2 transform (kernels 8, 5) != plain path")
+
+
+def check_stages(device, fields, rng, results):
+    """Kernels 7 and 9 bit for bit against butterfly_stage_ref: at the main
+    path's shape (P256, n = LARGE_N, one row) for every stage the direct
+    route runs there (m = 2048 .. n/2), and at L = 4 and 14 at n = 2^15 with
+    m on both sides of 4096.  The reported times are means per launch over
+    each row's stages at LARGE_N."""
+    import torch
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.ntt import radix2
+    for field in fields:
+        dev = field.device_field(device)
+        L = dev.L
+        n = LARGE_N if L == 16 else 2 ** 15
+        table = stage_tables(field, dev, n)[0]
+        x = dev.from_numpy(random_elements(rng, field.modulus, L, n)).reshape(1, L, n)
+        lm0 = radix2.LOCAL_MAX.bit_length() - 1
+        ms = range(lm0, n.bit_length() - 1) if L == 16 else range(lm0, lm0 + 4)
+        per_row = {"bfly_stage": [], "bfly_stage_split": []}
+        for lm in ms:
+            m = 1 << lm
+            row = "bfly_stage" if m <= kernels.STAGE_SPLIT_ABOVE else "bfly_stage_split"
+            got = kernels.butterfly_stage(dev, x.clone(), table, m)
+            e = max_abs_err(got, radix2.butterfly_stage_ref(dev, x.clone(), table, m))
+            del got
+            require(e == 0, f"{row} kernel != plain version at L = {L}, n = {n}, m = {m}")
+            results[row]["max_abs_err"] = max(results[row]["max_abs_err"], e)
+            if L == 16:
+                work = x.clone()
+                km = cuda_ms(lambda: kernels.butterfly_stage(dev, work, table, m))
+                pm = cuda_ms(lambda: radix2.butterfly_stage_ref(dev, work, table, m), reps=1)
+                del work
+                per_row[row].append((m, km, pm))
+                print(f"{row} p256 L=16 n={n} m={m}: max_abs_err={e} kernel {km:.4f} ms "
+                      f"plain {pm:.4f} ms", flush=True)
+        if L == 16:
+            for row, runs in per_row.items():
+                k = len(runs)
+                require(k > 0, f"no {row} stage at n = {n}")
+                # per launch: the array read and written once, the m twiddles
+                # used read once; n/2 Montgomery products
+                results[row].update(
+                    ms=sum(r[1] for r in runs) / k, plain_ms=sum(r[2] for r in runs) / k,
+                    bytes=2 * L * 4 * n + L * 4 * sum(r[0] for r in runs) // k,
+                    work=[(("mont", L), n // 2)])
+        print(f"stage kernels L={L} n={n} m=2^{ms[0]}..2^{ms[-1]}: exact", flush=True)
+        del x, table
+        torch.cuda.empty_cache()
+
+
+def stage_tables(field, dev, n: int):
+    """(stage half-table [L, n/2], local half-table [L, LOCAL_MAX/2]) of the
+    n-th root: the direct plan's own tables where n takes the direct route,
+    else host-built."""
+    from genstark_tpu_torch.field.limbs import power_series_mont_np
+    from genstark_tpu_torch.ntt import radix2
+    root = field.get_root_of_unity(n)
+    if radix2.route_for(n) == "direct":
+        plan = radix2.Radix2Plan(field, dev, n, root)
+        return plan.twiddles, plan.tables[0]
+    local = radix2.LOCAL_MAX
+    return (dev.from_numpy(power_series_mont_np(field.params, root, n // 2)),
+            dev.from_numpy(power_series_mont_np(field.params, pow(root, n // local, field.modulus),
+                                                local // 2)))
+
+
+def check_butterfly_bitrev(device, fields, rng, results):
+    """Kernel 8's bit-reversed entry (the direct route's local pass) against
+    its plain version: the 2048-point blocks of a bit-reversed array, at
+    every L (n = 2^15) and at the main path's P256 n = LARGE_N, in place."""
+    import torch
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.ntt import radix2
+    for field in fields:
+        dev = field.device_field(device)
+        L = dev.L
+        n = LARGE_N if L == 16 else 2 ** 15
+        local = radix2.LOCAL_MAX
+        table = stage_tables(field, dev, n)[1]
+        x = dev.from_numpy(random_elements(rng, field.modulus, L, n)).reshape(1, L, n)
+        blocks = lambda t: t.view(1, L, n // local, local).permute(0, 2, 1, 3)
+        want = radix2.butterfly_ref(dev, blocks(x), table, bitrev_in=True)
+        got = x.clone()
+        kernels.butterfly(dev, blocks(got), table, out=blocks(got), bitrev_in=True)
+        e = max_abs_err(blocks(got), want)
+        print(f"butterfly (bit-reversed input, in place) p{field.modulus.bit_length()} L={L} "
+              f"n={n} blocks of {local}: max_abs_err={e}", flush=True)
+        require(e == 0, "butterfly bit-reversed entry != plain version")
+        results["butterfly"]["max_abs_err"] = max(results["butterfly"]["max_abs_err"], e)
+        del x, want, got, table
+        torch.cuda.empty_cache()
+
+
+def check_probes(device, fields, rng, results):
+    """Kernels 10 and 11 against their plain versions at the probes' shapes
+    (mont_chain at depth 16 over [L, 2^21] at every L; u32_chain over 2^26
+    words); the reported times are L = 16 and the u32 chain."""
+    import numpy as np
+    import torch
+    from genstark_tpu_torch import kernels, roofline
+    for field in fields:
+        dev = field.device_field(device)
+        n, depth = 2 ** 21, 16
+        x = dev.from_numpy(random_elements(rng, field.modulus, dev.L, n))
+        e = max_abs_err(kernels.mont_chain(dev, x, depth), roofline.mont_chain_ref(dev, x, depth))
+        require(e == 0, f"mont_chain kernel != plain version at L = {dev.L}")
+        results["mont_chain"]["max_abs_err"] = max(results["mont_chain"]["max_abs_err"], e)
+        times = ""
+        if dev.L == 16:
+            km = cuda_ms(lambda: kernels.mont_chain(dev, x, depth))
+            pm = cuda_ms(lambda: roofline.mont_chain_ref(dev, x, depth), reps=1)
+            results["mont_chain"].update(ms=km, plain_ms=pm, bytes=2 * dev.L * 4 * n,
+                                         work=[(("mont", dev.L), depth * n)])
+            times = f" kernel {km:.4f} ms plain {pm:.4f} ms"
+        print(f"mont_chain L={dev.L} n={n} depth={depth}: max_abs_err={e}{times}", flush=True)
+    n = 2 ** 26
+    w = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, size=n, dtype=np.int64)
+                        .astype(np.int32), device=device)
+    e = max_abs_err(kernels.u32_chain(w), roofline.u32_chain_ref(w))
+    require(e == 0, "u32_chain kernel != plain version")
+    km = cuda_ms(lambda: kernels.u32_chain(w))
+    pm = cuda_ms(lambda: roofline.u32_chain_ref(w), reps=1)
+    results["u32_chain"].update(max_abs_err=e, ms=km, plain_ms=pm, bytes=8 * n,
+                                work=[("u32", n * roofline.U32_OPS_PER_ELEMENT)])
+    print(f"u32_chain n={n}: max_abs_err={e} kernel {km:.4f} ms plain {pm:.4f} ms", flush=True)
+
+
+def measure_rates(kernels, device, fields) -> dict:
+    """The probe path: Montgomery products per second at every L (slope
+    between depths 16 and 64 over 2^21 elements) and u32 ops per second,
+    with the launch counts set to 0 before and read after."""
+    from genstark_tpu_torch import roofline
+    kernels.reset_launch_counts()
+    rates = {"u32": roofline.u32_rate(device)["u32_ops_per_s"]}
+    for field in fields:
+        r = roofline.mont_rate(field.device_field(device))
+        rates[("mont", r["L"])] = r["mont_muls_per_s"]
+        print(f"probe mont_chain L={r['L']}: {r['mont_muls_per_s']:.6e} mont-muls/s "
+              f"(depths {r['depths']}: {r['ms'][0]:.4f} / {r['ms'][1]:.4f} ms over "
+              f"{r['n']} elements)", flush=True)
+    print(f"probe u32_chain: {rates['u32']:.6e} u32 ops/s", flush=True)
+    for key, rate in list(rates.items()):
+        if isinstance(key, tuple):
+            floor = rates["u32"] / roofline.mont_min_u32_ops(key[1])
+            print(f"L={key[1]}: this code's {rate:.6e} Montgomery products/s are "
+                  f"{100 * rate / floor:.1f}% of the card's {floor:.6e}/s "
+                  f"({roofline.mont_min_u32_ops(key[1])} 32-bit multiplies each at the u32 rate)",
+                  flush=True)
+    rates["launches"] = {k: kernels.launch_counts[k] for k in PROBE_KERNELS}
+    return rates
+
+
+def work_seconds(kind, count: int, rates: dict) -> float:
+    """Least seconds of `count` units of work on the card: int8 digit ops at
+    the tensor-core rate; u32 ops at the u32 probe's rate; Montgomery
+    products at L limbs as their least 32-bit multiplies
+    (roofline.mont_min_u32_ops) at that same rate."""
+    from genstark_tpu_torch.roofline import mont_min_u32_ops
+    if kind == "int8_mma":
+        return count / INT8_OPS_PER_S
+    if kind == "u32":
+        return count / rates["u32"]
+    return count * mont_min_u32_ops(kind[1]) / rates["u32"]
+
+
+def bound(entry: dict, rates: dict):
+    """(bound_ms, bound_by, own_ms): the larger of the bytes over the memory
+    rate and the work at the card's rates; and the Montgomery part of the
+    work at this code's own product rate (the mont_chain probe), None where
+    there is none."""
+    t_bytes = entry["bytes"] / MEM_BYTES_PER_S
+    t_ops = sum(work_seconds(kind, count, rates) for kind, count in entry["work"])
+    mont = [count / rates[kind] for kind, count in entry["work"] if isinstance(kind, tuple)]
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            1e3 * sum(mont) if mont else None)
+
+
+def check_large_transforms(kernels, device, field, rng) -> None:
+    """The LARGE_N-point P256 transform (R^-1 folded, as the prover's LDE)
+    through the direct route, the four-step route and the plain route: all
+    three equal, both kernel routes timed.  Then 2 and 4 times LARGE_N:
+    forward then inverse through the direct route returns the input."""
+    import torch
+    from genstark_tpu_torch.ntt import radix2
+    dev = field.device_field(device)
+    L, p = dev.L, field.modulus
+    n = LARGE_N
+    root, r_inv = field.get_root_of_unity(n), field.inv(field.params.R_mod % p)
+    direct = radix2.Radix2Plan(field, dev, n, root, r_inv)
+    saved = radix2.DIRECT_ABOVE
+    radix2.DIRECT_ABOVE = n
+    try:
+        four = radix2.Radix2Plan(field, dev, n, root, r_inv)
+    finally:
+        radix2.DIRECT_ABOVE = saved
+    require((direct.route, four.route) == ("direct", "four_step"), "2^22 routes")
+    x = dev.from_numpy(random_elements(rng, field.modulus, L, n)).reshape(1, L, n)
+    kernels.reset_launch_counts()
+    got = radix2.transform(dev, x, direct)
+    torch.cuda.synchronize()
+    one = {k: v for k, v in kernels.launch_counts.items() if v}
+    e4 = max_abs_err(got, radix2.transform(dev, x, four))
+    ep = max_abs_err(got, radix2.transform_ref(dev, x, direct))
+    d_ms = cuda_ms(lambda: radix2.transform(dev, x, direct), reps=3)
+    f_ms = cuda_ms(lambda: radix2.transform(dev, x, four), reps=3)
+    print(f"P256 {n}-point transform (R^-1 folded): direct vs four-step max_abs_err={e4}, "
+          f"direct vs plain max_abs_err={ep}; direct route {d_ms:.4f} ms, four-step route "
+          f"{f_ms:.4f} ms; launches of one direct transform {one}", flush=True)
+    require(e4 == 0 and ep == 0, f"{n}-point transform: the routes disagree")
+    stages = [1 << k for k in range(radix2.LOCAL_MAX.bit_length() - 1, n.bit_length() - 1)]
+    split = sum(m > kernels.STAGE_SPLIT_ABOVE for m in stages)
+    want = {"butterfly": 1, "bfly_stage": len(stages) - split, "bfly_stage_split": split}
+    require(all(one.get(k, 0) == v for k, v in want.items()),
+            f"{n}-point direct transform launches {one}, expected {want}")
+    del direct, four, x, got
+    torch.cuda.empty_cache()
+    for n in (2 * LARGE_N, 4 * LARGE_N):
+        root = field.get_root_of_unity(n)
+        fwd = radix2.Radix2Plan(field, dev, n, root)
+        inv = radix2.Radix2Plan(field, dev, n, field.inv(root), field.inv(n))
+        x = dev.from_numpy(random_elements(rng, field.modulus, L, n)).reshape(1, L, n)
+        t0 = time.monotonic()
+        back = radix2.transform(dev, radix2.transform(dev, x, fwd), inv)
+        torch.cuda.synchronize()
+        e = max_abs_err(back, x)
+        print(f"P256 {n}-point direct transform + inverse: max_abs_err={e} "
+              f"({(time.monotonic() - t0) * 1e3:.3f} ms with the first launch)", flush=True)
+        require(e == 0, f"{n}-point round trip does not return its input")
+        del fwd, inv, x, back
+        torch.cuda.empty_cache()
+
+
+def device_elements(device, seed: int, modulus: int, L: int, *shape):
+    """int32 [L, *shape] canonical limbs made on the card from `seed`
+    (random_elements' rule: the top limb below the modulus's top limb)."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    x = torch.randint(0, 1 << 16, (L,) + shape, generator=g, device=device, dtype=torch.int32)
+    x[L - 1] = torch.randint(0, modulus >> (16 * (L - 1)), shape, generator=g, device=device,
+                             dtype=torch.int32)
+    return x
+
+
+def chunked_err(got, plain, n: int, chunk: int = 1 << 21) -> int:
+    """max |got - plain| over the last axis [0, n) in chunks, plain(i0, i1)
+    giving the plain version's columns [i0, i1)."""
+    return max(max_abs_err(got[..., i0:min(n, i0 + chunk)], plain(i0, min(n, i0 + chunk)))
+               for i0 in range(0, n, chunk))
+
+
+def check_largest_shapes(device, field, results) -> None:
+    """Each kernel the 2^20-step path launches, against its plain version at
+    that path's largest shapes: Ne = 4 * LARGE_N = 2^24 at L = 16, where
+    the [2, 16, Ne] evaluation vectors hold 2^29 elements (2^31 bytes).
+    Kernel 5 on [16, Ne] and on the [16, 2, Ne] view of a [2, 16, Ne]
+    tensor (the direct route's scale multiply) with a scalar on either side;
+    kernel 6 at the Ne-point stage table's factors (4096 x 2048); kernel 3
+    over the Ne leaves of two vectors and the first FRI layer's Ne/4 rows;
+    kernel 2 over the e-tree's first level (Ne/2 pairs); kernel 4 at Ne with
+    the prover's split s = 4096; kernel 8's bit-reversed pass and the stages
+    m = 2048, Ne/4, Ne/2 over [2, 16, Ne].  The plain versions run on
+    column (or block) chunks where an output column reads only its own
+    input columns; kernel 6's and the stages' plain versions run whole."""
+    import torch
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.hash import create_hash, digest_rows_ref, elements_to_words
+    from genstark_tpu_torch.ntt import radix2
+    from genstark_tpu_torch.protocol.lincomb_kernel import lcomb_tail, lcomb_tail_ref
+    dev = field.device_field(device)
+    L, p, Ne, elem = dev.L, field.modulus, 4 * LARGE_N, field.element_size
+    split = lambda n: 1 << ((n.bit_length() - 1) // 2)                # the plans' s
+    chunk = Ne // 8
+    seeds = iter(range(20, 40))
+    rnd = lambda *shape: device_elements(device, next(seeds), p, L, *shape)
+    cols = lambda t, i0, i1: t[..., i0:i1] if t.shape[-1] > 1 else t    # a scalar stays
+
+    def note(name, e, what):
+        print(f"{name} at the 2^20-step path's shape, {what}: max_abs_err={e}", flush=True)
+        require(e == 0, f"{name} kernel != plain version at {what}")
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+
+    a, b, c = rnd(Ne), rnd(Ne), rnd(1)
+    e_std = rnd(2, Ne).transpose(0, 1).contiguous()                  # [2, L, Ne]
+    ev = e_std.transpose(0, 1)                                        # [L, 2, Ne] view
+    for op, ref in (("mul", dev.mont_mul_ref), ("add", dev.add_ref), ("sub", dev.sub_ref)):
+        err = 0
+        for x, y in ((a, b), (ev, c), (c, ev)):
+            err = max(err, chunked_err(kernels.field_ew(dev, op, x, y), lambda i0, i1: ref(
+                cols(x, i0, i1), cols(y, i0, i1)), Ne, chunk))
+        note("field_ew", err, f"{op} [16, {Ne}] and [16, 2, {Ne}] x scalar")
+
+    s = split(Ne // 2)
+    outer, inner = rnd(Ne // 2 // s), rnd(s)
+    note("outer_table", max_abs_err(kernels.outer_table(dev, outer, inner),
+                                    dev.outer_table_ref(outer, inner)), f"{Ne // 2 // s} x {s}")
+
+    algo = "blake2s256"
+    h = create_hash(algo)
+    err = chunked_err(h.merge_element_rows(e_std, elem), lambda i0, i1: digest_rows_ref(
+        algo, torch.cat([elements_to_words(e_std[v][:, i0:i1]) for v in range(2)]), 2 * elem), Ne, chunk)
+    M = Ne // 4
+    err = max(err, chunked_err(h.digest_stride_rows(a, elem), lambda i0, i1: digest_rows_ref(
+        algo, torch.cat([elements_to_words(a[:, k * M + i0:k * M + i1]) for k in range(4)]),
+        4 * elem), M, chunk))
+    note("hash_limbs", err, f"{Ne} leaves of [2, 16, {Ne}], {M} stride-4 rows")
+    words = a[:, :Ne // 2].contiguous()                               # [16, Ne/2]
+    note("hash_words", chunked_err(kernels.hash_words(algo, words, 64),
+                                   lambda i0, i1: digest_rows_ref(algo, words[:, i0:i1], 64),
+                                   Ne // 2, chunk), f"{Ne // 2} 64-byte pairs")
+
+    s, ext = split(Ne), 16
+    qe, b_stack = a, rnd(1, Ne).transpose(0, 1).contiguous()          # [1, L, Ne]
+    dom, incr = (rnd(Ne // s), rnd(s)), (rnd(Ne // s), rnd(s))
+    inv_series, b_coeffs, l_coeffs = rnd(ext), rnd(2), rnd(4)
+    x_last = p - 12345
+    tail = lcomb_tail(dev, qe, b_stack, e_std, dom, incr, inv_series, x_last, b_coeffs,
+                      l_coeffs, True, True, ext)
+    note("lcomb_tail", chunked_err(tail, lambda i0, i1: lcomb_tail_ref(
+        dev, qe[:, i0:i1], b_stack[..., i0:i1], e_std[..., i0:i1],
+        (dom[0][:, i0 // s:i1 // s], dom[1]), (incr[0][:, i0 // s:i1 // s], incr[1]),
+        inv_series, x_last, b_coeffs, l_coeffs, True, True, ext), Ne, chunk),
+        f"Ne = {Ne}, B = 1, V = 2, s = {s}")
+    del tail, b_stack, b, words
+
+    local = radix2.LOCAL_MAX
+    table = rnd(local // 2)
+    blocks = lambda t: t.view(2, L, Ne // local, local).permute(0, 2, 1, 3)
+    got = e_std.clone()
+    kernels.butterfly(dev, blocks(got), table, out=blocks(got), bitrev_in=True)
+    gc = Ne // local // 8
+    err = max(max_abs_err(blocks(got)[:, g0:g0 + gc], radix2.butterfly_ref(
+        dev, blocks(e_std)[:, g0:g0 + gc], table, bitrev_in=True))
+        for g0 in range(0, Ne // local, gc))
+    note("butterfly", err, f"bit-reversed entry over [2, 16, {Ne}] in blocks of {local}")
+    del got
+    table = rnd(Ne // 2)
+    for m in (local, Ne // 4, Ne // 2):
+        row = "bfly_stage" if m <= kernels.STAGE_SPLIT_ABOVE else "bfly_stage_split"
+        got = kernels.butterfly_stage(dev, e_std.clone(), table, m)
+        note(row, max_abs_err(got, radix2.butterfly_stage_ref(dev, e_std.clone(), table, m)),
+             f"m = {m} over [2, 16, {Ne}]")
+        del got
+    del a, c, e_std, ev, table
+    torch.cuda.empty_cache()
 
 
 def profile_prove(stark, assertions) -> None:
@@ -390,31 +776,42 @@ def proof_digest(data: bytes):
     return len(data), hashlib.sha256(data).hexdigest()
 
 
-def run_main_path(kernels, stark, constants, pin, required, label: str) -> dict:
-    """One main path (MiMC, BENCH_STEPS steps, secret input 3): a warm-up
-    prove; the launch counts set to 0, one prove checked against its pin,
-    the counts read; best of 5 and the spread of 20 proves; one profiled
-    prove.  Returns the launches."""
-    import torch
+def mimc_assertions(stark, constants, steps: int):
     from mimc_torch import run_mimc
     from genstark_tpu_torch.protocol import Assertion
-    controls = run_mimc(stark.air.field, BENCH_STEPS, constants, 3)
-    assertions = [Assertion(0, 0, controls[0]), Assertion(BENCH_STEPS - 1, 0, controls[-1])]
+    controls = run_mimc(stark.air.field, steps, constants, 3)
+    return [Assertion(0, 0, controls[0]), Assertion(steps - 1, 0, controls[-1])]
+
+
+def run_main_path(kernels, stark, constants, steps: int, pin, required, label: str,
+                  spread: int = 20):
+    """One main path (MiMC, `steps` steps, secret input 3): a warm-up
+    prove; the launch counts set to 0, one prove checked against its pin
+    (where there is one), the counts and the peak device memory read; best
+    of 5 and the spread of `spread` proves; one profiled prove.  Returns
+    (launches, proof bytes)."""
+    import torch
+    assertions = mimc_assertions(stark, constants, steps)
     t0 = time.monotonic()
     stark.prove(assertions, [[3]])
     torch.cuda.synchronize()
     warmup = time.monotonic() - t0
     kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     data = stark.serialize(stark.prove(assertions, [[3]]))
     launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
     got = proof_digest(data)
     print(f"{label} proof: {got[0]} bytes sha256 {got[1]}", flush=True)
     print(f"{label} launches in one prove: {launches}", flush=True)
-    require(got == pin, f"{label} proof differs from the JAX pin {pin}")
+    print(f"{label} peak device memory in one prove: {peak} bytes ({peak / 2 ** 30:.3f} GiB)",
+          flush=True)
+    if pin is not None:
+        require(got == pin, f"{label} proof differs from its pin {pin}")
     missing = [k for k in required if launches[k] == 0]
     require(not missing, f"{label}: kernels of the path never launched: {missing}")
     times = []
-    for _ in range(20):
+    for _ in range(spread):
         t0 = time.monotonic()
         stark.prove(assertions, [[3]])
         torch.cuda.synchronize()
@@ -427,6 +824,64 @@ def run_main_path(kernels, stark, constants, pin, required, label: str) -> dict:
     print(f"{label} prove seconds: {[round(t, 6) for t in times]}", flush=True)
     phase(f"{label}: where the time goes (torch.profiler, one prove)")
     profile_prove(stark, assertions)
+    return launches, data
+
+
+def four_step_proof(device, steps: int) -> bytes:
+    """The same MiMC-256 proof on a fresh Stark whose transforms all take
+    the four-step route (the direct route's threshold raised past Ne while
+    its plans are made, at the first prove)."""
+    from mimc_torch import make_mimc_stark
+    from genstark_tpu_torch.field import P256
+    from genstark_tpu_torch.ntt import radix2
+    stark, constants = make_mimc_stark(steps, device, modulus=P256)
+    saved = radix2.DIRECT_ABOVE
+    radix2.DIRECT_ABOVE = steps * stark.air.extension_factor            # Ne
+    try:
+        data = stark.serialize(stark.prove(mimc_assertions(stark, constants, steps), [[3]]))
+    finally:
+        radix2.DIRECT_ABOVE = saved
+    plans = next(iter(stark._provers.values()))._get_plans()
+    routes = {k: p.route for k, p in plans.items()}
+    require("direct" not in routes.values(), f"four-step prove took the direct route: {routes}")
+    print(f"four-step routes: {routes}", flush=True)
+    return data
+
+
+def run_largest(kernels, device, steps: int, label: str) -> dict:
+    """MiMC-256 at `steps` steps: a warm-up, then three proves (launch
+    counts of the first, best of 3, peak memory); the three proofs must be
+    identical.  Returns the launches of one prove."""
+    import torch
+    from mimc_torch import make_mimc_stark
+    from genstark_tpu_torch.field import P256
+    stark, constants = make_mimc_stark(steps, device, modulus=P256)
+    assertions = mimc_assertions(stark, constants, steps)
+    t0 = time.monotonic()
+    stark.prove(assertions, [[3]])
+    torch.cuda.synchronize()
+    warmup = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times, datas, launches = [], [], None
+    for _ in range(3):
+        t0 = time.monotonic()
+        proof = stark.prove(assertions, [[3]])
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        if launches is None:
+            launches = dict(kernels.launch_counts)
+        datas.append(stark.serialize(proof))
+    peak = torch.cuda.max_memory_allocated()
+    got = proof_digest(datas[0])
+    print(f"{label} proof: {got[0]} bytes sha256 {got[1]}", flush=True)
+    print(f"{label} launches in one prove: {launches}", flush=True)
+    print(f"{label} warmup {warmup:.4f} s; prove best-of-3 {min(times):.6f} s; prove seconds "
+          f"{[round(t, 6) for t in times]}; peak device memory {peak} bytes "
+          f"({peak / 2 ** 30:.3f} GiB)", flush=True)
+    require(datas[0] == datas[1] == datas[2], f"{label}: two proves gave different bytes")
+    missing = [k for k in LARGE_KERNELS if launches[k] == 0]
+    require(not missing, f"{label}: kernels of the path never launched: {missing}")
     return launches
 
 
@@ -462,17 +917,19 @@ def main() -> int:
         print(f"ptxas: {name}: {report}", flush=True)
 
     phase("kernels vs plain versions (exact, tolerance 0)")
-    meta = {
-        "dft_level": ("genstark_tpu_torch/csrc/dft_level.cu", "genstark_tpu/ntt/mxu.py:356"),
-        "hash_words": ("genstark_tpu_torch/csrc/hash.cu", "genstark_tpu/hash/pallas_hash.py:182"),
-        "hash_limbs": ("genstark_tpu_torch/csrc/hash.cu", "genstark_tpu/hash/pallas_hash.py:200"),
-        "lcomb_tail": ("genstark_tpu_torch/csrc/lcomb_tail.cu",
-                       "genstark_tpu/protocol/lincomb_kernel.py:47"),
-        "field_ew": ("genstark_tpu_torch/csrc/field_ops.cu", "genstark_tpu/field/pallas_ops.py:34"),
-        "outer_table": ("genstark_tpu_torch/csrc/field_ops.cu",
-                        "genstark_tpu/field/pallas_ops.py:79"),
-        "butterfly": ("genstark_tpu_torch/csrc/butterfly.cu",
-                      "genstark_tpu/ntt/pallas_kernels.py:204"),
+    src, tpu = "genstark_tpu_torch/csrc/", "genstark_tpu/"
+    meta = {   # name: (source, the TPU kernel it replaces), in the order of the table rows
+        "dft_level": (src + "dft_level.cu", tpu + "ntt/mxu.py:356"),
+        "hash_words": (src + "hash.cu", tpu + "hash/pallas_hash.py:182"),
+        "hash_limbs": (src + "hash.cu", tpu + "hash/pallas_hash.py:200"),
+        "lcomb_tail": (src + "lcomb_tail.cu", tpu + "protocol/lincomb_kernel.py:47"),
+        "field_ew": (src + "field_ops.cu", tpu + "field/pallas_ops.py:34"),
+        "outer_table": (src + "field_ops.cu", tpu + "field/pallas_ops.py:79"),
+        "bfly_stage": (src + "butterfly_stage.cu", tpu + "ntt/pallas_kernels.py:120"),
+        "butterfly": (src + "butterfly.cu", tpu + "ntt/pallas_kernels.py:204"),
+        "bfly_stage_split": (src + "butterfly_stage.cu", tpu + "ntt/pallas_kernels.py:308"),
+        "mont_chain": (src + "probes.cu", "scripts/roofline.py:78"),
+        "u32_chain": (src + "probes.cu", "scripts/vpu_bound.py:24"),
     }
     results = {k: {"max_abs_err": 0, "ms": None, "plain_ms": None} for k in meta}
     rng = np.random.default_rng(2024)
@@ -491,7 +948,22 @@ def main() -> int:
     check_butterfly(device, all_fields, rng, results)
     check_hash_limbs(dev256, f256, rng, results, record_times=False)
     check_tail(dev256, f256, rng, results, record_times=False)
+    check_stages(device, [all_fields[1], all_fields[3], f256], rng, results)
+    check_butterfly_bitrev(device, all_fields, rng, results)
+    check_probes(device, all_fields, rng, results)
     torch.cuda.synchronize()
+
+    phase("probes: the card's Montgomery-multiply and u32 op rates")
+    rates = measure_rates(kernels, device, all_fields)
+
+    phase(f"large transforms: P256 at {LARGE_N} points by three routes, 2x and 4x round trips")
+    check_large_transforms(kernels, device, f256, rng)
+
+    phase(f"kernels vs plain versions at the {LARGEST_STEPS}-step path's largest shapes "
+          f"(Ne = {4 * LARGE_N}, [2, 16, Ne] operands)")
+    t0 = time.monotonic()
+    check_largest_shapes(device, f256, results)
+    print(f"largest-shape checks {time.monotonic() - t0:.1f} s", flush=True)
 
     phase("pinned toy proofs on the card")
     for modulus, count, pin in ((P32, 16, P32_PIN), (P128, 32, P128_PIN)):
@@ -511,20 +983,43 @@ def main() -> int:
         require(got == pin, f"p{modulus.bit_length()} proof differs from its pin {pin}")
 
     phase(f"bench config: MiMC-128, {BENCH_STEPS} steps, secret input 3")
-    bench_launches = run_main_path(kernels, *make_mimc_stark(BENCH_STEPS, device),
-                                   BENCH_PIN, BENCH_KERNELS, "bench")
+    bench_launches, _ = run_main_path(kernels, *make_mimc_stark(BENCH_STEPS, device),
+                                      BENCH_STEPS, BENCH_PIN, BENCH_KERNELS, "bench")
 
     phase(f"MiMC-256: P256, {BENCH_STEPS} steps, secret input 3 (radix-2 path)")
-    mimc256_launches = run_main_path(
-        kernels, *make_mimc_stark(BENCH_STEPS, device, modulus=P256), MIMC256_PIN,
-        MIMC256_KERNELS, "mimc256")
-    launches = {k: bench_launches[k] + mimc256_launches[k] for k in meta}
+    mimc256_launches, _ = run_main_path(
+        kernels, *make_mimc_stark(BENCH_STEPS, device, modulus=P256), BENCH_STEPS,
+        MIMC256_PIN, MIMC256_KERNELS, "mimc256")
 
-    kernels_line = {"kernels": [
-        {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-         "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
-        for name in meta]}
+    phase(f"MiMC-256: P256, {LARGE_STEPS} steps (Ne = {16 * LARGE_STEPS}: direct route)")
+    large_launches, large_data = run_main_path(
+        kernels, *make_mimc_stark(LARGE_STEPS, device, modulus=P256), LARGE_STEPS,
+        LARGE_PIN, LARGE_KERNELS, "mimc256-2^18", spread=10)
+    torch.cuda.empty_cache()
+    four = four_step_proof(device, LARGE_STEPS)
+    print(f"mimc256-2^18 through the four-step route: {proof_digest(four)}", flush=True)
+    require(four == large_data, "mimc256-2^18: the direct and four-step routes disagree")
+    del four, large_data
+    torch.cuda.empty_cache()
+
+    phase(f"MiMC-256: P256, {LARGEST_STEPS} steps (Ne = {16 * LARGEST_STEPS})")
+    largest_launches = run_largest(kernels, device, LARGEST_STEPS, "mimc256-2^20")
+
+    launches = {k: bench_launches[k] + mimc256_launches[k] + large_launches[k]
+                + largest_launches[k] + rates["launches"].get(k, 0) for k in meta}
+    line = []
+    for name in meta:
+        r = results[name]
+        bound_ms, bound_by, own_ms = bound(r, rates)
+        line.append({"name": name, "route": "cuda", "source": meta[name][0],
+                     "replaces": meta[name][1], "launches": launches[name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        own = "" if own_ms is None else f"; its Montgomery products at this code's rate {own_ms:.4f} ms"
+        print(f"{name}: {r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms "
+              f"({bound_by}; {100 * bound_ms / r['ms']:.1f}% of it{own}), plain "
+              f"{r['plain_ms']:.4f} ms, {launches[name]} launches on the paths", flush=True)
+    kernels_line = {"kernels": line}
     print(json.dumps(kernels_line), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

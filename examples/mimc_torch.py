@@ -5,7 +5,10 @@ P256, the reference's mimc256), importing only genstark_tpu_torch.
 
     python -m examples.mimc_torch [steps] [device] [modulus name]
 
-e.g. `python -m examples.mimc_torch 8192 cuda P256`.
+e.g. `python -m examples.mimc_torch 8192 cuda P256`, or the large-domain
+path `python -m examples.mimc_torch 262144 cuda P256` (Ne = 2^22).  It
+prints the proof's size and sha256 with the seconds it took and the peak
+host memory.
 """
 
 from __future__ import annotations
@@ -76,6 +79,7 @@ def prove_mimc(steps: int, device, seed_value: int = 3, **kwargs):
 
 if __name__ == "__main__":
     import hashlib
+    import resource
     import sys
     from genstark_tpu_torch.utils import Logger
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 2 ** 13
@@ -84,4 +88,5 @@ if __name__ == "__main__":
     modulus = getattr(fields, name)
     log = Logger().start(f"MiMC over {name}, {n} steps, on {dev}")
     _, data = prove_mimc(n, dev, modulus=modulus)
-    log(f"proof {len(data)} bytes, sha256 {hashlib.sha256(data).hexdigest()}")
+    log(f"proof {len(data)} bytes, sha256 {hashlib.sha256(data).hexdigest()}, peak host RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20:.2f} GiB")

@@ -5,7 +5,11 @@
 // :286): all radix-2 DIT stages of an n-point transform on one block of
 // data kept in fast memory.  Plain version: genstark_tpu_torch/ntt/radix2.py
 // (butterfly_ref, the JAX package's jnp stage loop, ntt/__init__.py:560-577,
-// with the bit reversal of :400-408,534).
+// with the bit reversal of :400-408,534).  Two entries: natural-order input
+// (bit-reversed as it loads: the local route and the four-step passes), or
+// input already in bit-reversed order (`bitrev_in`, the contract of
+// `multistage`: the direct route's local pass over the contiguous blocks of
+// a globally bit-reversed array, which must not be reversed again).
 //
 // What bounds it on this card: a butterfly is one Montgomery product and a
 // modular add and sub (~1,600 integer ops at L = 16) on 2 elements, so the
@@ -39,6 +43,7 @@ struct BflyArgs {
   long long xs[4], os[4];  // element strides of (B, G, L, n)
   int groups;              // G
   int log_n;
+  int bitrev_in;           // 1: x is already in bit-reversed order
 };
 
 template <int L>
@@ -50,7 +55,8 @@ __global__ void __launch_bounds__(256) butterfly_kernel(BflyArgs a, Field f) {
   const int32_t* src = a.x + b * a.xs[0] + g * a.xs[1];
   for (int idx = threadIdx.x; idx < L * n; idx += blockDim.x) {
     const int l = idx >> a.log_n, j = idx & (n - 1);
-    const int r = static_cast<int>(__brev(static_cast<unsigned>(j)) >> (32 - a.log_n));
+    const int r =
+        a.bitrev_in ? j : static_cast<int>(__brev(static_cast<unsigned>(j)) >> (32 - a.log_n));
     sm[l * n + r] = static_cast<uint32_t>(src[l * a.xs[2] + j * a.xs[3]]);
   }
   __syncthreads();
@@ -104,10 +110,11 @@ cudaError_t launch_butterfly(const BflyArgs& a, long long n_blocks, const Field&
 }  // namespace gs
 
 // x_strides / out_strides: element strides of (B, G, L, n); tw: int32 [L, n/2].
+// out may be x itself: a block reads its whole transform before it writes.
 extern "C" int gs_butterfly(int L, const void* x, const long long* x_strides, void* out,
                             const long long* out_strides, const void* tw, int batch,
-                            int groups, int log_n, const uint32_t* field_words,
-                            void* stream) {
+                            int groups, int log_n, int bitrev_in,
+                            const uint32_t* field_words, void* stream) {
   if (log_n < 1 || log_n > 16 || groups <= 0 || batch < 0) return cudaErrorInvalidValue;
   if (batch == 0) return 0;
   gs::BflyArgs a = {};
@@ -120,6 +127,7 @@ extern "C" int gs_butterfly(int L, const void* x, const long long* x_strides, vo
   }
   a.groups = groups;
   a.log_n = log_n;
+  a.bitrev_in = bitrev_in ? 1 : 0;
   const long long n_blocks = static_cast<long long>(batch) * groups;
   if (n_blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
   const gs::Field f = gs::field_from_words(field_words, L);

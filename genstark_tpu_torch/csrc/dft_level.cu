@@ -110,6 +110,8 @@ dft_level_kernel(const int8_t* __restrict__ w8, const int8_t* __restrict__ x8,
                  void* __restrict__ out, Field f, DftEpilogue epi) {
   using S = DftShape<L>;
   constexpr int D = S::D;
+  // col < cols, an int (the wrapper refuses 2^31 columns or more); the plane
+  // offsets below are 64-bit
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int k = blockIdx.y;
   if (col >= cols) return;

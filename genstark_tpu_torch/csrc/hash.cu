@@ -50,6 +50,10 @@ __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
 
 __device__ __forceinline__ uint32_t bswap(uint32_t x) { return __byte_perm(x, 0, 0x0123); }
 
+// Index widths: word, block and limb indices (i, blk, v, k, n_words) stay
+// below a few hundred; every product with a stride or the batch is taken in
+// 64 bits (long long), so the [2, 16, 2^24] vectors of a 2^20-step prove fit.
+//
 // Message words from a word-major [n_words, batch] array.
 struct WordSource {
   const uint32_t* words;

@@ -1,7 +1,8 @@
 """Build, load and launch the port's CUDA kernels.
 
 The kernels live in ``csrc/`` (dft_level.cu, hash.cu, lcomb_tail.cu,
-field_ops.cu, butterfly.cu, sharing field.cuh).  At first use each source is
+field_ops.cu, butterfly.cu, butterfly_stage.cu, probes.cu, sharing
+field.cuh).  At first use each source is
 compiled by its own ``nvcc`` for ``sm_90a`` (all started together), and the
 objects are linked into ONE shared library with a plain C interface, under
 ``_build/<hash of the sources>/``, loaded with ctypes.  Nothing is built or
@@ -11,7 +12,8 @@ Each wrapper below checks device, dtype, shape and layout, launches on the
 current CUDA stream, raises if the launch failed, and adds one to its entry
 in ``launch_counts``.  The wrappers take CUDA tensors only: the modules that
 own a kernel (field/device.py, ntt/dft.py, ntt/radix2.py, hash/__init__.py,
-protocol/lincomb_kernel.py) send CPU tensors to their plain versions.
+protocol/lincomb_kernel.py, roofline.py) send CPU tensors to their plain
+versions.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-_SOURCES = ("dft_level.cu", "hash.cu", "lcomb_tail.cu", "field_ops.cu", "butterfly.cu")
+_SOURCES = ("dft_level.cu", "hash.cu", "lcomb_tail.cu", "field_ops.cu", "butterfly.cu",
+            "butterfly_stage.cu", "probes.cu")
 _HEADERS = ("field.cuh",)
 _LIB_NAME = "libgenstark_kernels.so"
 
@@ -42,10 +45,15 @@ EW_MAX_DIMS = 4
 SMEM_BYTES = 232448
 
 # Launch counts per kernel (kernel 1: dft_level; 2: hash_words; 3:
-# hash_limbs; 4: lcomb_tail; 5: field_ew; 6: outer_table; 8: butterfly).  A
-# wrapper adds one where it launches.
+# hash_limbs; 4: lcomb_tail; 5: field_ew; 6: outer_table; 7: bfly_stage; 8:
+# butterfly; 9: bfly_stage_split; 10: mont_chain; 11: u32_chain).  A wrapper
+# adds one where it launches.
 launch_counts = {"dft_level": 0, "hash_words": 0, "hash_limbs": 0, "lcomb_tail": 0,
-                 "field_ew": 0, "outer_table": 0, "butterfly": 0}
+                 "field_ew": 0, "outer_table": 0, "bfly_stage": 0, "butterfly": 0,
+                 "bfly_stage_split": 0, "mont_chain": 0, "u32_chain": 0}
+# The JAX package's rule between rows 7 and 9 (pallas_kernels.py:378, _BLK):
+# a stage of half-size m <= STAGE_SPLIT_ABOVE counts as row 7.
+STAGE_SPLIT_ABOVE = 4096
 
 _lib = None
 build_info = {}
@@ -131,8 +139,14 @@ def _load():
         lib.gs_field_ew.restype = I
         lib.gs_outer_table.argtypes = [I, P, I, P, I, P, P, P]
         lib.gs_outer_table.restype = I
-        lib.gs_butterfly.argtypes = [I, P, P, P, P, P, I, I, I, P, P]
+        lib.gs_butterfly.argtypes = [I, P, P, P, P, P, I, I, I, I, P, P]
         lib.gs_butterfly.restype = I
+        lib.gs_butterfly_stage.argtypes = [I, P, P, I, I, I, P, P]
+        lib.gs_butterfly_stage.restype = I
+        lib.gs_mont_chain.argtypes = [I, P, P, LL, I, P, P]
+        lib.gs_mont_chain.restype = I
+        lib.gs_u32_chain.argtypes = [P, P, LL, P]
+        lib.gs_u32_chain.restype = I
         _lib = lib
     return _lib
 
@@ -183,6 +197,8 @@ def dft_level(dev, w8, x8, m: int, rest: int, tw, out_digits: bool):
     L = dev.L
     D = 2 * L + 1
     cols = x8.shape[2]
+    if cols >= 1 << 31:
+        raise ValueError(f"dft_level takes fewer than 2^31 columns, got {cols}")
     _require(w8, "w8", torch.int8, (D, m, m))
     _require(x8, "x8", torch.int8, (D, m, cols))
     mode, tw_a, tw_b, s, tc = 0, None, None, 1, 1
@@ -381,12 +397,14 @@ def butterfly_max_n(L: int) -> int:
     return n
 
 
-def butterfly(dev, x: torch.Tensor, table: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
+def butterfly(dev, x: torch.Tensor, table: torch.Tensor, out: torch.Tensor = None,
+              bitrev_in: bool = False) -> torch.Tensor:
     """Kernel 8 (csrc/butterfly.cu gs_butterfly): contract of
     ntt.radix2.butterfly_ref.  x [B, G, L, n] (any strides): B*G local
-    n-point transforms; table [L, n/2] the local root's powers
-    (Montgomery); out [B, G, L, n] (any strides, not overlapping x), or a
-    new contiguous tensor."""
+    n-point transforms, natural order in, or already bit-reversed with
+    `bitrev_in`; table [L, n/2] the local root's powers (Montgomery); out
+    [B, G, L, n] (any strides; x itself, or not overlapping x), or a new
+    contiguous tensor."""
     L = _field_l(dev)
     _require(x, "x", torch.int32, contiguous=False)
     if x.dim() != 4 or x.shape[2] != L:
@@ -403,7 +421,66 @@ def butterfly(dev, x: torch.Tensor, table: torch.Tensor, out: torch.Tensor = Non
     fw = np.ascontiguousarray(_field_words(dev))
     rc = _load().gs_butterfly(L, x.data_ptr(), _i64s(list(x.stride())), out.data_ptr(),
                               _i64s(list(out.stride())), table.data_ptr(), B, G,
-                              n.bit_length() - 1, _u32p(fw), _stream(x))
+                              n.bit_length() - 1, int(bitrev_in), _u32p(fw), _stream(x))
     _check(rc, "butterfly")
     launch_counts["butterfly"] += 1
+    return out
+
+
+# -------------------------------------------------------------- kernels 7, 9
+def butterfly_stage(dev, x: torch.Tensor, table: torch.Tensor, m: int) -> torch.Tensor:
+    """Kernels 7 and 9 (csrc/butterfly_stage.cu gs_butterfly_stage):
+    contract of ntt.radix2.butterfly_stage_ref.  One radix-2 DIT stage of
+    half-size m over x [B, L, n] (contiguous), in place; table [L, n/2] the
+    powers of the n-th root (Montgomery).  Counted as `bfly_stage` (row 7)
+    for m <= STAGE_SPLIT_ABOVE, else `bfly_stage_split` (row 9)."""
+    L = _field_l(dev)
+    _require(x, "x", torch.int32)
+    if x.dim() != 3 or x.shape[1] != L:
+        raise ValueError(f"butterfly_stage takes x [B, {L}, n], got {tuple(x.shape)}")
+    B, _, n = x.shape
+    if n < 2 or n & (n - 1) or m < 1 or m & (m - 1) or m >= n:
+        raise ValueError(f"stage m={m} of an n={n} transform: both powers of two, m < n")
+    if B > 65535:
+        raise ValueError(f"butterfly_stage takes at most 65535 rows, got {B}")
+    _require(table, "table", torch.int32, (L, n // 2))
+    if B == 0:
+        return x
+    fw = np.ascontiguousarray(_field_words(dev))
+    rc = _load().gs_butterfly_stage(L, x.data_ptr(), table.data_ptr(), B, n.bit_length() - 1,
+                                    m.bit_length() - 1, _u32p(fw), _stream(x))
+    _check(rc, "butterfly_stage")
+    launch_counts["bfly_stage" if m <= STAGE_SPLIT_ABOVE else "bfly_stage_split"] += 1
+    return x
+
+
+# ------------------------------------------------------------- kernels 10, 11
+def mont_chain(dev, x: torch.Tensor, depth: int) -> torch.Tensor:
+    """Kernel 10 (csrc/probes.cu gs_mont_chain): contract of
+    roofline.mont_chain_ref.  x int32 [L, n] contiguous -> x squared
+    `depth` times by Montgomery products, a new [L, n] tensor."""
+    L = _field_l(dev)
+    _require(x, "x", torch.int32)
+    if x.dim() != 2 or x.shape[0] != L:
+        raise ValueError(f"mont_chain takes x [{L}, n], got {tuple(x.shape)}")
+    if depth < 0:
+        raise ValueError("depth must be >= 0")
+    out = torch.empty_like(x)
+    fw = np.ascontiguousarray(_field_words(dev))
+    rc = _load().gs_mont_chain(L, x.data_ptr(), out.data_ptr(), x.shape[1], depth, _u32p(fw),
+                               _stream(x))
+    _check(rc, "mont_chain")
+    launch_counts["mont_chain"] += 1
+    return out
+
+
+def u32_chain(x: torch.Tensor) -> torch.Tensor:
+    """Kernel 11 (csrc/probes.cu gs_u32_chain): contract of
+    roofline.u32_chain_ref.  x int32 (u32 bits, any shape, contiguous) ->
+    a new tensor of the same shape."""
+    _require(x, "x", torch.int32)
+    out = torch.empty_like(x)
+    rc = _load().gs_u32_chain(x.data_ptr(), out.data_ptr(), x.numel(), _stream(x))
+    _check(rc, "u32_chain")
+    launch_counts["u32_chain"] += 1
     return out

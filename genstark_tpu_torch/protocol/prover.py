@@ -19,7 +19,14 @@ device and single program, with the transcript on the host:
    `_host_plans`), ONE device gather of every proof byte, and `_assemble`.
 
 Every transform is a chain of DFT levels (kernel 1) for p32 and p128, and
-the radix-2 path (kernels 8 and 5) for the other fields (ntt/__init__.py).
+the radix-2 path (kernels 8 and 5, plus the stage kernels 7 and 9 above
+2^21 points) for the other fields (ntt/__init__.py).
+
+Large domains (the JAX package's split mode, `fused.py:203-224`, from
+Ne = 2^22): the stages drop each full-domain tensor as soon as nothing
+reads it again, so the peak follows the live set (at Ne = 2^24 and L = 16
+one [L, Ne] vector is 1 GB).  The chunked tail (`fused.py:737-756`) is not
+ported: kernel 4 takes any Ne in one launch.
 Power tables longer than 4096 entries are uploaded factored — outer powers
 of seed^s and inner powers of seed — and regenerated on the device by one
 outer-table multiply (kernel 6; or consumed factored by kernel 4).  Every
@@ -184,6 +191,7 @@ class Prover:
         Ne = self.Ne
         trace = _to_mont_batch(dev, trace_std)                      # [R, L, T]
         p_polys = self._transform(trace, "w_T_inv")
+        del trace
         e_vectors = [self._lde(p_polys, Ne, "w_Ne_std")]            # [R, L, Ne] std
         statics_std = self.context.statics_std()
         static_polys = None
@@ -193,6 +201,7 @@ class Prover:
             if self.secret_idx:
                 e_vectors.append(self._lde(static_polys[self.secret_idx], Ne, "w_Ne_std"))
         e_std = torch.cat(e_vectors).contiguous()                    # [V, L, Ne]
+        del e_vectors
         leaves = self.hash.merge_element_rows(e_std, self.field.element_size)
         e_flat = build_tree_flat(self.hash, leaves, Ne)
         return p_polys, static_polys, e_std, e_flat, _root_bytes(e_flat)
@@ -238,8 +247,11 @@ class Prover:
             for i in group["indexes"]:
                 qa.append(dev.mont_mul(qa[i], powers))
         qc = dev.combine_many_mont(qa, d_coeffs)                    # [L, Nc] std
+        del qa, q_evals, p_evals, n_evals, static_evals
         qc_poly = self._transform(qc, "w_Nc_inv")
+        del qc
         qe = self._lde(qc_poly, Ne, "w_Ne")                         # [L, Ne] std
+        del qc_poly
 
         # boundary quotients, extended to the evaluation domain
         i_polys_mont = _to_mont_batch(dev, c_poly.b_poly.i_polys_std())
@@ -255,6 +267,7 @@ class Prover:
         b_inc = c_poly.composition_degree - T > 0
         ps_inc = self.l_comb.ps_incremental_degree > 0
         incr_parts = self._parts("incr") if (b_inc or ps_inc) else None
+        # the tail is the last reader of qe and b_stack: they go with this frame
         return lcomb_tail(dev, qe, b_stack, e_std, self._parts("dom_fwd"), incr_parts,
                           inv_series, z.x_at_last_step, b_coeffs, l_coeffs,
                           b_inc, ps_inc, context.extension_factor)

@@ -215,3 +215,88 @@ def test_mimc256_pin_on_card(device):
     _, data = prove_mimc(64, device, modulus=P256)
     assert (len(data), hashlib.sha256(data).hexdigest()) == (
         40300, "aeca982219743b04f13dd8b6be2b855f951bb16fd4c837f841d62af059265be4")
+
+
+@ALL_FIELDS
+def test_stage_kernels_equal_plain_and_count(device, modulus):
+    """Kernels 7 and 9: one stage at m on both sides of 4096 against
+    butterfly_stage_ref, in place; m <= 4096 counts as `bfly_stage`, larger
+    m as `bfly_stage_split`."""
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.field.limbs import power_series_mont_np
+    from genstark_tpu_torch.ntt import radix2
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    n = 2 ** 14
+    rng = np.random.default_rng(modulus % 97)
+    x = dev.from_numpy(_elements(rng, modulus, dev.L, 2 * n)).reshape(dev.L, 2, n)
+    x = x.permute(1, 0, 2).contiguous()
+    table = dev.from_numpy(power_series_mont_np(field.params, field.get_root_of_unity(n), n // 2))
+    for m in (2048, 4096, 8192):
+        row = "bfly_stage" if m <= 4096 else "bfly_stage_split"
+        before = kernels.launch_counts[row]
+        got = radix2.butterfly_stage(dev, x.clone(), table, m)
+        assert kernels.launch_counts[row] == before + 1
+        assert torch.equal(got, radix2.butterfly_stage_ref(dev, x.clone(), table, m))
+
+
+@ALL_FIELDS
+def test_bitrev_butterfly_kernel_equals_plain(device, modulus):
+    """Kernel 8's bit-reversed entry over the 2048-point blocks of a
+    2^13-point array, in place."""
+    from genstark_tpu_torch.field.limbs import power_series_mont_np
+    from genstark_tpu_torch.ntt import radix2
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    n, local, L = 2 ** 13, 2048, dev.L
+    rng = np.random.default_rng(modulus % 83)
+    x = dev.from_numpy(_elements(rng, modulus, L, n)).reshape(1, L, n)
+    table = dev.from_numpy(power_series_mont_np(
+        field.params, pow(field.get_root_of_unity(n), n // local, modulus), local // 2))
+    view = lambda t: t.view(1, L, n // local, local).permute(0, 2, 1, 3)
+    want = radix2.butterfly_ref(dev, view(x), table, bitrev_in=True)
+    got = x.clone()
+    radix2.butterfly(dev, view(got), table, out=view(got), bitrev_in=True)
+    assert torch.equal(view(got), want)
+
+
+@ALL_FIELDS
+def test_mont_chain_kernel_equals_plain(device, modulus):
+    from genstark_tpu_torch import roofline
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    x = dev.from_numpy(_elements(np.random.default_rng(31), modulus, dev.L, 4096))
+    assert torch.equal(roofline.mont_chain(dev, x, 5), roofline.mont_chain_ref(dev, x, 5))
+
+
+def test_u32_chain_kernel_equals_plain(device):
+    from genstark_tpu_torch import roofline
+    rng = np.random.default_rng(37)
+    x = torch.as_tensor(rng.integers(0, 1 << 32, size=(8, 2048), dtype=np.uint64)
+                        .astype(np.uint32).view(np.int32), device=device)
+    assert torch.equal(roofline.u32_chain(x), roofline.u32_chain_ref(x))
+
+
+@pytest.mark.parametrize("modulus", [P64, P256], ids=["p64", "p256"])
+def test_direct_route_equals_four_step_on_card(device, modulus, monkeypatch):
+    """A 2^14-point transform (R^-1 folded) through the direct route
+    (kernels 8, 7, 9, 5) equals the four-step route and the plain route."""
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.ntt import radix2
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    n = 2 ** 14
+    args = (field, dev, n, field.get_root_of_unity(n), field.inv(field.params.R_mod % modulus))
+    four = radix2.Radix2Plan(*args)
+    monkeypatch.setattr(radix2, "DIRECT_ABOVE", 2 ** 13)
+    direct = radix2.Radix2Plan(*args)
+    assert (direct.route, four.route) == ("direct", "four_step")
+    x = dev.from_numpy(_elements(np.random.default_rng(41), modulus, dev.L, 2 * n))
+    x = x.reshape(dev.L, 2, n).permute(1, 0, 2)
+    before = dict(kernels.launch_counts)
+    got = radix2.transform(dev, x, direct)
+    assert {k: kernels.launch_counts[k] - before[k]
+            for k in ("butterfly", "bfly_stage", "bfly_stage_split")} == {
+        "butterfly": 1, "bfly_stage": 2, "bfly_stage_split": 1}
+    assert torch.equal(got, radix2.transform(dev, x, four))
+    assert torch.equal(got, radix2.transform_ref(dev, x, direct))

@@ -118,7 +118,8 @@ def test_butterfly_ref_matches_pallas_multistage(modulus):
 
 def test_plan_factory_and_split(local_max):
     """make_plan keeps the digit DFT for p32 and p128 and gives the radix-2
-    plan to every other field; the split follows LOCAL_MAX."""
+    plan to every other field; the split follows LOCAL_MAX, and a size the
+    four-step cannot cover takes the direct route."""
     for modulus, kind in ((P32, DftPlan), (P128, DftPlan), (P64, Radix2Plan),
                           (P224, Radix2Plan), (P256, Radix2Plan)):
         field = create_prime_field(modulus)
@@ -130,10 +131,15 @@ def test_plan_factory_and_split(local_max):
     assert radix2.LOCAL_MAX == 2048
     assert split(2048) is None and split(2 ** 13) == (64, 128)
     assert split(2 ** 17) == (256, 512)
+    assert radix2.DIRECT_ABOVE == 2 ** 21
+    assert [radix2.route_for(n) for n in (2048, 2 ** 21, 2 ** 22)] == [
+        "local", "four_step", "direct"]
     local_max(256)
     assert split(256) is None and split(512) == (16, 32) and split(2 ** 16) == (256, 256)
-    with pytest.raises(NotImplementedError, match="split mode"):
-        split(2 ** 17)
+    plan = Radix2Plan(field, dev, 2 ** 17, field.get_root_of_unity(2 ** 17))
+    assert (plan.route, plan.split) == ("direct", None)
+    assert tuple(plan.twiddles.shape) == (dev.L, 2 ** 16)
+    assert tuple(plan.tables[0].shape) == (dev.L, 128)
     with pytest.raises(ValueError):
         Radix2Plan(field, dev, 48, 1)
 
