@@ -375,11 +375,13 @@ def check_butterfly(device, fields, rng, results):
 
 
 def check_stages(device, fields, rng, results):
-    """Kernels 7 and 9 bit for bit against butterfly_stage_ref: at the main
-    path's shape (P256, n = LARGE_N, one row) for every stage the direct
-    route runs there (m = 2048 .. n/2), and at L = 4 and 14 at n = 2^15 with
-    m on both sides of 4096.  The reported times are means per launch over
-    each row's stages at LARGE_N."""
+    """Kernels 7 and 9 bit for bit against butterfly_stages_ref: at the main
+    path's shape (P256, n = LARGE_N, one row) each pass the direct route
+    runs there (radix2.stage_passes), and one-stage passes at every m =
+    2048 .. n/2; at L = 4 and 14 at n = 2^15 the route's passes from m =
+    2048 and one-stage passes at m = 2048 and 8192.  The reported times are
+    the route's passes at LARGE_N, one launch each; the one-stage passes
+    there are timed too (the time of each stage alone)."""
     import torch
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.ntt import radix2
@@ -389,44 +391,51 @@ def check_stages(device, fields, rng, results):
         n = LARGE_N if L == 16 else 2 ** 15
         table = stage_tables(field, dev, n)[0]
         x = dev.from_numpy(random_elements(rng, field.modulus, L, n)).reshape(1, L, n)
+        passes = radix2.stage_passes(n, radix2.LOCAL_MAX, radix2.PASS_DEPTH)
         lm0 = radix2.LOCAL_MAX.bit_length() - 1
-        ms = range(lm0, n.bit_length() - 1) if L == 16 else range(lm0, lm0 + 4)
-        per_row = {"bfly_stage": [], "bfly_stage_split": []}
-        for lm in ms:
-            m = 1 << lm
+        ones = range(lm0, n.bit_length() - 1) if L == 16 else (lm0, lm0 + 2)
+        total, single = 0.0, 0.0
+        for i, (m, k) in enumerate(passes + [(1 << lm, 1) for lm in ones]):
             row = "bfly_stage" if m <= kernels.STAGE_SPLIT_ABOVE else "bfly_stage_split"
-            got = kernels.butterfly_stage(dev, x.clone(), table, m)
-            e = max_abs_err(got, radix2.butterfly_stage_ref(dev, x.clone(), table, m))
+            got = kernels.butterfly_stages(dev, x.clone(), table, m, k)
+            e = max_abs_err(got, radix2.butterfly_stages_ref(dev, x.clone(), table, m, k))
             del got
-            require(e == 0, f"{row} kernel != plain version at L = {L}, n = {n}, m = {m}")
+            require(e == 0, f"{row} kernel != plain version at L = {L}, n = {n}, m = {m}, k = {k}")
             results[row]["max_abs_err"] = max(results[row]["max_abs_err"], e)
+            timing = ""
             if L == 16:
                 work = x.clone()
-                km = cuda_ms(lambda: kernels.butterfly_stage(dev, work, table, m))
-                pm = cuda_ms(lambda: radix2.butterfly_stage_ref(dev, work, table, m), reps=1)
+                km = cuda_ms(lambda: kernels.butterfly_stages(dev, work, table, m, k))
+                timing = f" kernel {km:.4f} ms"
+                if i < len(passes):
+                    pm = cuda_ms(lambda: radix2.butterfly_stages_ref(dev, work, table, m, k),
+                                 reps=1)
+                    total += km
+                    timing += f" plain {pm:.4f} ms"
+                    # the array read and written once; the twiddles of the
+                    # k stages read once: those of stage m_j are every
+                    # 2^(k-1-j)-th of the last stage's m << (k-1); k * n/2
+                    # Montgomery products
+                    results[row].update(ms=km, plain_ms=pm,
+                                        bytes=2 * L * 4 * n + L * 4 * (m << (k - 1)),
+                                        work=[(("mont", L), k * n // 2)])
+                else:
+                    single += km
                 del work
-                per_row[row].append((m, km, pm))
-                print(f"{row} p256 L=16 n={n} m={m}: max_abs_err={e} kernel {km:.4f} ms "
-                      f"plain {pm:.4f} ms", flush=True)
+            print(f"{row} p{field.modulus.bit_length()} L={L} n={n} pass m={m} k={k}: "
+                  f"max_abs_err={e}{timing}", flush=True)
         if L == 16:
-            for row, runs in per_row.items():
-                k = len(runs)
-                require(k > 0, f"no {row} stage at n = {n}")
-                # per launch: the array read and written once, the m twiddles
-                # used read once; n/2 Montgomery products
-                results[row].update(
-                    ms=sum(r[1] for r in runs) / k, plain_ms=sum(r[2] for r in runs) / k,
-                    bytes=2 * L * 4 * n + L * 4 * sum(r[0] for r in runs) // k,
-                    work=[(("mont", L), n // 2)])
-        print(f"stage kernels L={L} n={n} m=2^{ms[0]}..2^{ms[-1]}: exact", flush=True)
+            print(f"stage passes of one {n}-point transform {passes}: {total:.4f} ms in "
+                  f"{len(passes)} launches; one stage a launch: {single:.4f} ms in "
+                  f"{len(ones)} launches", flush=True)
         del x, table
         torch.cuda.empty_cache()
 
 
 def stage_tables(field, dev, n: int):
-    """(stage half-table [L, n/2], local half-table [L, LOCAL_MAX/2]) of the
-    n-th root: the direct plan's own tables where n takes the direct route,
-    else host-built."""
+    """(stage table [n/2, L] element-major, local half-table [L,
+    LOCAL_MAX/2]) of the n-th root: the direct plan's own tables where n
+    takes the direct route, else host-built."""
     from genstark_tpu_torch.field.limbs import power_series_mont_np
     from genstark_tpu_torch.ntt import radix2
     root = field.get_root_of_unity(n)
@@ -434,7 +443,7 @@ def stage_tables(field, dev, n: int):
         plan = radix2.Radix2Plan(field, dev, n, root)
         return plan.twiddles, plan.tables[0]
     local = radix2.LOCAL_MAX
-    return (dev.from_numpy(power_series_mont_np(field.params, root, n // 2)),
+    return (dev.from_numpy(power_series_mont_np(field.params, root, n // 2).T.copy()),
             dev.from_numpy(power_series_mont_np(field.params, pow(root, n // local, field.modulus),
                                                 local // 2)))
 
@@ -442,7 +451,8 @@ def stage_tables(field, dev, n: int):
 def check_butterfly_bitrev(device, fields, rng, results):
     """Kernel 8's bit-reversed entry (the direct route's local pass) against
     its plain version: the 2048-point blocks of a bit-reversed array, at
-    every L (n = 2^15) and at the main path's P256 n = LARGE_N, in place."""
+    every L (n = 2^15) and at the main path's P256 n = LARGE_N, in place
+    (timed there)."""
     import torch
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.ntt import radix2
@@ -458,8 +468,13 @@ def check_butterfly_bitrev(device, fields, rng, results):
         got = x.clone()
         kernels.butterfly(dev, blocks(got), table, out=blocks(got), bitrev_in=True)
         e = max_abs_err(blocks(got), want)
+        timing = ""
+        if L == 16:
+            km = cuda_ms(lambda: kernels.butterfly(dev, blocks(got), table, out=blocks(got),
+                                                   bitrev_in=True))
+            timing = f" kernel {km:.4f} ms"
         print(f"butterfly (bit-reversed input, in place) p{field.modulus.bit_length()} L={L} "
-              f"n={n} blocks of {local}: max_abs_err={e}", flush=True)
+              f"n={n} blocks of {local}: max_abs_err={e}{timing}", flush=True)
         require(e == 0, "butterfly bit-reversed entry != plain version")
         results["butterfly"]["max_abs_err"] = max(results["butterfly"]["max_abs_err"], e)
         del x, want, got, table
@@ -582,9 +597,9 @@ def check_large_transforms(kernels, device, field, rng) -> None:
           f"direct vs plain max_abs_err={ep}; direct route {d_ms:.4f} ms, four-step route "
           f"{f_ms:.4f} ms; launches of one direct transform {one}", flush=True)
     require(e4 == 0 and ep == 0, f"{n}-point transform: the routes disagree")
-    stages = [1 << k for k in range(radix2.LOCAL_MAX.bit_length() - 1, n.bit_length() - 1)]
-    split = sum(m > kernels.STAGE_SPLIT_ABOVE for m in stages)
-    want = {"butterfly": 1, "bfly_stage": len(stages) - split, "bfly_stage_split": split}
+    split = sum(m > kernels.STAGE_SPLIT_ABOVE for m, _ in direct.passes)
+    want = {"butterfly": 1, "bfly_stage": len(direct.passes) - split, "bfly_stage_split": split}
+    require(len(direct.passes) <= 2, f"{n}-point direct transform in passes {direct.passes}")
     require(all(one.get(k, 0) == v for k, v in want.items()),
             f"{n}-point direct transform launches {one}, expected {want}")
     del direct, four, x, got
@@ -633,8 +648,8 @@ def check_largest_shapes(device, field, results) -> None:
     kernel 6 at the Ne-point stage table's factors (4096 x 2048); kernel 3
     over the Ne leaves of two vectors and the first FRI layer's Ne/4 rows;
     kernel 2 over the e-tree's first level (Ne/2 pairs); kernel 4 at Ne with
-    the prover's split s = 4096; kernel 8's bit-reversed pass and the stages
-    m = 2048, Ne/4, Ne/2 over [2, 16, Ne].  The plain versions run on
+    the prover's split s = 4096; kernel 8's bit-reversed pass and the direct
+    route's stage passes at Ne over [2, 16, Ne].  The plain versions run on
     column (or block) chunks where an output column reads only its own
     input columns; kernel 6's and the stages' plain versions run whole."""
     import torch
@@ -709,12 +724,12 @@ def check_largest_shapes(device, field, results) -> None:
         for g0 in range(0, Ne // local, gc))
     note("butterfly", err, f"bit-reversed entry over [2, 16, {Ne}] in blocks of {local}")
     del got
-    table = rnd(Ne // 2)
-    for m in (local, Ne // 4, Ne // 2):
+    table = rnd(Ne // 2).t().contiguous()                           # [Ne/2, L]
+    for m, k in radix2.stage_passes(Ne, local, radix2.PASS_DEPTH):
         row = "bfly_stage" if m <= kernels.STAGE_SPLIT_ABOVE else "bfly_stage_split"
-        got = kernels.butterfly_stage(dev, e_std.clone(), table, m)
-        note(row, max_abs_err(got, radix2.butterfly_stage_ref(dev, e_std.clone(), table, m)),
-             f"m = {m} over [2, 16, {Ne}]")
+        got = kernels.butterfly_stages(dev, e_std.clone(), table, m, k)
+        note(row, max_abs_err(got, radix2.butterfly_stages_ref(dev, e_std.clone(), table, m, k)),
+             f"stages m = {m} .. {m << (k - 1)} over [2, 16, {Ne}]")
         del got
     del a, c, e_std, ev, table
     torch.cuda.empty_cache()
@@ -748,6 +763,9 @@ def profile_prove(stark, assertions) -> None:
     print(f"profiled prove wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% busy), {sum(n for _, n in by_name.values())} "
           f"kernel launches", flush=True)
+    radix = [(us, n) for name, (us, n) in by_name.items() if "butterfly" in name]
+    print(f"  radix-2 kernels 7 + 8 + 9: {sum(us for us, _ in radix) / 1e3:.3f} ms over "
+          f"{sum(n for _, n in radix)} launches", flush=True)
     for name, us in stages.items():
         print(f"  stage {name}: host wall {us / 1e3:.3f} ms", flush=True)
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:

@@ -1,4 +1,5 @@
-// Kernels 7 and 9: one radix-2 DIT butterfly stage over the whole array.
+// Kernels 7 and 9: k consecutive radix-2 DIT butterfly stages over the whole
+// array in one pass.
 //
 // Replaces two TPU kernels of genstark_tpu/ntt/pallas_kernels.py, reached
 // via `butterfly_stage2` (:368) on the JAX package's direct route for
@@ -7,26 +8,38 @@
 //     whole 2m-groups;
 //   - kernel 9, `_make_stage_split` (:308, pallas_call :342): m > 4096, lo
 //     and hi fetched as two block-aligned views and re-interleaved by XLA.
-// The two exist only because of VMEM block shapes.  Here one kernel computes
-// both: one thread per butterfly, the butterfly's limbs in registers, 64-bit
-// offsets, and no pre-broadcast [L, n/2] twiddle panel (the twiddle is read
-// from the half-table at stride n/2m).  The wrapper counts its launches
-// under the two rows' names by the JAX package's rule (m <= 4096 or not).
-// Plain version: genstark_tpu_torch/ntt/radix2.py (butterfly_stage_ref, the
-// JAX package's jnp stage, ntt/__init__.py:560-577).
+// The two exist only because of VMEM block shapes, and each runs one stage
+// per pass.  Here one kernel runs the stages m, 2m, ..., 2^(k-1) m in one
+// pass (k = 1 is a single stage); the wrapper counts a launch under the two
+// rows' names by the JAX package's rule applied to its lowest m (m <= 4096
+// or not).  Plain version: genstark_tpu_torch/ntt/radix2.py
+// (butterfly_stages_ref: k successive butterfly_stage_ref, the JAX package's
+// jnp stage, ntt/__init__.py:560-577).
 //
-// Butterfly j of group g of batch row b reads lo at g*2m + j and hi at
-// g*2m + m + j and writes lo + w*hi, lo - w*hi in place, w = tw[j * n/2m].
+// Stage m: butterfly j of group g of batch row b takes lo at g*2m + j and hi
+// at g*2m + m + j to lo + w*hi, lo - w*hi in place, w = tw[j * n/2m].
 //
-// What bounds it on this card: each stage reads and writes the whole array,
-// 2 * L * n * 4 bytes (512 MB at n = 2^22, L = 16: 0.153 ms at 3.35 TB/s),
-// and does n/2 Montgomery products (2^21 at n = 2^22); which of the two is
-// larger is for the probes of csrc/probes.cu to say.  Neighbouring threads
-// take neighbouring j, so every limb load and store is contiguous across a
-// warp for m >= 32 (the direct route runs this kernel for m >= 2048 only);
-// the twiddle reads are strided for small m, where the m distinct twiddles
-// are L2-resident.  One simple pass per stage: fusing several stages per
-// pass (radix-4/8 in shared memory) is later work.
+// What bounds it on this card: one stage per pass read and wrote the whole
+// array every stage (2 * L * n * 4 bytes, 512 MB at n = 2^22, L = 16), and
+// read each twiddle's L limbs as L sectors of the limb-major table.  Here a
+// pass reads and writes the array once for k stages and does k * n/2
+// Montgomery products, so at k = 5 or 6 the products (~1,600 integer ops
+// each at L = 16) bound it, not the bytes.  Design:
+//   - the elements i = base + t * m + c, t < 2^k, c < C (C = 16 columns,
+//     64 bytes per limb row: two full sectors; so m >= 16, and the route's
+//     lowest m is 2048) close under the k stages, so
+//     one block loads that 2^k x C tile of every limb into shared memory
+//     (64 KB at L = 16, k = 6), runs the k stages there with one barrier
+//     between stages, and writes the tile back in place; a block reads each
+//     row of 16 columns as 16-byte loads;
+//   - the twiddles come from the element-major table [n/2, L] (one twiddle
+//     is L contiguous limbs: 4 16-byte loads at L = 16), straight from
+//     device memory or L2: a stage of half-size m' uses m' of them;
+//   - 256 threads a block, 2 blocks an SM (16 warps, at most 128 registers a
+//     thread); shared memory holds tile word w at w ^ (bit 5 of w) << 4, so
+//     the two rows a warp's butterflies touch at the first stage (2 apart,
+//     16 words each) fall in different banks; the other stages' rows are 1
+//     apart and the vector accesses stay 16-byte aligned.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -35,64 +48,146 @@
 
 namespace gs {
 
+constexpr int kStageThreads = 256;
+constexpr int kVBatch = 8;  // 16-byte loads in flight per thread
+constexpr int kLogCols = 4, kCols = 1 << kLogCols;  // C = 16 columns a tile
+
+__device__ __forceinline__ int tile_swz(int w) { return w ^ (((w >> 5) & 1) << 4); }
+
+// Twiddle `idx` of the element-major table [n/2, L] into registers.
 template <int L>
-__global__ void __launch_bounds__(256)
-butterfly_stage_kernel(int32_t* x, const int32_t* __restrict__ tw, long long n, int log_m,
-                       int log_tstride, Field f) {
-  const long long half = n >> 1;
-  const long long bf = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (bf >= half) return;
-  const long long m = 1LL << log_m;
-  const long long j = bf & (m - 1);
-  const long long lo = ((bf >> log_m) << (log_m + 1)) + j;
-  int32_t* row = x + static_cast<long long>(blockIdx.y) * L * n;
-  uint32_t u[L], v[L], w[L];
+__device__ __forceinline__ void load_twiddle(const int32_t* __restrict__ tw, long long idx,
+                                             uint32_t (&w)[L]) {
+  const int32_t* p = tw + idx * L;
+  if constexpr (L % 4 == 0) {
 #pragma unroll
-  for (int l = 0; l < L; ++l) {
-    u[l] = static_cast<uint32_t>(row[l * n + lo]);
-    v[l] = static_cast<uint32_t>(row[l * n + lo + m]);
-    w[l] = static_cast<uint32_t>(tw[l * half + (j << log_tstride)]);
-  }
-  mont_mul<L>(v, w, f, v);
-  add_mod<L>(u, v, f, w);
-  sub_mod<L>(u, v, f, v);
+    for (int q = 0; q < L / 4; ++q) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(p) + q);
+      w[4 * q] = v.x;
+      w[4 * q + 1] = v.y;
+      w[4 * q + 2] = v.z;
+      w[4 * q + 3] = v.w;
+    }
+  } else {
 #pragma unroll
-  for (int l = 0; l < L; ++l) {
-    row[l * n + lo] = static_cast<int32_t>(w[l]);
-    row[l * n + lo + m] = static_cast<int32_t>(v[l]);
+    for (int q = 0; q < L / 2; ++q) {
+      const int2 v = __ldg(reinterpret_cast<const int2*>(p) + q);
+      w[2 * q] = v.x;
+      w[2 * q + 1] = v.y;
+    }
   }
 }
 
 template <int L>
-cudaError_t launch_stage(int32_t* x, const int32_t* tw, int batch, int log_n, int log_m,
-                         const Field& f, cudaStream_t st) {
-  const long long half = 1LL << (log_n - 1);
-  const dim3 grid(static_cast<unsigned>((half + 255) / 256), static_cast<unsigned>(batch));
-  butterfly_stage_kernel<L><<<grid, 256, 0, st>>>(x, tw, 1LL << log_n, log_m,
-                                                  log_n - 1 - log_m, f);
+__global__ void __launch_bounds__(kStageThreads, 2)
+butterfly_stages_kernel(int32_t* x, const int32_t* __restrict__ tw, int log_n, int log_m, int k,
+                        Field f) {
+  extern __shared__ uint4 smem_raw[];
+  uint32_t* sm = reinterpret_cast<uint32_t*>(smem_raw);  // [L][2^k * C], swizzled
+  const long long n = 1LL << log_n, m = 1LL << log_m;
+  const int log_tile = k + kLogCols, tile = 1 << log_tile;
+  const long long col_blocks = m >> kLogCols;
+  const long long c0 = (blockIdx.x % col_blocks) << kLogCols;
+  const long long base = ((blockIdx.x / col_blocks) << (log_m + k)) + c0;
+  int32_t* row = x + static_cast<long long>(blockIdx.y) * L * n + base;
+
+  for (int q0 = threadIdx.x; q0 < (L << log_tile) >> 2; q0 += kVBatch * blockDim.x) {
+    uint4 v[kVBatch];
+#pragma unroll
+    for (int b = 0; b < kVBatch; ++b) {
+      const int e = (q0 + b * blockDim.x) << 2, l = e >> log_tile, w = e & (tile - 1);
+      if (e < (L << log_tile))
+        v[b] = *reinterpret_cast<const uint4*>(row + l * n + (w >> kLogCols) * m +
+                                               (w & (kCols - 1)));
+    }
+#pragma unroll
+    for (int b = 0; b < kVBatch; ++b) {
+      const int e = (q0 + b * blockDim.x) << 2, l = e >> log_tile, w = e & (tile - 1);
+      if (e < (L << log_tile))
+        *reinterpret_cast<uint4*>(sm + (l << log_tile) + tile_swz(w)) = v[b];
+    }
+  }
+  __syncthreads();
+
+  for (int j = 0; j < k; ++j) {
+    const int log_tstride = log_n - 1 - (log_m + j);  // stage m_j = m << j: w^(r * n/2m_j)
+    for (int q = threadIdx.x; q < tile >> 1; q += blockDim.x) {
+      const int c = q & (kCols - 1), tq = q >> kLogCols;
+      const int low = tq & ((1 << j) - 1);
+      const int t0 = ((tq >> j) << (j + 1)) | low;
+      const int p0 = tile_swz((t0 << kLogCols) | c);
+      const int p1 = tile_swz(((t0 + (1 << j)) << kLogCols) | c);
+      const long long r = (static_cast<long long>(low) << log_m) + c0 + c;  // j-th in the group
+      uint32_t u[L], v[L], w[L];
+      load_twiddle<L>(tw, r << log_tstride, w);
+#pragma unroll
+      for (int l = 0; l < L; ++l) v[l] = sm[(l << log_tile) + p1];
+      mont_mul<L>(v, w, f, v);
+#pragma unroll
+      for (int l = 0; l < L; ++l) u[l] = sm[(l << log_tile) + p0];
+      add_mod<L>(u, v, f, w);
+      sub_mod<L>(u, v, f, v);
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        sm[(l << log_tile) + p0] = w[l];
+        sm[(l << log_tile) + p1] = v[l];
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int q = threadIdx.x; q < (L << log_tile) >> 2; q += blockDim.x) {
+    const int e = q << 2, l = e >> log_tile, w = e & (tile - 1);
+    const long long off = l * n + (w >> kLogCols) * m + (w & (kCols - 1));
+    *reinterpret_cast<uint4*>(row + off) =
+        *reinterpret_cast<const uint4*>(sm + (l << log_tile) + tile_swz(w));
+  }
+}
+
+template <int L>
+cudaError_t launch_stages(int32_t* x, const int32_t* tw, int batch, int log_n, int log_m, int k,
+                          const Field& f, cudaStream_t st) {
+  const size_t smem = (static_cast<size_t>(L) << (k + kLogCols)) * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(butterfly_stages_kernel<L>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int half_tile = 1 << (k + kLogCols - 1);
+  const int threads = half_tile < kStageThreads ? half_tile : kStageThreads;
+  const dim3 grid(static_cast<unsigned>(1LL << (log_n - k - kLogCols)),
+                  static_cast<unsigned>(batch));
+  butterfly_stages_kernel<L><<<grid, threads, smem, st>>>(x, tw, log_n, log_m, k, f);
   return cudaGetLastError();
 }
 
 }  // namespace gs
 
-// x: int32 [batch, L, 2^log_n] contiguous, updated in place; tw: int32
-// [L, 2^(log_n - 1)], tw[k] = w^k (Montgomery) for the n-th root w.
-extern "C" int gs_butterfly_stage(int L, void* x, const void* tw, int batch, int log_n,
-                                  int log_m, const uint32_t* field_words, void* stream) {
-  if (log_n < 1 || log_n > 40 || log_m < 0 || log_m >= log_n) return cudaErrorInvalidValue;
+// x: int32 [batch, L, 2^log_n] contiguous and 16-byte aligned, updated in
+// place: the stages of half-size 2^log_m .. 2^(log_m + k - 1), m >= 16.
+// tw: int32 [2^(log_n - 1), L] element-major, 16-byte aligned, tw[k] = w^k
+// (Montgomery) for the n-th root w.
+extern "C" int gs_butterfly_stages(int L, void* x, const void* tw, int batch, int log_n,
+                                   int log_m, int k, const uint32_t* field_words,
+                                   void* stream) {
+  if (log_n < 1 || log_n > 40 || log_m < gs::kLogCols || k < 1 || log_m + k > log_n)
+    return cudaErrorInvalidValue;
   if (batch < 0 || batch > 65535) return cudaErrorInvalidValue;
-  if (((1LL << (log_n - 1)) + 255) / 256 > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  if (log_n - k - gs::kLogCols > 31) return cudaErrorInvalidValue;
   if (batch == 0) return 0;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(tw) % 16 != 0)
+    return cudaErrorMisalignedAddress;
   const gs::Field f = gs::field_from_words(field_words, L);
   auto* d = static_cast<int32_t*>(x);
   auto* t = static_cast<const int32_t*>(tw);
   auto st = static_cast<cudaStream_t>(stream);
   switch (L) {
-    case 2: return gs::launch_stage<2>(d, t, batch, log_n, log_m, f, st);
-    case 4: return gs::launch_stage<4>(d, t, batch, log_n, log_m, f, st);
-    case 8: return gs::launch_stage<8>(d, t, batch, log_n, log_m, f, st);
-    case 14: return gs::launch_stage<14>(d, t, batch, log_n, log_m, f, st);
-    case 16: return gs::launch_stage<16>(d, t, batch, log_n, log_m, f, st);
+    case 2: return gs::launch_stages<2>(d, t, batch, log_n, log_m, k, f, st);
+    case 4: return gs::launch_stages<4>(d, t, batch, log_n, log_m, k, f, st);
+    case 8: return gs::launch_stages<8>(d, t, batch, log_n, log_m, k, f, st);
+    case 14: return gs::launch_stages<14>(d, t, batch, log_n, log_m, k, f, st);
+    case 16: return gs::launch_stages<16>(d, t, batch, log_n, log_m, k, f, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -40,8 +40,8 @@ _LIB_NAME = "libgenstark_kernels.so"
 FIELD_LS = (2, 4, 8, 14, 16)
 # Elementwise kernel: batch dimensions after coalescing.
 EW_MAX_DIMS = 4
-# Butterfly kernel: one block holds a whole local transform of L x n int32
-# limbs in shared memory, at most the 227 KB a block may opt in to.
+# Shared memory a block may opt in to (227 KB): kernel 8 holds a whole local
+# transform and its twiddles there, kernels 7/9 a tile of 2^k x 16 elements.
 SMEM_BYTES = 232448
 
 # Launch counts per kernel (kernel 1: dft_level; 2: hash_words; 3:
@@ -52,8 +52,12 @@ launch_counts = {"dft_level": 0, "hash_words": 0, "hash_limbs": 0, "lcomb_tail":
                  "field_ew": 0, "outer_table": 0, "bfly_stage": 0, "butterfly": 0,
                  "bfly_stage_split": 0, "mont_chain": 0, "u32_chain": 0}
 # The JAX package's rule between rows 7 and 9 (pallas_kernels.py:378, _BLK):
-# a stage of half-size m <= STAGE_SPLIT_ABOVE counts as row 7.
+# a pass whose lowest stage has half-size m <= STAGE_SPLIT_ABOVE counts as
+# row 7.
 STAGE_SPLIT_ABOVE = 4096
+# Kernels 7/9: a tile is 16 columns wide, so a pass's lowest half-size m is
+# at least 16 (the direct route's is LOCAL_MAX = 2048).
+STAGE_MIN_M = 16
 
 _lib = None
 build_info = {}
@@ -141,8 +145,8 @@ def _load():
         lib.gs_outer_table.restype = I
         lib.gs_butterfly.argtypes = [I, P, P, P, P, P, I, I, I, I, P, P]
         lib.gs_butterfly.restype = I
-        lib.gs_butterfly_stage.argtypes = [I, P, P, I, I, I, P, P]
-        lib.gs_butterfly_stage.restype = I
+        lib.gs_butterfly_stages.argtypes = [I, P, P, I, I, I, I, P, P]
+        lib.gs_butterfly_stages.restype = I
         lib.gs_mont_chain.argtypes = [I, P, P, LL, I, P, P]
         lib.gs_mont_chain.restype = I
         lib.gs_u32_chain.argtypes = [P, P, LL, P]
@@ -390,9 +394,10 @@ def outer_table(dev, outer: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------------- kernel 8
 def butterfly_max_n(L: int) -> int:
-    """Largest local transform one block holds in shared memory."""
+    """Largest local transform one block holds in shared memory: L x n
+    limbs and the local root's L x n/2 twiddles."""
     n = 1
-    while 2 * n * L * 4 <= SMEM_BYTES:
+    while 12 * n * L <= SMEM_BYTES:       # 2n points: 8nL bytes of data, 4nL of twiddles
         n *= 2
     return n
 
@@ -428,28 +433,35 @@ def butterfly(dev, x: torch.Tensor, table: torch.Tensor, out: torch.Tensor = Non
 
 
 # -------------------------------------------------------------- kernels 7, 9
-def butterfly_stage(dev, x: torch.Tensor, table: torch.Tensor, m: int) -> torch.Tensor:
-    """Kernels 7 and 9 (csrc/butterfly_stage.cu gs_butterfly_stage):
-    contract of ntt.radix2.butterfly_stage_ref.  One radix-2 DIT stage of
-    half-size m over x [B, L, n] (contiguous), in place; table [L, n/2] the
-    powers of the n-th root (Montgomery).  Counted as `bfly_stage` (row 7)
-    for m <= STAGE_SPLIT_ABOVE, else `bfly_stage_split` (row 9)."""
+def butterfly_stages(dev, x: torch.Tensor, table: torch.Tensor, m: int, k: int) -> torch.Tensor:
+    """Kernels 7 and 9 (csrc/butterfly_stage.cu gs_butterfly_stages):
+    contract of ntt.radix2.butterfly_stages_ref.  The k radix-2 DIT stages
+    of half-size m, 2m, ..., 2^(k-1) m over x [B, L, n] (contiguous,
+    16-byte aligned) in one launch, in place, m >= STAGE_MIN_M (a tile is
+    16 columns wide); table [n/2, L] the powers of the n-th root
+    (Montgomery), element-major.  Counted as `bfly_stage` (row 7) for
+    m <= STAGE_SPLIT_ABOVE, else `bfly_stage_split` (row 9)."""
     L = _field_l(dev)
     _require(x, "x", torch.int32)
     if x.dim() != 3 or x.shape[1] != L:
-        raise ValueError(f"butterfly_stage takes x [B, {L}, n], got {tuple(x.shape)}")
+        raise ValueError(f"butterfly_stages takes x [B, {L}, n], got {tuple(x.shape)}")
     B, _, n = x.shape
-    if n < 2 or n & (n - 1) or m < 1 or m & (m - 1) or m >= n:
-        raise ValueError(f"stage m={m} of an n={n} transform: both powers of two, m < n")
+    if n & (n - 1) or m < STAGE_MIN_M or m & (m - 1) or k < 1 or m << k > n:
+        raise ValueError(f"stages m={m} .. m*2^{k - 1} of an n={n} transform: powers of two, "
+                         f"k >= 1, m >= {STAGE_MIN_M}, m * 2^k <= n")
     if B > 65535:
-        raise ValueError(f"butterfly_stage takes at most 65535 rows, got {B}")
-    _require(table, "table", torch.int32, (L, n // 2))
+        raise ValueError(f"butterfly_stages takes at most 65535 rows, got {B}")
+    if L * (STAGE_MIN_M << k) * 4 > SMEM_BYTES:
+        raise ValueError(f"a {1 << k} x {STAGE_MIN_M} tile of {L} limbs exceeds shared memory")
+    _require(table, "table", torch.int32, (n // 2, L))
+    if x.data_ptr() % 16 or table.data_ptr() % 16:
+        raise ValueError("butterfly_stages takes x and table 16-byte aligned")
     if B == 0:
         return x
     fw = np.ascontiguousarray(_field_words(dev))
-    rc = _load().gs_butterfly_stage(L, x.data_ptr(), table.data_ptr(), B, n.bit_length() - 1,
-                                    m.bit_length() - 1, _u32p(fw), _stream(x))
-    _check(rc, "butterfly_stage")
+    rc = _load().gs_butterfly_stages(L, x.data_ptr(), table.data_ptr(), B, n.bit_length() - 1,
+                                     m.bit_length() - 1, k, _u32p(fw), _stream(x))
+    _check(rc, "butterfly_stages")
     launch_counts["bfly_stage" if m <= STAGE_SPLIT_ABOVE else "bfly_stage_split"] += 1
     return x
 

@@ -22,25 +22,30 @@ Three routes, by size (`route_for`):
   LOCAL_MAX): the JAX package's Pallas branch (:528-558): bit reversal
   (one gather), `butterfly` over the contiguous LOCAL_MAX-point blocks of
   the bit-reversed array (stages m < LOCAL_MAX, input already reversed),
-  then one `butterfly_stage` launch per remaining stage m = LOCAL_MAX, ...,
-  n/2 in place, then the scale by one multiply by a constant.  Stage m
-  reads w^(j*n/2m) from the half-table [L, n/2] of the n-th root, built on
-  the device by one kernel-6 `outer_table` from a factored pair (outer
-  powers of w^s, inner powers of w), as the prover builds its long power
-  tables: the host computes O(sqrt n) powers, not n/2.
+  then the remaining stages m = LOCAL_MAX, ..., n/2 in place, grouped into
+  passes of at most PASS_DEPTH consecutive stages (`stage_passes`: as few
+  passes as that allows, their depths as equal as they can be), one
+  `butterfly_stages` launch each, then the scale by one multiply by a
+  constant.  Stage m reads w^(j*n/2m) from the table [n/2, L] of the n-th
+  root, element-major (one twiddle is L contiguous limbs), built on the
+  device by one kernel-6 `outer_table` from a factored pair (outer powers of
+  w^s, inner powers of w), as the prover builds its long power tables: the
+  host computes O(sqrt n) powers, not n/2.
 
 Every multiply is the field's public `mont_mul` (kernel 5 on the card).
 
 LOCAL_MAX is the port's own threshold: kernel 8 keeps a whole local
-transform of L x n int32 limbs in one block's shared memory, and 2048
-points at L = 16 are 128 KB of the 227 KB a block may have
-(kernels.butterfly_max_n).  DIRECT_ABOVE is the JAX package's own
-(`_four_step_local`): above 2^21 points the four-step's O(n) panel is
-GB-scale, so the large transforms take the per-stage kernels; on the card
-the direct route also needs no host-built panel.  It is kept at the JAX
-package's value although on one H100 the four-step is still the faster
-route at 2^22 points (PERF.md §6): the 2^18-step MiMC-256 prove then runs
-the same route as the reference, and the stage kernels are on its path.
+transform of L x n int32 limbs and its L x n/2 twiddles in one block's
+shared memory, and 2048 points at L = 16 are 192 KB of the 227 KB a block
+may have (kernels.butterfly_max_n).  PASS_DEPTH is the port's own too: a
+pass of k stages keeps 2^k x 16 elements in shared memory (64 KB at L = 16
+and k = 6), so the 11 stages above LOCAL_MAX of a 2^22-point transform take
+2 launches (6 + 5 stages) and the 13 of a 2^24-point one 3 (5 + 4 + 4).
+DIRECT_ABOVE is the JAX package's own (`_four_step_local`): above 2^21
+points the four-step's O(n) panel is GB-scale, so the large transforms
+take the stage kernels; on the card the direct route also needs no
+host-built panel.  On one H100 the direct route is the faster one at 2^22
+points since the stages run in fused passes (PERF.md §6).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from .. import kernels
 from ..field.limbs import ints_to_limbs, power_series_mont_np
 
 LOCAL_MAX = 2048
+PASS_DEPTH = 6
 DIRECT_ABOVE = 1 << 21
 
 
@@ -64,6 +70,20 @@ def route_for(n: int) -> str:
     if n > DIRECT_ABOVE or n // n1 > LOCAL_MAX:
         return "direct"
     return "four_step"
+
+
+def stage_passes(n: int, m: int, depth: int) -> list:
+    """[(m_lo, k), ...]: the stages m, 2m, ..., n/2 of an n-point transform
+    in as few passes of at most `depth` consecutive stages as there can be,
+    their depths as equal as they can be (deeper passes first)."""
+    stages = n.bit_length() - m.bit_length()
+    count = -(-stages // depth)
+    passes = []
+    for i in range(count):
+        k = stages // count + (1 if i < stages % count else 0)
+        passes.append((m, k))
+        m <<= k
+    return passes
 
 
 def _panel_np(params, root: int, n1: int, n2: int, scale: int) -> np.ndarray:
@@ -84,8 +104,9 @@ class Radix2Plan:
     """Device tables for one (field, n, root, scale), by route: the local
     roots' half-tables ([L, m/2], Montgomery powers of the m-th root); the
     four-step panel (scale folded in); for the direct route the stage
-    half-table [L, n/2] and the bit-reversal index; the scale as a
-    constant where it is not folded."""
+    table [n/2, L] (element-major), the bit-reversal index and the stage
+    passes (read from LOCAL_MAX and PASS_DEPTH when the plan is made); the
+    scale as a constant where it is not folded."""
 
     def __init__(self, field, dev, n: int, root: int, scale: int = 1):
         if n < 2 or n & (n - 1):
@@ -98,6 +119,7 @@ class Radix2Plan:
         self.n = n
         self.route = route_for(n)
         self.split = self.panel = self.scale = self.twiddles = self.bitrev = None
+        self.passes = []
         if self.route == "four_step":
             n1 = 1 << ((n.bit_length() - 1) // 2)
             n2 = n // n1
@@ -115,11 +137,11 @@ class Radix2Plan:
         s = 1 << ((ln.bit_length() - 1) // 2)
         self.twiddles = dev.outer_table(
             dev.from_numpy(power_series_mont_np(params, pow(root, s, p), ln // s)),
-            dev.from_numpy(power_series_mont_np(params, root, s)))
+            dev.from_numpy(power_series_mont_np(params, root, s))).t().contiguous()
         # the local root w^(n/LOCAL_MAX)'s half-table is every (n/LOCAL_MAX)-th entry
-        self.tables = (self.twiddles.reshape(dev.L, LOCAL_MAX // 2, n // LOCAL_MAX)[:, :, 0]
-                       .contiguous(),)
+        self.tables = (self.twiddles[::n // LOCAL_MAX].t().contiguous(),)
         self.bitrev = _bitrev(n, dev.device)
+        self.passes = stage_passes(n, LOCAL_MAX, PASS_DEPTH)
 
 
 # ------------------------------------------------------------ plain version
@@ -165,19 +187,29 @@ def butterfly_ref(dev, x: torch.Tensor, table: torch.Tensor,
 
 
 def butterfly_stage_ref(dev, x: torch.Tensor, table: torch.Tensor, m: int) -> torch.Tensor:
-    """Plain kernels 7 and 9: one radix-2 DIT stage of half-size m over x
-    [B, L, n], in place (returns x): butterfly j of group g takes lo at
-    g*2m + j and hi at g*2m + m + j to lo + w*hi, lo - w*hi with
-    w = table[j * n/2m], table [L, n/2] the n-th root's powers.  The JAX
-    package's jnp stage (ntt/__init__.py:560-577) on the plain field ops."""
+    """One radix-2 DIT stage of half-size m over x [B, L, n], in place
+    (returns x): butterfly j of group g takes lo at g*2m + j and hi at
+    g*2m + m + j to lo + w*hi, lo - w*hi with w = table[j * n/2m], table
+    [n/2, L] the n-th root's powers, element-major.  The JAX package's jnp
+    stage (ntt/__init__.py:560-577) on the plain field ops."""
     B, L, n = x.shape
     y = x.view(B, L, n // (2 * m), 2, m).permute(1, 0, 2, 3, 4)     # [L, B, g, 2, m]
     lo, hi = y[:, :, :, 0], y[:, :, :, 1]
-    tw = table.reshape(L, m, n // (2 * m))[:, :, 0]                  # [L, m]
+    tw = table.reshape(m, n // (2 * m), L)[:, 0].t()                 # [L, m]
     t = dev.mont_mul_ref(hi, tw[:, None, None, :])
     new_lo, new_hi = dev.add_ref(lo, t), dev.sub_ref(lo, t)
     lo.copy_(new_lo)
     hi.copy_(new_hi)
+    return x
+
+
+def butterfly_stages_ref(dev, x: torch.Tensor, table: torch.Tensor, m: int,
+                         k: int) -> torch.Tensor:
+    """Plain kernels 7 and 9: the k stages of half-size m, 2m, ...,
+    2^(k-1) m over x [B, L, n] in place (returns x), one
+    butterfly_stage_ref each; table [n/2, L] as there."""
+    for j in range(k):
+        butterfly_stage_ref(dev, x, table, m << j)
     return x
 
 
@@ -191,16 +223,16 @@ def butterfly(dev, x: torch.Tensor, table: torch.Tensor, out: torch.Tensor = Non
     return kernels.butterfly(dev, x, table, out, bitrev_in)
 
 
-def butterfly_stage(dev, x: torch.Tensor, table: torch.Tensor, m: int) -> torch.Tensor:
-    """One stage in place (contract of butterfly_stage_ref).  CPU tensors
-    run the plain version; CUDA tensors launch kernel 7 (m <= 4096) or 9,
-    or raise."""
+def butterfly_stages(dev, x: torch.Tensor, table: torch.Tensor, m: int, k: int) -> torch.Tensor:
+    """k stages in place in one pass (contract of butterfly_stages_ref).
+    CPU tensors run the plain version; CUDA tensors launch kernel 7 (lowest
+    m <= 4096) or 9, or raise."""
     if x.device.type == "cpu":
-        return butterfly_stage_ref(dev, x, table, m)
-    return kernels.butterfly_stage(dev, x, table, m)
+        return butterfly_stages_ref(dev, x, table, m, k)
+    return kernels.butterfly_stages(dev, x, table, m, k)
 
 
-def _run(dev, a: torch.Tensor, plan: Radix2Plan, bfly, stage, mul) -> torch.Tensor:
+def _run(dev, a: torch.Tensor, plan: Radix2Plan, bfly, stages, mul) -> torch.Tensor:
     n = plan.n
     L = a.shape[-2]
     batch_shape = tuple(a.shape[:-2])
@@ -228,10 +260,8 @@ def _run(dev, a: torch.Tensor, plan: Radix2Plan, bfly, stage, mul) -> torch.Tens
         y = x.index_select(2, plan.bitrev)
         blocks = y.view(B, L, n // local, local).permute(0, 2, 1, 3)
         bfly(dev, blocks, plan.tables[0], out=blocks, bitrev_in=True)
-        m = local
-        while m < n:
-            stage(dev, y, plan.twiddles, m)
-            m *= 2
+        for m, k in plan.passes:
+            stages(dev, y, plan.twiddles, m, k)
     if plan.scale is not None:
         y = mul(y.transpose(0, 1), plan.scale).transpose(0, 1)
     return y.reshape(batch_shape + (L, n))
@@ -241,9 +271,9 @@ def transform(dev, a: torch.Tensor, plan: Radix2Plan) -> torch.Tensor:
     """a [..., L, n] -> [..., L, n]: the plan's scale times the transform,
     natural order in and out.  CPU tensors run the plain versions; CUDA
     tensors launch kernels 8 and 5 (and 7, 9 on the direct route)."""
-    return _run(dev, a, plan, butterfly, butterfly_stage, dev.mont_mul)
+    return _run(dev, a, plan, butterfly, butterfly_stages, dev.mont_mul)
 
 
 def transform_ref(dev, a: torch.Tensor, plan: Radix2Plan) -> torch.Tensor:
     """The same transform from plain versions only, on any device."""
-    return _run(dev, a, plan, butterfly_ref, butterfly_stage_ref, dev.mont_mul_ref)
+    return _run(dev, a, plan, butterfly_ref, butterfly_stages_ref, dev.mont_mul_ref)

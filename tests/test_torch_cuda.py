@@ -217,13 +217,21 @@ def test_mimc256_pin_on_card(device):
         40300, "aeca982219743b04f13dd8b6be2b855f951bb16fd4c837f841d62af059265be4")
 
 
+def _stage_table(field, dev, n):
+    """The n-th root's stage table [n/2, L], element-major."""
+    from genstark_tpu_torch.field.limbs import power_series_mont_np
+    return dev.from_numpy(np.ascontiguousarray(
+        power_series_mont_np(field.params, field.get_root_of_unity(n), n // 2).T))
+
+
 @ALL_FIELDS
 def test_stage_kernels_equal_plain_and_count(device, modulus):
-    """Kernels 7 and 9: one stage at m on both sides of 4096 against
-    butterfly_stage_ref, in place; m <= 4096 counts as `bfly_stage`, larger
-    m as `bfly_stage_split`."""
+    """Kernels 7 and 9: passes of k = 1 stage at m on both sides of 4096,
+    and of k = 2 .. 6 stages from the least m (16) up, against
+    butterfly_stages_ref, in place; a pass from m <= 4096 counts as
+    `bfly_stage`, a larger m as `bfly_stage_split`, one launch each.  A
+    pass from m < 16 raises and launches nothing."""
     from genstark_tpu_torch import kernels
-    from genstark_tpu_torch.field.limbs import power_series_mont_np
     from genstark_tpu_torch.ntt import radix2
     field = create_prime_field(modulus)
     dev = field.device_field(device)
@@ -231,13 +239,100 @@ def test_stage_kernels_equal_plain_and_count(device, modulus):
     rng = np.random.default_rng(modulus % 97)
     x = dev.from_numpy(_elements(rng, modulus, dev.L, 2 * n)).reshape(dev.L, 2, n)
     x = x.permute(1, 0, 2).contiguous()
-    table = dev.from_numpy(power_series_mont_np(field.params, field.get_root_of_unity(n), n // 2))
-    for m in (2048, 4096, 8192):
+    table = _stage_table(field, dev, n)
+    for m, k in ((2048, 1), (4096, 1), (8192, 1), (16, 4), (32, 2), (128, 3), (16, 6), (256, 6),
+                 (2048, 3), (4096, 2)):
         row = "bfly_stage" if m <= 4096 else "bfly_stage_split"
-        before = kernels.launch_counts[row]
-        got = radix2.butterfly_stage(dev, x.clone(), table, m)
-        assert kernels.launch_counts[row] == before + 1
-        assert torch.equal(got, radix2.butterfly_stage_ref(dev, x.clone(), table, m))
+        before = dict(kernels.launch_counts)
+        got = radix2.butterfly_stages(dev, x.clone(), table, m, k)
+        assert kernels.launch_counts[row] == before[row] + 1
+        assert sum(kernels.launch_counts.values()) == sum(before.values()) + 1
+        assert torch.equal(got, radix2.butterfly_stages_ref(dev, x.clone(), table, m, k))
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="m >= 16"):
+        radix2.butterfly_stages(dev, x.clone(), table, 8, 2)
+    assert kernels.launch_counts == before
+
+
+@ALL_FIELDS
+def test_fused_passes_of_the_2_22_route_equal_plain(device, modulus):
+    """The two passes the direct route runs at 2^22 points (6 stages from
+    m = 2048, 5 from 2^17) against butterfly_stages_ref, one row."""
+    from genstark_tpu_torch.ntt import radix2
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    n = 2 ** 22
+    table = _stage_table(field, dev, n)
+    x = dev.from_numpy(_elements(np.random.default_rng(modulus % 71), modulus, dev.L, n))[None]
+    passes = radix2.stage_passes(n, radix2.LOCAL_MAX, radix2.PASS_DEPTH)
+    assert passes == [(2048, 6), (2 ** 17, 5)]
+    for m, k in passes:
+        got = radix2.butterfly_stages(dev, x.clone(), table, m, k)
+        assert torch.equal(got, radix2.butterfly_stages_ref(dev, x.clone(), table, m, k))
+
+
+@ALL_FIELDS
+def test_butterfly_kernel_layouts_equal_plain(device, modulus):
+    """Kernel 8 at every local size from 2 to butterfly_max_n(L), both
+    entries, on contiguous views (16-byte accesses) and on strided ones
+    (column views in, a permuted output), out of place and in place."""
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.field.limbs import power_series_mont_np
+    from genstark_tpu_torch.ntt import radix2
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    L = dev.L
+    rng = np.random.default_rng(modulus % 61)
+    n = 2
+    while n <= kernels.butterfly_max_n(L):
+        table = dev.from_numpy(power_series_mont_np(
+            field.params, field.get_root_of_unity(n), n // 2))
+        B, G = 2, 3
+        x = dev.from_numpy(_elements(rng, modulus, L, B * G * n)).reshape(B, G, L, n)
+        cols = dev.from_numpy(_elements(rng, modulus, L, B * G * n)).reshape(L, B, n, G)
+        cols = cols.permute(1, 3, 0, 2)                                   # [B, G, L, n], stride G
+        for bitrev_in in (False, True):
+            for xin in (x, cols):
+                want = radix2.butterfly_ref(dev, xin, table, bitrev_in=bitrev_in)
+                assert torch.equal(radix2.butterfly(dev, xin, table, bitrev_in=bitrev_in), want)
+                out = torch.empty((G, L, B, n), dtype=torch.int32, device=device)
+                radix2.butterfly(dev, xin, table, out=out.permute(2, 0, 1, 3), bitrev_in=bitrev_in)
+                assert torch.equal(out.permute(2, 0, 1, 3), want)
+                inplace = xin.clone()
+                radix2.butterfly(dev, inplace, table, out=inplace, bitrev_in=bitrev_in)
+                assert torch.equal(inplace, want)
+        n *= 2
+
+
+@ALL_FIELDS
+def test_butterfly_kernel_column_tiles_equal_plain(device, modulus):
+    """Kernel 8 on column views with many groups, where a block takes
+    two neighbouring columns: column views in and out, both entries, in
+    place."""
+    from genstark_tpu_torch.field.limbs import power_series_mont_np
+    from genstark_tpu_torch.ntt import radix2
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    L = dev.L
+    rng = np.random.default_rng(modulus % 53)
+    for n, G in ((64, 2048), (256, 1040), (512, 520), (1024, 264)):
+        table = dev.from_numpy(power_series_mont_np(
+            field.params, field.get_root_of_unity(n), n // 2))
+        flat = dev.from_numpy(_elements(rng, modulus, L, G * n))
+        cols = flat.reshape(1, L, n, G).permute(0, 3, 1, 2)               # [1, G, L, n], stride G
+        rows = flat.reshape(1, G, L, n)
+        for bitrev_in in (False, True):
+            for xin in (cols, rows):
+                want = radix2.butterfly_ref(dev, xin, table, bitrev_in=bitrev_in)
+                out = torch.empty((1, L, n, G), dtype=torch.int32, device=device)
+                radix2.butterfly(dev, xin, table, out=out.permute(0, 3, 1, 2), bitrev_in=bitrev_in)
+                assert torch.equal(out.permute(0, 3, 1, 2), want)
+            want = radix2.butterfly_ref(dev, cols, table, bitrev_in=bitrev_in)
+            assert torch.equal(radix2.butterfly(dev, cols, table, bitrev_in=bitrev_in), want)
+            inplace = cols.clone(memory_format=torch.preserve_format)
+            assert inplace.stride() == cols.stride()
+            radix2.butterfly(dev, inplace, table, out=inplace, bitrev_in=bitrev_in)
+            assert torch.equal(inplace, want)
 
 
 @ALL_FIELDS
@@ -280,7 +375,8 @@ def test_u32_chain_kernel_equals_plain(device):
 @pytest.mark.parametrize("modulus", [P64, P256], ids=["p64", "p256"])
 def test_direct_route_equals_four_step_on_card(device, modulus, monkeypatch):
     """A 2^14-point transform (R^-1 folded) through the direct route
-    (kernels 8, 7, 9, 5) equals the four-step route and the plain route."""
+    (kernels 8, 7, 5: one pass of the three stages m = 2048 .. 8192) equals
+    the four-step route and the plain route."""
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.ntt import radix2
     field = create_prime_field(modulus)
@@ -297,6 +393,6 @@ def test_direct_route_equals_four_step_on_card(device, modulus, monkeypatch):
     got = radix2.transform(dev, x, direct)
     assert {k: kernels.launch_counts[k] - before[k]
             for k in ("butterfly", "bfly_stage", "bfly_stage_split")} == {
-        "butterfly": 1, "bfly_stage": 2, "bfly_stage_split": 1}
+        "butterfly": 1, "bfly_stage": 1, "bfly_stage_split": 0}
     assert torch.equal(got, radix2.transform(dev, x, four))
     assert torch.equal(got, radix2.transform_ref(dev, x, direct))

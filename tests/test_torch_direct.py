@@ -1,6 +1,6 @@
 """The direct radix-2 route of the port (ntt/radix2.py: bit reversal, the
-bit-reversed entry of kernel 8, one stage kernel per large stage) and its
-plain stage (kernels 7 and 9) against the JAX package, exactly (tolerance
+bit-reversed entry of kernel 8, the large stages in fused passes) and its
+plain stages (kernels 7 and 9) against the JAX package, exactly (tolerance
 0).  Inputs are numpy limbs from fixed seeds; the JAX Pallas kernels run in
 interpret mode, as tests/test_pallas_ntt.py runs them.
 
@@ -46,10 +46,11 @@ def _stage_inputs(modulus, n, B, seed):
 
 
 def _port_stage(field, x, table, m):
-    """The plain stage on the port's [B, L, n] layout, back to [L, B, n]."""
+    """The plain stage (a one-stage pass, on the element-major table) on the
+    port's [B, L, n] layout, back to [L, B, n]."""
     dev = field.device_field("cpu")
     xt = dev.from_numpy(np.ascontiguousarray(x.transpose(1, 0, 2)))
-    got = radix2.butterfly_stage(dev, xt, dev.from_numpy(table), m)
+    got = radix2.butterfly_stages(dev, xt, dev.from_numpy(np.ascontiguousarray(table.T)), m, 1)
     return dev.to_numpy(got).transpose(1, 0, 2)
 
 
@@ -192,15 +193,17 @@ def test_direct_route_matches_four_step(modulus, n, monkeypatch):
 
 def test_direct_route_stage_sequence(direct, monkeypatch):
     """One direct n-point transform runs one local pass over n/LOCAL_MAX
-    bit-reversed blocks and one stage per m = LOCAL_MAX .. n/2, in order
-    (at 2^22 points and LOCAL_MAX 2048: m = 2048, 4096, the two row-7
-    stages, then nine row-9 stages)."""
+    bit-reversed blocks, then the stages m = LOCAL_MAX .. n/2 in order, in
+    passes of at most PASS_DEPTH stages (at 2^22 points and LOCAL_MAX 2048:
+    m = 2048 .. 2^16, one row-7 pass, then m = 2^17 .. 2^21, one row-9
+    pass; at 2^24 one row-7 pass and two row-9 passes)."""
     from genstark_tpu_torch import kernels
     direct(64)
+    monkeypatch.setattr(radix2, "PASS_DEPTH", 2)
     calls = []
-    real_stage, real_bfly = radix2.butterfly_stage, radix2.butterfly
-    monkeypatch.setattr(radix2, "butterfly_stage",
-                        lambda dev, x, t, m: calls.append(("stage", m)) or real_stage(dev, x, t, m))
+    real_stages, real_bfly = radix2.butterfly_stages, radix2.butterfly
+    monkeypatch.setattr(radix2, "butterfly_stages", lambda dev, x, t, m, k: (
+        calls.append(("stages", m, k)) or real_stages(dev, x, t, m, k)))
     monkeypatch.setattr(radix2, "butterfly", lambda dev, x, t, out=None, bitrev_in=False: (
         calls.append(("local", tuple(x.shape), bitrev_in)) or real_bfly(dev, x, t, out, bitrev_in)))
     field = create_prime_field(P64)
@@ -208,10 +211,13 @@ def test_direct_route_stage_sequence(direct, monkeypatch):
     n = 512
     plan = Radix2Plan(field, dev, n, field.get_root_of_unity(n))
     transform(dev, dev.zeros((n,)), plan)
-    assert calls == [("local", (1, n // 16, 4, 16), True)] + [("stage", 16 << k) for k in range(5)]
-    rows = [2048 << k for k in range(11)]
-    assert [m for m in rows if m <= kernels.STAGE_SPLIT_ABOVE] == [2048, 4096]
-    assert len([m for m in rows if m > kernels.STAGE_SPLIT_ABOVE]) == 9 and rows[-1] == 2 ** 21
+    assert calls == [("local", (1, n // 16, 4, 16), True),
+                     ("stages", 16, 2), ("stages", 64, 2), ("stages", 256, 1)]
+    passes = {n: radix2.stage_passes(n, 2048, 6) for n in (2 ** 22, 2 ** 23, 2 ** 24)}
+    assert passes == {2 ** 22: [(2048, 6), (2 ** 17, 5)], 2 ** 23: [(2048, 6), (2 ** 17, 6)],
+                      2 ** 24: [(2048, 5), (2 ** 16, 4), (2 ** 20, 4)]}
+    for ps in passes.values():
+        assert [m <= kernels.STAGE_SPLIT_ABOVE for m, _ in ps] == [True] + [False] * (len(ps) - 1)
 
 
 @pytest.mark.parametrize("case", ["p256", "p64"])

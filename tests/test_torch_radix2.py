@@ -138,7 +138,7 @@ def test_plan_factory_and_split(local_max):
     assert split(256) is None and split(512) == (16, 32) and split(2 ** 16) == (256, 256)
     plan = Radix2Plan(field, dev, 2 ** 17, field.get_root_of_unity(2 ** 17))
     assert (plan.route, plan.split) == ("direct", None)
-    assert tuple(plan.twiddles.shape) == (dev.L, 2 ** 16)
+    assert tuple(plan.twiddles.shape) == (2 ** 16, dev.L)
     assert tuple(plan.tables[0].shape) == (dev.L, 128)
     with pytest.raises(ValueError):
         Radix2Plan(field, dev, 48, 1)
