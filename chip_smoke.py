@@ -89,6 +89,66 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return event_ms(fn, reps)
 
 
+def is_port_kernel(name: str) -> bool:
+    """A device kernel of the port's CUDA sources (namespace gs), by the
+    profiler's (demangled or mangled) name."""
+    return "gs::" in name or "_ZN2gs" in name
+
+
+def short_kernel_name(name: str) -> str:
+    """gs::dft_level_kernel<8>(...) -> dft_level_kernel."""
+    tail = name.split("gs::", 1)[1] if "gs::" in name else name
+    for stop in "<( ":
+        tail = tail.split(stop, 1)[0]
+    return tail
+
+
+def profile_run(fn, reps: int = 1):
+    """(by_name, stages, wall_ms) of `reps` calls of fn() under
+    torch.profiler: the device time of every kernel, summed by name,
+    {name: (us, launches)} (empty when the profiler records no device
+    activity); the host wall of the prover's stage ranges (`prove.*`, which
+    the profiler also reports on the device's timeline, where they are left
+    out); and the calls' wall milliseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    by_name, stages = {}, {}
+    for e in prof.events():
+        if e.name.startswith("prove."):
+            if e.device_type == DeviceType.CPU:
+                stages[e.name] = stages.get(e.name, 0.0) + e.time_range.elapsed_us()
+        elif e.device_type == DeviceType.CUDA:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return by_name, stages, wall_ms
+
+
+def device_ms(fn, reps: int = 20, per_call: int = 1):
+    """Mean device milliseconds per call of the port's kernels that fn()
+    launches, `per_call` launches a call (torch.profiler over `reps` calls
+    after one warm-up): the kernel's own time, without the Python wrapper's
+    host cost that the event means of `cuda_ms` include for short kernels.
+    The mean is taken over the launches the profiler recorded, which may
+    miss a few.  None when the profiler sees no port kernel."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    port = [(t, n) for name, (t, n) in profile_run(fn, reps)[0].items() if is_port_kernel(name)]
+    count = sum(n for _, n in port)
+    return sum(t for t, _ in port) / count / 1e3 * per_call if count else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def max_abs_err(a, b) -> int:
     require(tuple(a.shape) == tuple(b.shape), f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
@@ -105,49 +165,100 @@ def random_elements(rng, modulus: int, L: int, n: int):
 
 def check_dft(dev, field, rng, results):
     """Kernel 1 at the levels of the main path's 2^17-point transform, in
-    every twiddle mode, limbs and digits out."""
+    every twiddle mode, limbs and digits out, digits in; level 0 also with
+    limbs in, as the transform's strided view (the main path's form).  The
+    reported time is the main path's three levels (device time, and event
+    means); beside it torch._int_mm on the stacked digit product of each
+    level, a yardstick for the multiply-adds alone (it does not compute the
+    level)."""
+    import torch
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.ntt import DftPlan, dft
     n = 2 ** 17
     plan = DftPlan(field, dev, n, field.get_root_of_unity(n), 1)
     rest = n
-    err, k_ms, p_ms = 0, 0.0, 0.0
-    D = 2 * dev.L + 1
+    err, k_ms, p_ms, d_ms, mm_ms = 0, 0.0, 0.0, 0.0, 0.0
+    L = dev.L
+    D = 2 * L + 1
+    main = field.modulus.bit_length() == 128
     n_bytes, work = 0, []
+    folds = solinas_fold_mults(field.modulus) if main else 0
     for lvl, m in enumerate(plan.levels):
         rest //= m
         cols = n // m
-        x = dev.from_numpy(random_elements(rng, field.modulus, dev.L, m * cols))
-        x8 = dft.encode_digits(x.reshape(dev.L, m, cols)).contiguous()
+        x = dev.from_numpy(random_elements(rng, field.modulus, L, m * cols)).reshape(L, m, cols)
+        x8 = dft.encode_digits(x).contiguous()
         tw = plan.tws[lvl] if rest > 1 else None
         mode = "none" if tw is None else ("direct" if "p" in tw else "factored")
+        # the transform's view of level 0's limbs: [L, pre = 1, m, rest]
+        inputs = [("digits", x8)] + ([("limbs view", x.reshape(L, 1, m, cols))] if lvl == 0 else [])
         for out_digits in (False, True):
-            args = (dev, plan.w8s[lvl], x8, m, rest, tw, out_digits)
-            got = kernels.dft_level(*args)
-            want = dft.run_dft_level_ref(*args)
-            e = max_abs_err(got, want)
-            km = cuda_ms(lambda: kernels.dft_level(*args))
-            pm = cuda_ms(lambda: dft.run_dft_level_ref(*args), reps=2)
-            print(f"dft_level p{field.modulus.bit_length()} m={m} cols={cols} rest={rest} "
-                  f"{mode} {'digits' if out_digits else 'limbs'}: max_abs_err={e} "
-                  f"kernel {km:.4f} ms plain {pm:.4f} ms", flush=True)
-            require(e == 0, "dft_level kernel != plain version")
-            err = max(err, e)
-            # the main path's transform: digits out except the last level
-            if field.modulus.bit_length() == 128 and out_digits == (lvl < len(plan.levels) - 1):
-                k_ms += km
-                p_ms += pm
-                tw_bytes = sum(t.numel() * 4 for t in (tw or {}).values())
-                n_bytes += (D * m * cols + D * m * m + tw_bytes
-                            + (D * m * cols if out_digits else 4 * dev.L * m * cols))
-                # m*D^2 int8 digit multiply-adds per output (2 ops each, at
-                # the card's int8 tensor-core rate), then 1 (direct panel)
-                # or 2 (factored) Montgomery products for the twiddle
-                work += [("int8_mma", 2 * m * cols * m * D * D),
-                         (("mont", dev.L), m * cols * {"none": 0, "direct": 1, "factored": 2}[mode])]
+            want = dft.run_dft_level_ref(dev, plan.w8s[lvl], x8, m, rest, tw, out_digits)
+            pm = cuda_ms(lambda: dft.run_dft_level_ref(dev, plan.w8s[lvl], x8, m, rest, tw,
+                                                       out_digits), reps=2)
+            for kind, xin in inputs:
+                args = (dev, plan.w8s[lvl], xin, m, rest, tw, out_digits)
+                e = max_abs_err(kernels.dft_level(*args), want)
+                km = cuda_ms(lambda: kernels.dft_level(*args))
+                dm = device_ms(lambda: kernels.dft_level(*args))
+                print(f"dft_level p{field.modulus.bit_length()} m={m} cols={cols} rest={rest} "
+                      f"{mode} {kind} in, {'digits' if out_digits else 'limbs'} out: "
+                      f"max_abs_err={e} kernel {km:.4f} ms (device {fmt_ms(dm)}) "
+                      f"plain {pm:.4f} ms", flush=True)
+                require(e == 0, "dft_level kernel != plain version")
+                err = max(err, e)
+                # the main path's transform: limbs in at level 0, digits out
+                # except at the last level
+                on_path = out_digits == (lvl < len(plan.levels) - 1) and (
+                    kind == ("limbs view" if lvl == 0 else "digits"))
+                if main and on_path:
+                    k_ms += km
+                    p_ms += pm
+                    d_ms = None if d_ms is None or dm is None else d_ms + dm
+                    tw_bytes = sum(t.numel() * 4 for t in (tw or {}).values())
+                    n_bytes += ((4 * L if kind != "digits" else D) * m * cols + D * m * m
+                                + tw_bytes + (D if out_digits else 4 * L) * m * cols)
+                    # m*D^2 int8 digit multiply-adds per output (2 ops each, at
+                    # the card's int8 tensor-core rate), the solinas folds
+                    # that reduce the wide integer, and 1 (direct panel) or
+                    # 2 (factored) twiddle products on the word product
+                    work += [("int8_mma", 2 * m * cols * m * D * D), ("u32", m * cols * folds),
+                             (("mont_w", L), m * cols * {"none": 0, "direct": 1,
+                                                         "factored": 2}[mode])]
+        if main:
+            a = plan.w8s[lvl].reshape(D * m, m)
+            b = x8.permute(1, 0, 2).reshape(m, D * cols).contiguous()
+            try:
+                mm = cuda_ms(lambda: torch._int_mm(a, b))
+                mm_ms += mm
+                print(f"  torch._int_mm [{D * m}, {m}] x [{m}, {D * cols}] (the level's digit "
+                      f"products, no diagonals, no epilogue): {mm:.4f} ms", flush=True)
+            except Exception as exc:  # noqa: BLE001 - a yardstick only
+                mm_ms = None
+                print(f"  torch._int_mm not measured: {exc!r}", flush=True)
     results["dft_level"]["max_abs_err"] = max(results["dft_level"]["max_abs_err"], err)
-    if field.modulus.bit_length() == 128:
-        results["dft_level"].update(ms=k_ms, plain_ms=p_ms, bytes=n_bytes, work=work)
+    if main:
+        results["dft_level"].update(ms=k_ms, plain_ms=p_ms, device_ms=d_ms, bytes=n_bytes,
+                                    work=work)
+        print(f"dft_level: the three levels of a p128 2^17 transform as the main path runs "
+              f"them: {k_ms:.4f} ms (events), device {fmt_ms(d_ms)}; torch._int_mm on the same "
+              f"digit products {fmt_ms(mm_ms)}", flush=True)
+
+
+def solinas_fold_mults(modulus: int) -> int:
+    """32-bit multiplies per output of the static solinas folds that bring
+    kernel 1's wide integer (its lazy limbs and two carry limbs) below
+    2^(16L + 1), for p = 2^(16L) - u * 2^(16a) + 1: each fold multiplies
+    the part above 2^(16L) by u, a lo and a hi multiply per 32-bit word of
+    that part (p128: three folds, 24 multiplies)."""
+    from genstark_tpu_torch.ntt import dft
+    L, _, nd, u, a = dft.solinas_spec(modulus)
+    bits, mults = 16 * (dft._n_lazy(nd) + 2), 0
+    while bits > 16 * L + 1:
+        high = bits - 16 * L
+        mults += 2 * -(-high // 32)
+        bits = max(16 * L, high + u.bit_length() + 16 * a) + 1
+    return mults
 
 
 def check_hash_words(dev, rng, results):
@@ -178,6 +289,7 @@ def check_hash_words(dev, rng, results):
         r["max_abs_err"] = max(r["max_abs_err"], e)
         if algo == "blake2s256":
             r.update(ms=km, plain_ms=pm, bytes=(64 + 32) * (Ne // 2),
+                     device_ms=device_ms(lambda: kernels.hash_words(algo, words, 64)),
                      work=[("u32", (Ne // 2) * BLAKE2S_BLOCK_OPS)])
 
 
@@ -221,12 +333,15 @@ def check_hash_limbs(dev, field, rng, results, record_times: bool = True):
         if algo == "blake2s256" and record_times:
             # leaves: 2 vectors of L int32 limbs read, one digest written
             r.update(ms=km, plain_ms=pm, bytes=(2 * L * 4 + 32) * Ne,
+                     device_ms=device_ms(lambda: h.merge_element_rows(vecs, elem)),
                      work=[("u32", Ne * BLAKE2S_BLOCK_OPS * -(-2 * elem // 64))])
 
 
 def check_tail(dev, field, rng, results, record_times: bool = True):
     """Kernel 4 at the bench shape: Ne = 2^17, B = 1, V = 2, raised copies
-    on, factored tables with s = 256 (L = 8 for p128, 16 for p256)."""
+    on, factored tables with s = 256, at the field's L.  Run at every L,
+    it holds each instantiation of the word product's carry chains (field.cuh)
+    bit for bit, as the compiler emitted them."""
     import numpy as np
     from genstark_tpu_torch.field.limbs import power_series_mont_np
     from genstark_tpu_torch.protocol.lincomb_kernel import lcomb_tail, lcomb_tail_ref
@@ -248,19 +363,28 @@ def check_tail(dev, field, rng, results, record_times: bool = True):
             l_coeffs, True, True, ext)
     e = max_abs_err(lcomb_tail(*args), lcomb_tail_ref(*args))
     km = cuda_ms(lambda: lcomb_tail(*args))
+    dm = device_ms(lambda: lcomb_tail(*args))
     pm = cuda_ms(lambda: lcomb_tail_ref(*args), reps=2)
     print(f"lcomb_tail Ne={Ne} L={L} B={B} V={V}: max_abs_err={e} "
-          f"kernel {km:.4f} ms plain {pm:.4f} ms", flush=True)
+          f"kernel {km:.4f} ms (device {fmt_ms(dm)}) plain {pm:.4f} ms", flush=True)
     require(e == 0, "lcomb_tail kernel != plain version")
     r = results["lcomb_tail"]
     r["max_abs_err"] = max(r["max_abs_err"], e)
     if record_times:
-        # qe, b, e read and the output written at L int32 limbs per
-        # position, the small tables once; 13 Montgomery products per
-        # position (dom, zinv, qe, incr, 3 per b, 3 per e with raised copies)
-        tables = sum(t.numel() for t in (*dom, *incr, inv_series, b_coeffs, l_coeffs)) * 4
-        r.update(ms=km, plain_ms=pm, bytes=(2 + B + V) * L * 4 * Ne + tables,
-                 work=[(("mont", L), (4 + 3 * B + 3 * V) * Ne)])
+        r.update(ms=km, plain_ms=pm, device_ms=dm, **tail_cost(args))
+
+
+def tail_cost(args) -> dict:
+    """Bytes and work of one kernel-4 call: qe, b, e read and the output
+    written at L int32 limbs per position, the small tables once; 4 + 3B +
+    3V word products per position with both raised copies (dom, zinv, qe,
+    incr, and 3 per b and per e)."""
+    _, qe, b_stack, e_std, dom, incr, inv_series, _, b_coeffs, l_coeffs = args[:10]
+    L, Ne = qe.shape
+    B, V = b_stack.shape[0], e_std.shape[0]
+    tables = sum(t.numel() for t in (*dom, *incr, inv_series, b_coeffs, l_coeffs)) * 4
+    return {"bytes": (2 + B + V) * L * 4 * Ne + tables,
+            "work": [(("mont_w", L), (4 + 3 * B + 3 * V) * Ne)]}
 
 
 def p_minus_1(field, n: int):
@@ -296,6 +420,7 @@ def check_field_ew(device, fields, rng, results):
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 if dev.L == 16 and n == 2 ** 17 and op == "mul":
                     r.update(ms=km, plain_ms=pm, bytes=3 * dev.L * 4 * n,
+                             device_ms=device_ms(lambda: kernels.field_ew(dev, op, a, b)),
                              work=[(("mont", dev.L), n)])
 
 
@@ -316,6 +441,7 @@ def check_outer(device, fields, rng, results):
         r["max_abs_err"] = max(r["max_abs_err"], e)
         if dev.L == 16:
             r.update(ms=km, plain_ms=pm, bytes=(512 + 256 + 512 * 256) * dev.L * 4,
+                     device_ms=device_ms(lambda: kernels.outer_table(dev, outer, inner)),
                      work=[(("mont", dev.L), 512 * 256)])
 
 
@@ -347,13 +473,16 @@ def check_butterfly(device, fields, rng, results):
                           y.permute(1, 3, 0, 2)),
                          (x.reshape(L, 1, n1, n2).permute(1, 2, 0, 3), plan.tables[1],
                           out.permute(0, 3, 1, 2))]
-            err, km, pm = 0, 0.0, 0.0
+            err, km, pm, dm = 0, 0.0, 0.0, 0.0
             for xin, tab, o in calls:
                 got = kernels.butterfly(dev, xin, tab, o)
                 want = radix2.butterfly_ref(dev, xin, tab)
                 err = max(err, max_abs_err(got, want))
                 km += cuda_ms(lambda: kernels.butterfly(dev, xin, tab, o))
                 pm += cuda_ms(lambda: radix2.butterfly_ref(dev, xin, tab), reps=2)
+                if L == 16 and n == 2 ** 17:
+                    one = device_ms(lambda: kernels.butterfly(dev, xin, tab, o))
+                    dm = None if dm is None or one is None else dm + one
             print(f"butterfly p{field.modulus.bit_length()} L={L} n={n} local "
                   f"{plan.split or (n,)}: max_abs_err={err} kernel {km:.4f} ms "
                   f"plain {pm:.4f} ms", flush=True)
@@ -362,7 +491,7 @@ def check_butterfly(device, fields, rng, results):
             if L == 16 and n == 2 ** 17:
                 # two passes, each reading and writing the array once; one
                 # Montgomery product per butterfly, (n/2) log2 n in all
-                r.update(ms=km, plain_ms=pm, bytes=2 * 2 * L * 4 * n,
+                r.update(ms=km, plain_ms=pm, device_ms=dm, bytes=2 * 2 * L * 4 * n,
                          work=[(("mont", L), (n // 2) * (n.bit_length() - 1))])
             if n == 2 ** 17:
                 xb = dev.from_numpy(random_elements(rng, field.modulus, L, 2 * n))
@@ -416,7 +545,8 @@ def check_stages(device, fields, rng, results):
                     # k stages read once: those of stage m_j are every
                     # 2^(k-1-j)-th of the last stage's m << (k-1); k * n/2
                     # Montgomery products
-                    results[row].update(ms=km, plain_ms=pm,
+                    results[row].update(ms=km, plain_ms=pm, device_ms=device_ms(
+                        lambda: kernels.butterfly_stages(dev, work, table, m, k), reps=5),
                                         bytes=2 * L * 4 * n + L * 4 * (m << (k - 1)),
                                         work=[(("mont", L), k * n // 2)])
                 else:
@@ -483,8 +613,9 @@ def check_butterfly_bitrev(device, fields, rng, results):
 
 def check_probes(device, fields, rng, results):
     """Kernels 10 and 11 against their plain versions at the probes' shapes
-    (mont_chain at depth 16 over [L, 2^21] at every L; u32_chain over 2^26
-    words); the reported times are L = 16 and the u32 chain."""
+    (mont_chain at depth 16 over [L, 2^21] at every L, both chains;
+    u32_chain over 2^26 words); the reported times are the squaring chain
+    at L = 16 and the u32 chain."""
     import numpy as np
     import torch
     from genstark_tpu_torch import kernels, roofline
@@ -493,6 +624,8 @@ def check_probes(device, fields, rng, results):
         n, depth = 2 ** 21, 16
         x = dev.from_numpy(random_elements(rng, field.modulus, dev.L, n))
         e = max_abs_err(kernels.mont_chain(dev, x, depth), roofline.mont_chain_ref(dev, x, depth))
+        e = max(e, max_abs_err(kernels.mont_chain(dev, x, depth, general=True),
+                               roofline.mont_chain_ref(dev, x, depth, general=True)))
         require(e == 0, f"mont_chain kernel != plain version at L = {dev.L}")
         results["mont_chain"]["max_abs_err"] = max(results["mont_chain"]["max_abs_err"], e)
         times = ""
@@ -500,6 +633,8 @@ def check_probes(device, fields, rng, results):
             km = cuda_ms(lambda: kernels.mont_chain(dev, x, depth))
             pm = cuda_ms(lambda: roofline.mont_chain_ref(dev, x, depth), reps=1)
             results["mont_chain"].update(ms=km, plain_ms=pm, bytes=2 * dev.L * 4 * n,
+                                         device_ms=device_ms(
+                                             lambda: kernels.mont_chain(dev, x, depth), reps=5),
                                          work=[(("mont", dev.L), depth * n)])
             times = f" kernel {km:.4f} ms plain {pm:.4f} ms"
         print(f"mont_chain L={dev.L} n={n} depth={depth}: max_abs_err={e}{times}", flush=True)
@@ -511,6 +646,7 @@ def check_probes(device, fields, rng, results):
     km = cuda_ms(lambda: kernels.u32_chain(w))
     pm = cuda_ms(lambda: roofline.u32_chain_ref(w), reps=1)
     results["u32_chain"].update(max_abs_err=e, ms=km, plain_ms=pm, bytes=8 * n,
+                                device_ms=device_ms(lambda: kernels.u32_chain(w), reps=5),
                                 work=[("u32", n * roofline.U32_OPS_PER_ELEMENT)])
     print(f"u32_chain n={n}: max_abs_err={e} kernel {km:.4f} ms plain {pm:.4f} ms", flush=True)
 
@@ -523,16 +659,18 @@ def measure_rates(kernels, device, fields) -> dict:
     kernels.reset_launch_counts()
     rates = {"u32": roofline.u32_rate(device)["u32_ops_per_s"]}
     for field in fields:
-        r = roofline.mont_rate(field.device_field(device))
-        rates[("mont", r["L"])] = r["mont_muls_per_s"]
-        print(f"probe mont_chain L={r['L']}: {r['mont_muls_per_s']:.6e} mont-muls/s "
-              f"(depths {r['depths']}: {r['ms'][0]:.4f} / {r['ms'][1]:.4f} ms over "
-              f"{r['n']} elements)", flush=True)
+        for general, kind, what in ((False, "mont", "16-bit-limb product, squares"),
+                                    (True, "mont_w", "word product, v <- v*w")):
+            r = roofline.mont_rate(field.device_field(device), general=general)
+            rates[(kind, r["L"])] = r["mont_muls_per_s"]
+            print(f"probe mont_chain L={r['L']} ({what}): {r['mont_muls_per_s']:.6e} "
+                  f"mont-muls/s (depths {r['depths']}: {r['ms'][0]:.4f} / {r['ms'][1]:.4f} ms "
+                  f"over {r['n']} elements)", flush=True)
     print(f"probe u32_chain: {rates['u32']:.6e} u32 ops/s", flush=True)
     for key, rate in list(rates.items()):
         if isinstance(key, tuple):
             floor = rates["u32"] / roofline.mont_min_u32_ops(key[1])
-            print(f"L={key[1]}: this code's {rate:.6e} Montgomery products/s are "
+            print(f"L={key[1]} {key[0]}: this code's {rate:.6e} Montgomery products/s are "
                   f"{100 * rate / floor:.1f}% of the card's {floor:.6e}/s "
                   f"({roofline.mont_min_u32_ops(key[1])} 32-bit multiplies each at the u32 rate)",
                   flush=True)
@@ -556,8 +694,9 @@ def work_seconds(kind, count: int, rates: dict) -> float:
 def bound(entry: dict, rates: dict):
     """(bound_ms, bound_by, own_ms): the larger of the bytes over the memory
     rate and the work at the card's rates; and the Montgomery part of the
-    work at this code's own product rate (the mont_chain probe), None where
-    there is none."""
+    work at this code's own rate for the product the kernel uses (the
+    mont_chain probe: "mont" the 16-bit-limb squaring chain, "mont_w" the
+    word product's general chain), None where there is none."""
     t_bytes = entry["bytes"] / MEM_BYTES_PER_S
     t_ops = sum(work_seconds(kind, count, rates) for kind, count in entry["work"])
     mont = [count / rates[kind] for kind, count in entry["work"] if isinstance(kind, tuple)]
@@ -739,23 +878,8 @@ def profile_prove(stark, assertions) -> None:
     """Device kernel time by name over one prove, and the device's busy
     share of the wall time.  A measurement only: a profiler that captures
     nothing is reported, not fatal."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            stark.prove(assertions, [[3]])
-            torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3
-        by_name, stages = {}, {}
-        for e in prof.events():
-            if e.name.startswith("prove."):     # the prover's stage ranges
-                if e.device_type == DeviceType.CPU:
-                    stages[e.name] = stages.get(e.name, 0.0) + e.time_range.elapsed_us()
-            elif e.device_type == DeviceType.CUDA:
-                us, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        by_name, stages, wall_ms = profile_run(lambda: stark.prove(assertions, [[3]]))
     except Exception as err:  # noqa: BLE001 - measurement boundary
         print(f"profiler failed: {err!r}", flush=True)
         return
@@ -766,10 +890,94 @@ def profile_prove(stark, assertions) -> None:
     radix = [(us, n) for name, (us, n) in by_name.items() if "butterfly" in name]
     print(f"  radix-2 kernels 7 + 8 + 9: {sum(us for us, _ in radix) / 1e3:.3f} ms over "
           f"{sum(n for _, n in radix)} launches", flush=True)
+    for short, (us, n) in sorted(port_totals(by_name).items(), key=lambda kv: -kv[1][0]):
+        print(f"  port kernel {short}: {us / 1e3:.3f} ms over {n} launches", flush=True)
     for name, us in stages.items():
         print(f"  stage {name}: host wall {us / 1e3:.3f} ms", flush=True)
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}", flush=True)
+
+
+def port_totals(by_name: dict) -> dict:
+    """{short kernel name: (us, launches)} over the port's kernels of a
+    profile (every instantiation of a kernel summed)."""
+    out = {}
+    for name, (us, n) in by_name.items():
+        if is_port_kernel(name):
+            key = short_kernel_name(name)
+            t, c = out.get(key, (0.0, 0))
+            out[key] = (t + us, c + n)
+    return out
+
+
+def kernel_times(device, rates) -> dict:
+    """Device time (torch.profiler) of kernels 1 and 4 at the main paths'
+    shapes, through the port's entry points: the three kernel-1 levels of
+    one p128 2^17-point LDE (ntt.transform; also every device kernel of the
+    transform, with torch's own), kernel 4 at Ne = 2^17, L = 8 and at the
+    2^18-step path's Ne = LARGE_N, L = 16 (B = 1, V = 2, both raised copies,
+    the prover's split s; beside its bound), and one profiled bench prove
+    after a warm-up: kernel 1's and kernel 4's totals, all device kernels
+    and their launches."""
+    import torch
+    from genstark_tpu_torch.field import P128, P256, create_prime_field
+    from genstark_tpu_torch.ntt import DftPlan, transform
+    from genstark_tpu_torch.protocol.lincomb_kernel import lcomb_tail
+    from mimc_torch import make_mimc_stark
+    out = {}
+    f128 = create_prime_field(P128)
+    dev = f128.device_field(device)
+    n = 2 ** 17
+    plan = DftPlan(f128, dev, n, f128.get_root_of_unity(n),
+                   f128.inv(f128.params.R_mod % f128.modulus))
+    x = device_elements(device, 90, f128.modulus, dev.L, n).reshape(1, dev.L, n)
+    transform(dev, x, plan)
+    torch.cuda.synchronize()
+    reps = 20
+    by_name = profile_run(lambda: transform(dev, x, plan), reps)[0]
+    k1 = [(us, c) for name, (us, c) in by_name.items() if "dft_level" in name]
+    # the mean over the recorded launches times the plan's levels (the
+    # profiler may miss a launch or two)
+    n_k1 = sum(c for _, c in k1)
+    out["dft_lde_2_17_device_ms"] = (sum(us for us, _ in k1) / n_k1 * len(plan.levels) / 1e3
+                                     if n_k1 else None)
+    out["dft_lde_2_17_launches_recorded"] = sum(c for _, c in k1) / reps
+    out["lde_2_17_all_device_ms"] = sum(us for us, _ in by_name.values()) / 1e3 / reps
+    out["lde_2_17_all_launches_recorded"] = sum(c for _, c in by_name.values()) / reps
+    for label, modulus, Ne in (("tail_2_17_l8", P128, 2 ** 17), ("tail_2_22_l16", P256, LARGE_N)):
+        field = create_prime_field(modulus)
+        dev = field.device_field(device)
+        L, p = dev.L, field.modulus
+        s, ext = 1 << ((Ne.bit_length() - 1) // 2), 16
+        seeds = iter(range(100, 120))
+        rnd = lambda *shape: device_elements(device, next(seeds), p, L, *shape)
+        args = (dev, rnd(Ne), rnd(1, Ne).transpose(0, 1).contiguous(),
+                rnd(2, Ne).transpose(0, 1).contiguous(), (rnd(Ne // s), rnd(s)),
+                (rnd(Ne // s), rnd(s)), rnd(ext), p - 12345, rnd(2), rnd(4), True, True, ext)
+        out[f"{label}_device_ms"] = device_ms(lambda: lcomb_tail(*args), reps=10)
+        bound_ms, bound_by, own_ms = bound(tail_cost(args), rates)
+        print(f"lcomb_tail Ne={Ne} L={L} B=1 V=2 s={s}: device "
+              f"{fmt_ms(out[label + '_device_ms'])} against a bound of {bound_ms:.4f} ms "
+              f"({bound_by}); its products at the word product's rate {own_ms:.4f} ms",
+              flush=True)
+        del args
+        torch.cuda.empty_cache()
+    stark, constants = make_mimc_stark(BENCH_STEPS, device)
+    assertions = mimc_assertions(stark, constants, BENCH_STEPS)
+    for _ in range(2):
+        stark.prove(assertions, [[3]])
+    torch.cuda.synchronize()
+    by_name = profile_run(lambda: stark.prove(assertions, [[3]]))[0]
+    totals = port_totals(by_name)
+    for key, short in (("bench_dft_level", "dft_level_kernel"),
+                       ("bench_lcomb_tail", "lcomb_tail_kernel")):
+        us, c = totals.get(short, (0.0, 0))
+        out[f"{key}_device_ms"], out[f"{key}_launches"] = us / 1e3, c
+    out["bench_all_device_ms"] = sum(us for us, _ in by_name.values()) / 1e3
+    out["bench_all_launches"] = sum(c for _, c in by_name.values())
+    for name, (us, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  bench prove, device: {us / 1e3:9.3f} ms {c:6d}x  {name[:90]}", flush=True)
+    return out
 
 
 def ptxas_report(log: str):
@@ -965,7 +1173,9 @@ def main() -> int:
     check_outer(device, [f128, f256], rng, results)
     check_butterfly(device, all_fields, rng, results)
     check_hash_limbs(dev256, f256, rng, results, record_times=False)
-    check_tail(dev256, f256, rng, results, record_times=False)
+    for field in all_fields:          # every instantiation of the word product's kernel 4
+        if field is not f128:
+            check_tail(field.device_field(device), field, rng, results, record_times=False)
     check_stages(device, [all_fields[1], all_fields[3], f256], rng, results)
     check_butterfly_bitrev(device, all_fields, rng, results)
     check_probes(device, all_fields, rng, results)
@@ -973,6 +1183,9 @@ def main() -> int:
 
     phase("probes: the card's Montgomery-multiply and u32 op rates")
     rates = measure_rates(kernels, device, all_fields)
+
+    phase("kernels 1 and 4: device time at the main paths' shapes (torch.profiler)")
+    print(json.dumps({"kernel_times": kernel_times(device, rates)}), flush=True)
 
     phase(f"large transforms: P256 at {LARGE_N} points by three routes, 2x and 4x round trips")
     check_large_transforms(kernels, device, f256, rng)
@@ -1032,10 +1245,13 @@ def main() -> int:
         line.append({"name": name, "route": "cuda", "source": meta[name][0],
                      "replaces": meta[name][1], "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                     "device_ms": r.get("device_ms"), "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
         own = "" if own_ms is None else f"; its Montgomery products at this code's rate {own_ms:.4f} ms"
+        dms = r.get("device_ms")
+        reached = "" if dms is None else f", device {dms:.4f} ms: {100 * bound_ms / dms:.1f}%"
         print(f"{name}: {r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms "
-              f"({bound_by}; {100 * bound_ms / r['ms']:.1f}% of it{own}), plain "
+              f"({bound_by}; {100 * bound_ms / r['ms']:.1f}% of it by events{reached}{own}), plain "
               f"{r['plain_ms']:.4f} ms, {launches[name]} launches on the paths", flush=True)
     kernels_line = {"kernels": line}
     print(json.dumps(kernels_line), flush=True)

@@ -2,9 +2,13 @@
 //
 // Kernel 10 (`mont_chain`) replaces the TPU kernel scripts/roofline.py
 // `_mont_chain_kernel` (:78, pallas_call :99): `depth` dependent Montgomery
-// self-products per element with the limbs in fast memory; the slope
-// between two depths is the Montgomery-multiply rate at L limbs (the fixed
-// memory traffic cancels).  Kernel 11 (`u32_chain`) replaces
+// products per element with the limbs in fast memory; the slope between
+// two depths is the Montgomery-multiply rate at L limbs (the fixed memory
+// traffic cancels).  Two chains: the 16-bit-limb product squaring (v <- v*v,
+// the JAX probe's chain), and the 32-bit-word product on general operands
+// (v <- v*w, w the element's input, fixed), the product kernels 1 and 4 use;
+// a square lets the compiler share the limb products a_i*a_k and a_k*a_i,
+// which a general product cannot.  Kernel 11 (`u32_chain`) replaces
 // scripts/vpu_bound.py `_kernel` (:24, pallas_call :40): K = 512 chained u32
 // ops per element (128 iterations of add, xor with a shift, rotate by 16,
 // add; counted as 5 ops per iteration as the JAX script counts them), the
@@ -37,6 +41,20 @@ mont_chain_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out, long
   store_elem<L>(out, n, i, v);
 }
 
+template <int K>
+__global__ void __launch_bounds__(256)
+mont_chain_w_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out, long long n,
+                    int depth, FieldW f) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t v[K], w[K];
+  load_elem_w<K>(x, n, i, w);
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = w[j];
+  for (int d = 0; d < depth; ++d) mont_mul_w<K>(v, w, f, v);
+  store_elem_w<K>(out, n, i, v);
+}
+
 constexpr int kU32ChainK = 512;
 
 __global__ void __launch_bounds__(256)
@@ -57,30 +75,37 @@ u32_chain_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, lon
 
 template <int L>
 cudaError_t launch_mont_chain(const int32_t* x, int32_t* out, long long n, int depth,
-                              const Field& f, cudaStream_t st) {
-  mont_chain_kernel<L><<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(x, out, n,
-                                                                              depth, f);
+                              int general, const uint32_t* field_words, cudaStream_t st) {
+  const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+  if (general) {
+    mont_chain_w_kernel<L / 2><<<blocks, 256, 0, st>>>(x, out, n, depth,
+                                                      fieldw_from_words(field_words, L));
+  } else {
+    mont_chain_kernel<L><<<blocks, 256, 0, st>>>(x, out, n, depth,
+                                                 field_from_words(field_words, L));
+  }
   return cudaGetLastError();
 }
 
 }  // namespace gs
 
-// x, out: int32 [L, n] contiguous (Montgomery limbs); out[:, i] = x[:, i]
-// squared `depth` times (Montgomery products).
+// x, out: int32 [L, n] contiguous (Montgomery limbs).  general = 0:
+// out[:, i] = x[:, i] squared `depth` times (16-bit-limb product); general =
+// 1: v = x[:, i], then v <- v * x[:, i] `depth` times (word product).
+// field_words: p limbs [L], n0p, n0p32.
 extern "C" int gs_mont_chain(int L, const void* x, void* out, long long n, int depth,
-                             const uint32_t* field_words, void* stream) {
+                             int general, const uint32_t* field_words, void* stream) {
   if (depth < 0 || n < 0 || (n + 255) / 256 > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const gs::Field f = gs::field_from_words(field_words, L);
   auto* a = static_cast<const int32_t*>(x);
   auto* o = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (L) {
-    case 2: return gs::launch_mont_chain<2>(a, o, n, depth, f, st);
-    case 4: return gs::launch_mont_chain<4>(a, o, n, depth, f, st);
-    case 8: return gs::launch_mont_chain<8>(a, o, n, depth, f, st);
-    case 14: return gs::launch_mont_chain<14>(a, o, n, depth, f, st);
-    case 16: return gs::launch_mont_chain<16>(a, o, n, depth, f, st);
+    case 2: return gs::launch_mont_chain<2>(a, o, n, depth, general, field_words, st);
+    case 4: return gs::launch_mont_chain<4>(a, o, n, depth, general, field_words, st);
+    case 8: return gs::launch_mont_chain<8>(a, o, n, depth, general, field_words, st);
+    case 14: return gs::launch_mont_chain<14>(a, o, n, depth, general, field_words, st);
+    case 16: return gs::launch_mont_chain<16>(a, o, n, depth, general, field_words, st);
     default: return cudaErrorInvalidValue;
   }
 }

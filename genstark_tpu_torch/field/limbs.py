@@ -87,5 +87,8 @@ class MontParams:
         # n0' = -p^{-1} mod 2^16
         p_inv = pow(modulus, -1, 1 << LIMB_BITS)
         self.n0p = (-p_inv) % (1 << LIMB_BITS)
+        # n0' = -p^{-1} mod 2^32, for the kernels' 32-bit-word product
+        # (csrc/field.cuh mont_mul_w); the JAX package has only the 16-bit one
+        self.n0p32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
         self.p_limbs = int_to_limbs(modulus, self.L)
         self.r2_limbs = int_to_limbs(self.R2_mod, self.L)

@@ -131,7 +131,8 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.gs_dft_level.argtypes = [I, P, P, I, I, I, P, P, I, I, I, I, P, P, P, I, P]
+        lib.gs_dft_level.argtypes = [I, P, P, P, I, I, I, I, I, I, P, P, I, I, I, I, P, P, P, I,
+                                     P]
         lib.gs_dft_level.restype = I
         lib.gs_hash_words.argtypes = [I, P, I, I, LL, P, P]
         lib.gs_hash_words.restype = I
@@ -147,7 +148,7 @@ def _load():
         lib.gs_butterfly.restype = I
         lib.gs_butterfly_stages.argtypes = [I, P, P, I, I, I, I, P, P]
         lib.gs_butterfly_stages.restype = I
-        lib.gs_mont_chain.argtypes = [I, P, P, LL, I, P, P]
+        lib.gs_mont_chain.argtypes = [I, P, P, LL, I, I, P, P]
         lib.gs_mont_chain.restype = I
         lib.gs_u32_chain.argtypes = [P, P, LL, P]
         lib.gs_u32_chain.restype = I
@@ -176,8 +177,10 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _field_words(dev) -> np.ndarray:
+    """p limbs [L], then n0' mod 2^16 (field.cuh `Field`) and n0' mod 2^32
+    (`FieldW`, the word product)."""
     return np.concatenate([dev.params.p_limbs.astype(np.uint32),
-                           np.asarray([dev.n0p], dtype=np.uint32)])
+                           np.asarray([dev.n0p, dev.params.n0p32], dtype=np.uint32)])
 
 
 def _u32p(arr: np.ndarray):
@@ -195,16 +198,39 @@ def _field_l(dev) -> int:
 
 
 # ----------------------------------------------------------------- kernel 1
-def dft_level(dev, w8, x8, m: int, rest: int, tw, out_digits: bool):
-    """Kernel 1 (csrc/dft_level.cu): contract of ntt.dft.run_dft_level_ref."""
-    from .ntt.dft import epilogue_constants
+# Contraction depth kernel 1 stages at once (csrc/dft_level.cu kDftSlice):
+# each slice adds its own bias per diagonal, which the correction cancels.
+DFT_SLICE = 64
+
+
+def dft_level(dev, w8, x, m: int, rest: int, tw, out_digits: bool):
+    """Kernel 1 (csrc/dft_level.cu): contract of ntt.dft.run_dft_level_ref.
+    x is int8 digit planes [D, m, cols] or [D, pre, m, r], or int32
+    canonical limbs [L, m, cols] or [L, pre, m, r] (the kernel encodes
+    their digits), any strides; col = b * r + q for the 4-D views."""
+    from .ntt.dft import bias_correction, epilogue_constants
     L = dev.L
     D = 2 * L + 1
-    cols = x8.shape[2]
+    _require(w8, "w8", torch.int8, (D, m, m))
+    if x.device.type != "cuda":
+        raise ValueError(f"x: expected a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.int8, torch.int32):
+        raise TypeError(f"x: expected int8 digits or int32 limbs, got {x.dtype}")
+    in_limbs = x.dtype == torch.int32
+    planes = L if in_limbs else D
+    if x.dim() == 3 and tuple(x.shape[:2]) == (planes, m):
+        cols = x.shape[2]
+        strides, arest = (x.stride(0), 0, x.stride(1), x.stride(2)), max(cols, 1)
+    elif x.dim() == 4 and x.shape[0] == planes and x.shape[2] == m:
+        cols = x.shape[1] * x.shape[3]
+        strides, arest = (x.stride(0), x.stride(1), x.stride(2), x.stride(3)), x.shape[3]
+    else:
+        raise ValueError(f"x: expected [{planes}, {m}, cols] or [{planes}, pre, {m}, r], "
+                         f"got {tuple(x.shape)}")
     if cols >= 1 << 31:
         raise ValueError(f"dft_level takes fewer than 2^31 columns, got {cols}")
-    _require(w8, "w8", torch.int8, (D, m, m))
-    _require(x8, "x8", torch.int8, (D, m, cols))
+    if min(strides) < 0:
+        raise ValueError("dft_level takes views with non-negative strides")
     mode, tw_a, tw_b, s, tc = 0, None, None, 1, 1
     if rest > 1:
         if cols % rest:
@@ -222,16 +248,20 @@ def dft_level(dev, w8, x8, m: int, rest: int, tw, out_digits: bool):
             _require(tw_b, "twiddle B", torch.int32, (L, m, s))
     n_out = D if out_digits else L
     out = torch.empty((n_out, m, cols), dtype=torch.int8 if out_digits else torch.int32,
-                      device=x8.device)
-    corr, consts = epilogue_constants(dev.p)
-    epi = np.ascontiguousarray(np.concatenate([corr, consts.reshape(-1)]).astype(np.uint32))
+                      device=x.device)
+    if cols == 0:
+        return out
+    n_slices = -(-m // DFT_SLICE)
+    _, consts = epilogue_constants(dev.p)
+    epi = np.ascontiguousarray(np.concatenate(
+        [bias_correction(dev.p, n_slices), consts.reshape(-1)]).astype(np.uint32))
     fw = np.ascontiguousarray(_field_words(dev))
     rc = _load().gs_dft_level(
-        L, w8.data_ptr(), x8.data_ptr(), m, cols, mode,
-        tw_a.data_ptr() if tw_a is not None else None,
+        L, w8.data_ptr(), x.data_ptr(), _i64s(list(strides)), arest, int(in_limbs), m, cols,
+        n_slices, mode, tw_a.data_ptr() if tw_a is not None else None,
         tw_b.data_ptr() if tw_b is not None else None,
         max(rest, 1), s, tc, int(out_digits), out.data_ptr(),
-        _u32p(fw), _u32p(epi), consts.shape[0], _stream(x8))
+        _u32p(fw), _u32p(epi), consts.shape[0], _stream(x))
     _check(rc, "dft_level")
     launch_counts["dft_level"] += 1
     return out
@@ -279,7 +309,9 @@ def lcomb_tail(dev, qe, b_stack, e_std, dom_parts, incr_parts, inv_series,
                x_last_mont_limbs: np.ndarray, b_coeffs, l_coeffs,
                b_inc: bool, ps_inc: bool, ext: int) -> torch.Tensor:
     """Kernel 4 (csrc/lcomb_tail.cu): contract of
-    protocol.lincomb_kernel.lcomb_tail_ref."""
+    protocol.lincomb_kernel.lcomb_tail_ref, with one limit: a block holds
+    x_last, the coefficients and the inv series in shared memory, so
+    (1 + nb + nl + ext) elements of L/2 words must fit in SMEM_BYTES."""
     L, Ne = qe.shape
     B, V = b_stack.shape[0], e_std.shape[0]
     dom_o, dom_i = dom_parts
@@ -289,6 +321,9 @@ def lcomb_tail(dev, qe, b_stack, e_std, dom_parts, incr_parts, inv_series,
     nb, nl = b_coeffs.shape[1], l_coeffs.shape[1]
     if nb != B * (2 if b_inc else 1) or nl != V * (2 if ps_inc else 1):
         raise ValueError("coefficient counts do not match the vectors")
+    if (1 + nb + nl + ext) * (L // 2) * 4 > SMEM_BYTES:
+        raise ValueError(f"lcomb_tail's constants ({1 + nb + nl + ext} elements of {L} limbs) "
+                         f"exceed the {SMEM_BYTES} bytes of shared memory a block may hold")
     if (b_inc or ps_inc) and incr_parts is None:
         raise ValueError("raised copies need the incr table")
     _require(qe, "qe", torch.int32, (L, Ne))
@@ -467,10 +502,11 @@ def butterfly_stages(dev, x: torch.Tensor, table: torch.Tensor, m: int, k: int) 
 
 
 # ------------------------------------------------------------- kernels 10, 11
-def mont_chain(dev, x: torch.Tensor, depth: int) -> torch.Tensor:
+def mont_chain(dev, x: torch.Tensor, depth: int, general: bool = False) -> torch.Tensor:
     """Kernel 10 (csrc/probes.cu gs_mont_chain): contract of
     roofline.mont_chain_ref.  x int32 [L, n] contiguous -> x squared
-    `depth` times by Montgomery products, a new [L, n] tensor."""
+    `depth` times by the 16-bit-limb product, or with `general` v <- v*x
+    `depth` times by the word product; a new [L, n] tensor."""
     L = _field_l(dev)
     _require(x, "x", torch.int32)
     if x.dim() != 2 or x.shape[0] != L:
@@ -479,8 +515,8 @@ def mont_chain(dev, x: torch.Tensor, depth: int) -> torch.Tensor:
         raise ValueError("depth must be >= 0")
     out = torch.empty_like(x)
     fw = np.ascontiguousarray(_field_words(dev))
-    rc = _load().gs_mont_chain(L, x.data_ptr(), out.data_ptr(), x.shape[1], depth, _u32p(fw),
-                               _stream(x))
+    rc = _load().gs_mont_chain(L, x.data_ptr(), out.data_ptr(), x.shape[1], depth, int(general),
+                               _u32p(fw), _stream(x))
     _check(rc, "mont_chain")
     launch_counts["mont_chain"] += 1
     return out

@@ -19,9 +19,9 @@ is fused into that level's epilogue, and every level but the last emits
 int8 digit planes that the next level consumes directly.
 
 The port's own level split: levels of at most 2^6 points (one level for
-n < 128), split near-equally.  The DFT kernel runs one thread per output,
-so a level costs m * D^2 multiply-adds per point — small levels win until
-the per-level passes dominate.
+n < 128), split near-equally.  The DFT kernel runs the digit products on
+the int8 tensor cores in slices of 64 of j, so one slice holds a whole
+level.
 """
 
 from __future__ import annotations
@@ -148,17 +148,16 @@ def _digit_transform(dev: DeviceField, a: torch.Tensor, plan: DftPlan) -> torch.
     Bc = x.shape[0]
     cur = x.permute(1, 0, 2)                           # [L, Bc, n]
     pre, rest = Bc, n
-    digits = False                                     # cur holds int8 digits
     for lvl, m in enumerate(levels):
         rest //= m
+        # level 0 reads the limbs (the kernel encodes their digits as it
+        # loads them), later levels the previous level's digit planes; both
+        # as the strided view [planes, pre, m, rest], with no copy
         curv = cur.reshape(cur.shape[0], pre, m, rest)
-        d = curv if digits else dft.encode_digits(curv)
-        d = d.permute(0, 2, 1, 3).reshape(d.shape[0], m, pre * rest).contiguous()
         out_dig = lvl < q - 1
-        o = dft.run_dft_level(dev, plan.w8s[lvl], d, m, rest,
+        o = dft.run_dft_level(dev, plan.w8s[lvl], curv, m, rest,
                               plan.tws[lvl] if rest > 1 else None, out_digits=out_dig)
         cur = o.reshape(o.shape[0], m * pre, rest)     # pre' = (k_lvl, pre)
-        digits = out_dig
         pre *= m
     # cur: [L, k_q, ..., k_1, Bc] -> [Bc, L, (k_q, ..., k_1)]
     cur = cur.reshape((L,) + tuple(reversed(levels)) + (Bc,))

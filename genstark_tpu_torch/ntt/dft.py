@@ -90,11 +90,12 @@ def _w_digits_np(modulus: int, m: int, root: int, scale: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def _bias_correction(modulus: int) -> np.ndarray:
-    """u32[L] limbs of (-BIAS * sum_k 2^(8k)) mod p: adding this to the
-    biased diagonal recombination cancels the bias exactly mod p."""
+def bias_correction(modulus: int, copies: int = 1) -> np.ndarray:
+    """u32[L] limbs of (-copies * BIAS * sum_k 2^(8k)) mod p: adding this
+    to a recombination that biased every diagonal `copies` times cancels
+    the bias exactly mod p (kernel 1 biases each staged slice of j)."""
     L, _, nd, _, _ = solinas_spec(modulus)
-    total = BIAS * sum(1 << (8 * k) for k in range(nd))
+    total = copies * BIAS * sum(1 << (8 * k) for k in range(nd))
     return int_to_limbs((-total) % modulus, L)
 
 
@@ -134,7 +135,7 @@ def epilogue_constants(modulus: int):
     R = 1 << (16 * L)
     consts = [int_to_limbs(pow(2, 16 * L * j, modulus) * R % modulus, L)
               for j in range(1, n_ch)]
-    return _bias_correction(modulus), np.stack(consts).astype(np.uint32)
+    return bias_correction(modulus), np.stack(consts).astype(np.uint32)
 
 
 def w_digits(field, m: int, root: int, scale: int = 1) -> np.ndarray:
@@ -209,13 +210,25 @@ def diags_to_limbs(dev: DeviceField, acc: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def digit_planes(x: torch.Tensor, m: int) -> torch.Tensor:
+    """A level's input as int8 digit planes [D, m, cols]: x is int8 digits
+    or int32 canonical limbs (encoded by `encode_digits`), either as
+    [planes, m, cols] or as the transform's view [planes, pre, m, r], whose
+    column (b, q) is col = b * r + q."""
+    if x.dim() == 4:
+        x = x.permute(0, 2, 1, 3).reshape(x.shape[0], m, x.shape[1] * x.shape[3])
+    return x if x.dtype == torch.int8 else encode_digits(x)
+
+
 def run_dft_level_ref(dev: DeviceField, w8: torch.Tensor, x8: torch.Tensor,
                       m: int, rest: int, tw, out_digits: bool = False) -> torch.Tensor:
     """Plain torch level: same contract and values as the kernel.
 
-    w8 int8[D, m, m]; x8 int8[D, m, cols]; tw None, {"p": panel [L, m, Tc]}
-    or {"a": A [rest//s, L, m], "b": B [L, m, s]} (int32 Montgomery).
-    Returns int32[L, m, cols] or, with out_digits, int8[D, m, cols].
+    w8 int8[D, m, m]; x8 the input in any form `digit_planes` takes (int8
+    digits or int32 limbs, [planes, m, cols] or [planes, pre, m, r]); tw
+    None, {"p": panel [L, m, Tc]} or {"a": A [rest//s, L, m], "b": B
+    [L, m, s]} (int32 Montgomery).  Returns int32[L, m, cols] or, with
+    out_digits, int8[D, m, cols].
 
     All D x D digit-plane products run as ONE float64 matrix product
     (exact: every partial sum is below m * 2^14 < 2^53).  The field
@@ -223,6 +236,7 @@ def run_dft_level_ref(dev: DeviceField, w8: torch.Tensor, x8: torch.Tensor,
     card this launches no kernel of the port."""
     L = dev.L
     D = 2 * L + 1
+    x8 = digit_planes(x8, m)
     cols = x8.shape[2]
     W = w8.to(torch.float64).reshape(D * m, m)
     X = x8.to(torch.float64).permute(1, 0, 2).reshape(m, D * cols)
@@ -249,8 +263,9 @@ def run_dft_level_ref(dev: DeviceField, w8: torch.Tensor, x8: torch.Tensor,
 # ------------------------------------------------------------ the wrapper
 def run_dft_level(dev: DeviceField, w8: torch.Tensor, x8: torch.Tensor,
                   m: int, rest: int, tw, out_digits: bool = False) -> torch.Tensor:
-    """One DFT level (contract of run_dft_level_ref).  CPU tensors run the
-    plain version; CUDA tensors launch kernel 1 or raise."""
+    """One DFT level (contract of run_dft_level_ref: digits or limbs in,
+    flat or as the transform's strided view).  CPU tensors run the plain
+    version; CUDA tensors launch kernel 1 or raise."""
     if m > MAX_M or m & (m - 1):
         raise ValueError(f"level size {m} must be a power of two <= {MAX_M}")
     if x8.device.type == "cpu":

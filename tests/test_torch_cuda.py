@@ -396,3 +396,108 @@ def test_direct_route_equals_four_step_on_card(device, modulus, monkeypatch):
         "butterfly": 1, "bfly_stage": 1, "bfly_stage_split": 0}
     assert torch.equal(got, radix2.transform(dev, x, four))
     assert torch.equal(got, radix2.transform_ref(dev, x, direct))
+
+
+DFT_FIELDS = pytest.mark.parametrize("modulus", [P32, P128], ids=["p32", "p128"])
+
+
+@DFT_FIELDS
+@pytest.mark.parametrize("m", [2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("mode", ["none", "direct", "factored"])
+def test_dft_level_kernel_inputs_and_modes(device, modulus, m, mode):
+    """Kernel 1 (int8 tensor cores) at every level size the plans use, and
+    m = 128 (two staged slices of j), with a ragged last column tile, in
+    every twiddle mode: digits in and limbs in (the kernel encodes them),
+    flat and as the transform's strided view, limbs and digits out; one
+    launch each, equal to the plain level."""
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.ntt import dft
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    L, params = dev.L, field.params
+    rest, cols = {"none": (1, 37), "direct": (4, 52), "factored": (16, 48)}[mode]
+    root = field.get_root_of_unity(m * rest)
+    w8 = torch.from_numpy(dft.w_digits(field, m, pow(root, rest, modulus), 5)).to(device)
+    if mode == "none":
+        tw = None
+    elif mode == "direct":
+        tw = {"p": dev.from_numpy(dft._direct_panel_np(params, root, m, rest, 2 * rest))}
+    else:
+        tw = {"a": dev.from_numpy(np.transpose(dft._panel_grid_np(
+                  params, pow(root, 4, modulus), m, rest // 4), (2, 0, 1)).copy()),
+              "b": dev.from_numpy(dft._panel_grid_np(params, root, m, 4))}
+    rng = np.random.default_rng(m * 7 + rest)
+    x = dev.from_numpy(_elements(rng, modulus, L, m * cols)).reshape(L, m, cols)
+    x[:, 0, :3] = torch.as_tensor(_pm1(field, 3).astype(np.int32), device=device)
+    digits = dft.encode_digits(x)
+    pre = {1: 1, 4: 13, 16: 3}[rest]
+    view = lambda t: t.reshape(t.shape[0], m, pre, cols // pre).permute(0, 2, 1, 3)
+    for out_digits in (False, True):
+        want = dft.run_dft_level_ref(dev, w8, digits, m, rest, tw, out_digits)
+        for given in (digits, x, view(x), view(digits)):
+            assert torch.equal(dft.run_dft_level_ref(dev, w8, given, m, rest, tw, out_digits),
+                               want)
+            before = kernels.launch_counts["dft_level"]
+            got = dft.run_dft_level(dev, w8, given, m, rest, tw, out_digits)
+            assert kernels.launch_counts["dft_level"] == before + 1
+            assert torch.equal(got, want), (given.dtype, tuple(given.shape), out_digits)
+
+
+def _tail_case(device, modulus, case):
+    from genstark_tpu_torch.field.limbs import power_series_mont_np
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    p, L = field.modulus, dev.L
+    # (Ne, s, ext, B, V, b_inc, ps_inc, with the incr table)
+    Ne, s, ext, B, V, b_inc, ps_inc, with_incr = {
+        "bench": (4096, 64, 16, 1, 2, True, True, True),
+        "ragged": (903, 21, 7, 1, 2, True, True, True),     # Ne odd: no P-wide vectors
+        "no_b": (2048, 32, 8, 0, 2, False, True, True),
+        "no_incr": (2048, 64, 16, 2, 1, False, False, False),
+        "s1_ext32": (2048, 1, 32, 1, 1, True, False, True),
+        "s_ne_ext2": (1024, 1024, 2, 3, 2, False, True, True),
+    }[case]
+    rng = np.random.default_rng(Ne + B * 10 + V)
+    rnd = lambda n: dev.from_numpy(_elements(rng, p, L, n))
+    g = field.get_root_of_unity(2 ** (Ne - 1).bit_length())
+    dom = (dev.from_numpy(power_series_mont_np(field.params, pow(g, s, p), Ne // s)),
+           dev.from_numpy(power_series_mont_np(field.params, g, s)))
+    h = pow(g, 3, p)
+    incr = (dev.from_numpy(power_series_mont_np(field.params, pow(h, s, p), Ne // s)),
+            dev.from_numpy(power_series_mont_np(field.params, h, s))) if with_incr else None
+    b_stack = (torch.stack([rnd(Ne) for _ in range(B)]) if B else
+               torch.empty((0, L, Ne), dtype=torch.int32, device=device))
+    e_std = torch.stack([rnd(Ne) for _ in range(V)])
+    qe = rnd(Ne)
+    qe[:, :2] = torch.as_tensor(_pm1(field, 2).astype(np.int32), device=device)
+    return (dev, qe, b_stack, e_std, dom, incr, rnd(ext), p - 12345,
+            rnd(B * (2 if b_inc else 1)), rnd(V * (2 if ps_inc else 1)), b_inc, ps_inc, ext)
+
+
+@ALL_FIELDS
+@pytest.mark.parametrize("case", ["bench", "ragged", "no_b", "no_incr", "s1_ext32",
+                                  "s_ne_ext2"])
+def test_lcomb_tail_kernel_cases(device, modulus, case):
+    """Kernel 4 (word product) at every L: the bench's B = 1, V = 2 with
+    both raised copies; Ne odd, so no thread's positions form a vector; B =
+    0; no incr table; s = 1 with ext = 32; s = Ne with ext = 2.  One launch
+    each, equal to the plain tail."""
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.protocol.lincomb_kernel import lcomb_tail, lcomb_tail_ref
+    args = _tail_case(device, modulus, case)
+    before = kernels.launch_counts["lcomb_tail"]
+    got = lcomb_tail(*args)
+    assert kernels.launch_counts["lcomb_tail"] == before + 1
+    assert torch.equal(got, lcomb_tail_ref(*args))
+
+
+@ALL_FIELDS
+def test_word_chain_kernel_equals_plain(device, modulus):
+    """Kernel 10's general chain (v <- v * x by the word product)."""
+    from genstark_tpu_torch import roofline
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    x = dev.from_numpy(_elements(np.random.default_rng(43), modulus, dev.L, 4099))
+    x[:, :2] = torch.as_tensor(_pm1(field, 2).astype(np.int32), device=device)
+    assert torch.equal(roofline.mont_chain(dev, x, 7, general=True),
+                       roofline.mont_chain_ref(dev, x, 7, general=True))

@@ -57,3 +57,20 @@ def test_lcomb_tail_matches_jax_kernel(Ne, s, ext, B, V, raised):
                           j["bc"], j["lc"], raised, raised, ext, interpret=True)
     assert want is not None
     assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(want))
+
+
+@pytest.mark.parametrize("over", [0, 1])
+def test_kernel_refuses_constants_beyond_shared_memory(over):
+    """Kernel 4 keeps x_last, the coefficients and the inv series in a
+    block's shared memory: one element past kernels.SMEM_BYTES raises a
+    ValueError that says so, before any launch; at the limit the wrapper
+    goes on to its other checks (here: it refuses CPU tensors)."""
+    from genstark_tpu_torch import kernels
+    field = create_prime_field(P128)
+    dev = field.device_field("cpu")
+    L, Ne = dev.L, 64
+    ext = kernels.SMEM_BYTES // (L // 2 * 4) - 2 + over     # 1 + nb + nl + ext elements
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory" if over else "CUDA tensor"):
+        kernels.lcomb_tail(dev, z(L, Ne), z(0, L, Ne), z(1, L, Ne), (z(L, 1), z(L, Ne)), None,
+                           z(L, ext), np.zeros(L, np.uint32), z(L, 0), z(L, 1), False, False, ext)

@@ -65,6 +65,33 @@ def test_dft_level_matches_jax(modulus, mode, rest, out_digits):
 
 
 @FIELDS
+@pytest.mark.parametrize("mode,rest", [("none", 1), ("direct", 4), ("factored", 16)])
+def test_dft_level_limbs_in_equals_digits_in(modulus, mode, rest):
+    """The level's limbs-in mode (the transform's first level, whose digits
+    kernel 1 encodes as it loads) equals the digits-in level on
+    `encode_digits` of the same limbs and the JAX package's level; so do
+    both inputs as the transform's strided view [planes, pre, m, r]."""
+    m, pre = 8, 2
+    field, dev, w8, x8, tw = _level_inputs(modulus, m, rest, mode, seed=rest)
+    L, cols = field.params.L, x8.shape[2]
+    x = torch.from_numpy(_elements(np.random.default_rng(rest), modulus, m * cols)
+                         .astype(np.int32)).reshape(L, m, cols)
+    to_t = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(
+        np.int8 if a.dtype == np.int8 else np.int32))
+    tw_t = None if tw is None else {k: to_t(v) for k, v in tw.items()}
+    digits = dft.encode_digits(x)
+    assert np.array_equal(digits.numpy(), x8)
+    want = dft.run_dft_level(dev, to_t(w8), digits, m, rest, tw_t)
+    tw_j = None if tw is None else {k: jnp.asarray(v) for k, v in tw.items()}
+    jax_want = _run_dft_level_ref(jax_field(modulus), jnp.asarray(w8), jnp.asarray(x8),
+                                  m, rest, tw_j, False)
+    assert np.array_equal(want.numpy().astype(np.uint32), np.asarray(jax_want))
+    view = lambda t: t.reshape(t.shape[0], m, pre, cols // pre).permute(0, 2, 1, 3)
+    for given in (x, view(x), view(x).contiguous(), view(digits)):
+        assert torch.equal(dft.run_dft_level(dev, to_t(w8), given, m, rest, tw_t), want)
+
+
+@FIELDS
 @pytest.mark.parametrize("bits", range(4, 11))
 def test_transform_matches_jax_ntt(modulus, bits):
     """Forward transform (scale 1) and the inverse with n^-1 folded into the
