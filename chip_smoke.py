@@ -1,10 +1,11 @@
 """Chip smoke test of the PyTorch port: builds the CUDA kernels, checks each
-against its plain torch version on the card, measures the card's ceilings
-with the two probe kernels, proves the pinned toy proofs, the bench
-configuration (MiMC-128, 2^13 steps, secret input 3), MiMC-256 at 2^13 steps
-(the radix-2 path) and MiMC-256 at 2^18 and 2^20 steps (the large-domain
-path: direct radix-2 route with the stage kernels), and prints one JSON
-line per contract at the end.
+against its plain torch version on the card (and the batched inverse, built
+on kernel 5, against its plain version), measures the card's ceilings with
+the two probe kernels, proves the pinned toy proofs (the division AIR among
+them), the bench configuration (MiMC-128, 2^13 steps, secret input 3),
+MiMC-256 at 2^13 steps (the radix-2 path) and MiMC-256 at 2^18 and 2^20
+steps (the large-domain path: direct radix-2 route with the stage kernels),
+and prints one JSON line per contract at the end.
 
     python3 chip_smoke.py
 
@@ -36,6 +37,11 @@ TOY = {"extension_factor": 4, "exe_query_count": 8, "fri_query_count": 6}
 # P64 (tests/test_torch_prover_fields.py holds the same pins).
 P256_64_PIN = (40300, "aeca982219743b04f13dd8b6be2b855f951bb16fd4c837f841d62af059265be4")
 P64_64_PIN = (4614, "8f2cc12a4eea675682570374637c919519eb1c5628201c0d5b99a9a5892f6fe9")
+# The division AIR (examples/mimc_torch.make_div_stark: a constraint that
+# divides by a register), P128, 64 steps, the toy options, seed 3: the JAX
+# package's proof on the CPU (tests/test_torch_inv.py recomputes it); equal to
+# plain MiMC's over the same 16 constants, since the quotient is nxt(0).
+DIV_PIN = (7120, "79478399421030511fab75c58263cbd4a74f3e0a19f2bd3eab362460f5b598f5")
 # MiMC-256, 2^13 steps, the bench options, secret input 3: the JAX package's
 # proof on the CPU (tests/test_torch_prover_fields.py recomputes it).
 MIMC256_PIN = (118019, "da7b087ffccb38cf15a6bafd33a0905c30dddd81881229018dc3f6a3f6b97236")
@@ -337,6 +343,71 @@ def check_hash_limbs(dev, field, rng, results, record_times: bool = True):
                      work=[("u32", Ne * BLAKE2S_BLOCK_OPS * -(-2 * elem // 64))])
 
 
+# Kernel 3's forms (leaves of 1, 2 and 4 vectors in the compile-time form,
+# 3 in the runtime form, stride-4 rows) run at these batches (messages) at
+# every L; 2^22 messages at L = 16.
+HASH_FORMS = (1, 2, 3, 4, "rows")
+HASH_BATCHES = (1, 255, 2 ** 17)
+
+
+def limbs_values(device, seed: int, field, form, batch: int):
+    """Kernel 3's input for `batch` messages of one form, made on the card:
+    leaves [V, L, batch], or rows [L, 4 * batch]."""
+    L, p = field.params.L, field.modulus
+    if form == "rows":
+        return device_elements(device, seed, p, L, 4 * batch)
+    return device_elements(device, seed, p, L, form, batch).transpose(0, 1).contiguous()
+
+
+def limbs_plain(algo: str, values, form, elem: int, i0: int, i1: int):
+    """The plain version of kernel 3 over messages [i0, i1) of `values`."""
+    import torch
+    from genstark_tpu_torch.hash import digest_rows_ref, elements_to_words
+    if form == "rows":
+        M = values.shape[1] // 4
+        parts = [values[:, k * M + i0:k * M + i1] for k in range(4)]
+    else:
+        parts = [values[v][:, i0:i1] for v in range(form)]
+    return digest_rows_ref(algo, torch.cat([elements_to_words(t) for t in parts]),
+                           len(parts) * elem)
+
+
+def limbs_cost(V: int, L: int, batch: int) -> dict:
+    """Bytes and work of one blake2s kernel-3 call: V elements of L int32
+    limbs read and a 32-byte digest written a message; 1,120 u32 ops a
+    64-byte block."""
+    return {"bytes": (V * L * 4 + 32) * batch,
+            "work": [("u32", batch * BLAKE2S_BLOCK_OPS * -(-(2 * V * L) // 64))]}
+
+
+def check_hash_limbs_forms(device, fields, results):
+    """Kernel 3 against its plain version, one launch each: both algorithms,
+    every L, every form of HASH_FORMS at HASH_BATCHES, and at 2^22 messages
+    P256 leaves of two vectors (the 2^18-step path's leaves) and stride-4
+    rows.  The plain version runs in column chunks."""
+    from genstark_tpu_torch import kernels
+    seeds = iter(range(200, 10 ** 6))
+    cases = [(f, form, B) for f in fields for form in HASH_FORMS for B in HASH_BATCHES]
+    cases += [(fields[-1], form, 2 ** 22) for form in (2, "rows")]
+    for algo in ("blake2s256", "sha256"):
+        errs = {}
+        for field, form, B in cases:
+            values = limbs_values(device, next(seeds), field, form, B)
+            before = kernels.launch_counts["hash_limbs"]
+            got = kernels.hash_limbs(algo, values, rows=form == "rows")
+            require(kernels.launch_counts["hash_limbs"] == before + 1, "hash_limbs launches")
+            e = chunked_err(got, lambda i0, i1: limbs_plain(
+                algo, values, form, field.element_size, i0, i1), B, 1 << 20)
+            require(e == 0, f"hash_limbs kernel != plain version: {algo} L = {field.params.L} "
+                            f"form {form} batch {B}")
+            key = (field.params.L, B)
+            errs[key] = max(errs.get(key, 0), e)
+            results["hash_limbs"]["max_abs_err"] = max(results["hash_limbs"]["max_abs_err"], e)
+            del values, got
+        print(f"hash_limbs {algo}: forms {HASH_FORMS} max_abs_err by (L, batch) {errs}",
+              flush=True)
+
+
 def check_tail(dev, field, rng, results, record_times: bool = True):
     """Kernel 4 at the bench shape: Ne = 2^17, B = 1, V = 2, raised copies
     on, factored tables with s = 256, at the field's L.  Run at every L,
@@ -424,25 +495,44 @@ def check_field_ew(device, fields, rng, results):
                              work=[(("mont", dev.L), n)])
 
 
+# Kernel 6's shapes: the path's factored tables (nj = 512, s = 256), a
+# 2^22-product table (the 2^18-step path's Ne-point factors) and an s that
+# is not a power of two.
+OUTER_SHAPES = ((512, 256), (2048, 2048), (37, 300))
+
+
 def check_outer(device, fields, rng, results):
-    """Kernel 6 at the path's factored tables: s = 256, nj = 512."""
+    """Kernel 6 at every L and OUTER_SHAPES against its plain version, one
+    launch each; the reported time is nj = 512, s = 256 at L = 16."""
     from genstark_tpu_torch import kernels
     r = results["outer_table"]
     for field in fields:
         dev = field.device_field(device)
-        outer = dev.from_numpy(random_elements(rng, field.modulus, dev.L, 512))
-        inner = dev.from_numpy(random_elements(rng, field.modulus, dev.L, 256))
-        e = max_abs_err(kernels.outer_table(dev, outer, inner), dev.outer_table_ref(outer, inner))
-        km = cuda_ms(lambda: kernels.outer_table(dev, outer, inner))
-        pm = cuda_ms(lambda: dev.outer_table_ref(outer, inner), reps=2)
-        print(f"outer_table p{field.modulus.bit_length()} L={dev.L} nj=512 s=256: "
-              f"max_abs_err={e} kernel {km:.4f} ms plain {pm:.4f} ms", flush=True)
-        require(e == 0, "outer_table kernel != plain version")
-        r["max_abs_err"] = max(r["max_abs_err"], e)
-        if dev.L == 16:
-            r.update(ms=km, plain_ms=pm, bytes=(512 + 256 + 512 * 256) * dev.L * 4,
-                     device_ms=device_ms(lambda: kernels.outer_table(dev, outer, inner)),
-                     work=[(("mont", dev.L), 512 * 256)])
+        for nj, s in OUTER_SHAPES:
+            outer = dev.from_numpy(random_elements(rng, field.modulus, dev.L, nj))
+            inner = dev.from_numpy(random_elements(rng, field.modulus, dev.L, s))
+            before = kernels.launch_counts["outer_table"]
+            got = dev.outer_table(outer, inner)
+            require(kernels.launch_counts["outer_table"] == before + 1, "outer_table launches")
+            e = max_abs_err(got, dev.outer_table_ref(outer, inner))
+            del got
+            timing = ""
+            if dev.L == 16 and (nj, s) == OUTER_SHAPES[0]:
+                km = cuda_ms(lambda: kernels.outer_table(dev, outer, inner))
+                pm = cuda_ms(lambda: dev.outer_table_ref(outer, inner), reps=2)
+                r.update(ms=km, plain_ms=pm, **outer_cost(dev.L, nj, s),
+                         device_ms=device_ms(lambda: kernels.outer_table(dev, outer, inner)))
+                timing = f" kernel {km:.4f} ms (device {fmt_ms(r['device_ms'])}) plain {pm:.4f} ms"
+            print(f"outer_table p{field.modulus.bit_length()} L={dev.L} nj={nj} s={s}: "
+                  f"max_abs_err={e}{timing}", flush=True)
+            require(e == 0, f"outer_table kernel != plain version at L = {dev.L}, {nj} x {s}")
+            r["max_abs_err"] = max(r["max_abs_err"], e)
+
+
+def outer_cost(L: int, nj: int, s: int) -> dict:
+    """Bytes and work of one kernel-6 call: the factors read and the table
+    written once; nj * s word products."""
+    return {"bytes": (nj + s + nj * s) * L * 4, "work": [(("mont_w", L), nj * s)]}
 
 
 def check_butterfly(device, fields, rng, results):
@@ -609,6 +699,59 @@ def check_butterfly_bitrev(device, fields, rng, results):
         results["butterfly"]["max_abs_err"] = max(results["butterfly"]["max_abs_err"], e)
         del x, want, got, table
         torch.cuda.empty_cache()
+
+
+def check_inv(kernels, device, fields, rng) -> None:
+    """DeviceField.inv on the card against inv_ref, zeros included: 4099
+    elements (not a power of two) with zeros first, inside and last, and a
+    batched [L, 3, 16], at every L; every product one kernel-5 launch, 2
+    ceil(log2 N) + 2 of them.  Then [16, 2^20] over P256 (the 2^18-step
+    path's composition domain), timed."""
+    import numpy as np
+    for field in fields:
+        dev = field.device_field(device)
+        L = dev.L
+        shapes = ((4099,), (3, 16)) + (((2 ** 20,),) if L == 16 else ())
+        for shape in shapes:
+            n = int(np.prod(shape))
+            a = random_elements(rng, field.modulus, L, n)
+            a[:, [0, 7, n // 2, n - 1]] = 0
+            x = dev.from_numpy(a).reshape((L,) + shape)
+            before = kernels.launch_counts["field_ew"]
+            got = dev.inv(x)
+            launches = kernels.launch_counts["field_ew"] - before
+            e = max_abs_err(got, dev.inv_ref(x))
+            timing = ""
+            if n == 2 ** 20:
+                timing = f" {cuda_ms(lambda: dev.inv(x), reps=3):.4f} ms (events)"
+            print(f"inv p{field.modulus.bit_length()} L={L} {list(shape)}: max_abs_err={e}, "
+                  f"{launches} kernel-5 launches{timing}", flush=True)
+            require(e == 0, f"inv on the card != inv_ref at L = {L}, shape {shape}")
+            require(launches == 2 * (n - 1).bit_length() + 2, f"inv launched {launches} products")
+            del got, x
+
+
+def sass_report(lib_path: str, mangled_part: str):
+    """Opcode counts of the compiled kernel whose mangled name contains
+    `mangled_part`, from `cuobjdump -sass` of the built library; None where
+    cuobjdump is missing or fails."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return None
+    for body in proc.stdout.split("Function : ")[1:]:
+        if mangled_part in body.split("\n", 1)[0]:
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)", body)
+            counts = {}
+            for op in ops:
+                counts[op] = counts.get(op, 0) + 1
+            return counts
+    return None
 
 
 def check_probes(device, fields, rng, results):
@@ -874,15 +1017,16 @@ def check_largest_shapes(device, field, results) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_prove(stark, assertions) -> None:
+def profile_prove(stark, assertions) -> dict:
     """Device kernel time by name over one prove, and the device's busy
-    share of the wall time.  A measurement only: a profiler that captures
-    nothing is reported, not fatal."""
+    share of the wall time; returns port_totals of the profile.  A
+    measurement only: a profiler that captures nothing is reported, not
+    fatal."""
     try:
         by_name, stages, wall_ms = profile_run(lambda: stark.prove(assertions, [[3]]))
     except Exception as err:  # noqa: BLE001 - measurement boundary
         print(f"profiler failed: {err!r}", flush=True)
-        return
+        return {}
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
     print(f"profiled prove wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% busy), {sum(n for _, n in by_name.values())} "
@@ -896,6 +1040,7 @@ def profile_prove(stark, assertions) -> None:
         print(f"  stage {name}: host wall {us / 1e3:.3f} ms", flush=True)
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}", flush=True)
+    return port_totals(by_name)
 
 
 def port_totals(by_name: dict) -> dict:
@@ -911,15 +1056,19 @@ def port_totals(by_name: dict) -> dict:
 
 
 def kernel_times(device, rates) -> dict:
-    """Device time (torch.profiler) of kernels 1 and 4 at the main paths'
-    shapes, through the port's entry points: the three kernel-1 levels of
-    one p128 2^17-point LDE (ntt.transform; also every device kernel of the
-    transform, with torch's own), kernel 4 at Ne = 2^17, L = 8 and at the
-    2^18-step path's Ne = LARGE_N, L = 16 (B = 1, V = 2, both raised copies,
-    the prover's split s; beside its bound), and one profiled bench prove
-    after a warm-up: kernel 1's and kernel 4's totals, all device kernels
-    and their launches."""
+    """Device time (torch.profiler) of kernels 1, 3, 4 and 6 at the main
+    paths' shapes, through the port's entry points: the three kernel-1
+    levels of one p128 2^17-point LDE (ntt.transform; also every device
+    kernel of the transform, with torch's own), kernel 4 at Ne = 2^17, L = 8
+    and at the 2^18-step path's Ne = LARGE_N, L = 16 (B = 1, V = 2, both
+    raised copies, the prover's split s; beside its bound), kernel 6 at a
+    2^22-product table (nj = s = 2048, L = 16), kernel 3 at the 2^18-step
+    path's LARGE_N leaves of two P256 elements and at a late FRI layer's 512
+    p128 rows (beside their bounds), and one profiled bench prove after a
+    warm-up: the totals of kernels 1, 3, 4 and 6, all device kernels and
+    their launches."""
     import torch
+    from genstark_tpu_torch import kernels
     from genstark_tpu_torch.field import P128, P256, create_prime_field
     from genstark_tpu_torch.ntt import DftPlan, transform
     from genstark_tpu_torch.protocol.lincomb_kernel import lcomb_tail
@@ -962,6 +1111,29 @@ def kernel_times(device, rates) -> dict:
               flush=True)
         del args
         torch.cuda.empty_cache()
+    f256 = create_prime_field(P256)
+    dev = f256.device_field(device)
+    nj = s = 2048
+    outer, inner = (device_elements(device, 130 + i, f256.modulus, dev.L, n)
+                    for i, n in enumerate((nj, s)))
+    out["outer_2_22_l16_device_ms"] = device_ms(lambda: dev.outer_table(outer, inner), reps=10)
+    bound_ms, bound_by, own_ms = bound(outer_cost(dev.L, nj, s), rates)
+    print(f"outer_table nj={nj} s={s} L={dev.L}: device "
+          f"{fmt_ms(out['outer_2_22_l16_device_ms'])} against a bound of {bound_ms:.4f} ms "
+          f"({bound_by}); its products at the word product's rate {own_ms:.4f} ms", flush=True)
+    del outer, inner
+    for label, field, form, batch in (("leaves_2_22_p256", f256, 2, LARGE_N),
+                                      ("rows_512_p128", f128, "rows", 512)):
+        values = limbs_values(device, 140, field, form, batch)
+        key = f"hash_limbs_{label}_device_ms"
+        out[key] = device_ms(lambda: kernels.hash_limbs("blake2s256", values, form == "rows"),
+                             reps=10)
+        V = 4 if form == "rows" else form
+        bound_ms, bound_by, _ = bound(limbs_cost(V, field.params.L, batch), rates)
+        print(f"hash_limbs blake2s {label} ({batch} messages of {V} elements): device "
+              f"{fmt_ms(out[key])} against a bound of {bound_ms:.4f} ms ({bound_by})", flush=True)
+        del values
+    torch.cuda.empty_cache()
     stark, constants = make_mimc_stark(BENCH_STEPS, device)
     assertions = mimc_assertions(stark, constants, BENCH_STEPS)
     for _ in range(2):
@@ -970,7 +1142,9 @@ def kernel_times(device, rates) -> dict:
     by_name = profile_run(lambda: stark.prove(assertions, [[3]]))[0]
     totals = port_totals(by_name)
     for key, short in (("bench_dft_level", "dft_level_kernel"),
-                       ("bench_lcomb_tail", "lcomb_tail_kernel")):
+                       ("bench_lcomb_tail", "lcomb_tail_kernel"),
+                       ("bench_hash_limbs", "digest_limbs_kernel"),
+                       ("bench_outer_table", "outer_table_kernel")):
         us, c = totals.get(short, (0.0, 0))
         out[f"{key}_device_ms"], out[f"{key}_launches"] = us / 1e3, c
     out["bench_all_device_ms"] = sum(us for us, _ in by_name.values()) / 1e3
@@ -1015,7 +1189,7 @@ def run_main_path(kernels, stark, constants, steps: int, pin, required, label: s
     prove; the launch counts set to 0, one prove checked against its pin
     (where there is one), the counts and the peak device memory read; best
     of 5 and the spread of `spread` proves; one profiled prove.  Returns
-    (launches, proof bytes)."""
+    (launches, proof bytes, the profile's port kernel totals)."""
     import torch
     assertions = mimc_assertions(stark, constants, steps)
     t0 = time.monotonic()
@@ -1049,8 +1223,7 @@ def run_main_path(kernels, stark, constants, steps: int, pin, required, label: s
           flush=True)
     print(f"{label} prove seconds: {[round(t, 6) for t in times]}", flush=True)
     phase(f"{label}: where the time goes (torch.profiler, one prove)")
-    profile_prove(stark, assertions)
-    return launches, data
+    return launches, data, profile_prove(stark, assertions)
 
 
 def four_step_proof(device, steps: int) -> bytes:
@@ -1132,7 +1305,7 @@ def main() -> int:
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
     sys.path.insert(0, os.path.join(HERE, "examples"))
-    from mimc_torch import make_mimc_stark, prove_mimc, run_mimc
+    from mimc_torch import make_mimc_stark, prove_div, prove_mimc, run_mimc
     from genstark_tpu_torch.protocol import Assertion
 
     phase("build")
@@ -1141,6 +1314,17 @@ def main() -> int:
     print(f"kernel build {time.monotonic() - t0:.1f} s", flush=True)
     for name, report in ptxas_report(kernels.build_info.get("log", "")):
         print(f"ptxas: {name}: {report}", flush=True)
+    # kernel 3's blake2s over 64-byte p128 leaves (L = 8, two vectors): one
+    # compression, against the 1,120 u32 ops the bound counts a block
+    sass = sass_report(kernels.build(), "digest_limbs_kernelILi1ELi8ELi2ELb0E")
+    if sass is None:
+        print("sass: digest_limbs_kernel<blake2s, L = 8, V = 2>: not measured", flush=True)
+    else:
+        alu = {op: sass.get(op, 0) for op in ("IADD3", "LOP3", "SHF", "PRMT", "IMAD", "LEA")}
+        print(f"sass: digest_limbs_kernel<blake2s, L = 8, V = 2>: {sum(sass.values())} "
+              f"instructions; {alu}: {sum(alu.values())} integer ALU instructions against "
+              f"{BLAKE2S_BLOCK_OPS} u32 ops the bound counts a block; all opcodes {sass}",
+              flush=True)
 
     phase("kernels vs plain versions (exact, tolerance 0)")
     src, tpu = "genstark_tpu_torch/csrc/", "genstark_tpu/"
@@ -1170,7 +1354,7 @@ def main() -> int:
     f256 = all_fields[-1]
     dev256 = f256.device_field(device)
     check_field_ew(device, all_fields, rng, results)
-    check_outer(device, [f128, f256], rng, results)
+    check_outer(device, all_fields, rng, results)
     check_butterfly(device, all_fields, rng, results)
     check_hash_limbs(dev256, f256, rng, results, record_times=False)
     for field in all_fields:          # every instantiation of the word product's kernel 4
@@ -1178,13 +1362,17 @@ def main() -> int:
             check_tail(field.device_field(device), field, rng, results, record_times=False)
     check_stages(device, [all_fields[1], all_fields[3], f256], rng, results)
     check_butterfly_bitrev(device, all_fields, rng, results)
+    check_hash_limbs_forms(device, all_fields, results)
     check_probes(device, all_fields, rng, results)
     torch.cuda.synchronize()
+
+    phase("DeviceField.inv on the card against inv_ref (kernel 5)")
+    check_inv(kernels, device, all_fields, rng)
 
     phase("probes: the card's Montgomery-multiply and u32 op rates")
     rates = measure_rates(kernels, device, all_fields)
 
-    phase("kernels 1 and 4: device time at the main paths' shapes (torch.profiler)")
+    phase("kernels 1, 3, 4 and 6: device time at the main paths' shapes (torch.profiler)")
     print(json.dumps({"kernel_times": kernel_times(device, rates)}), flush=True)
 
     phase(f"large transforms: P256 at {LARGE_N} points by three routes, 2x and 4x round trips")
@@ -1206,6 +1394,19 @@ def main() -> int:
         got = proof_digest(data)
         print(f"p{modulus.bit_length()} pin: {got[0]} bytes sha256 {got[1]}", flush=True)
         require(got == pin, f"p{modulus.bit_length()} proof differs from its pin {pin}")
+    kernels.reset_launch_counts()
+    _, data = prove_div(64, device)
+    div_products = kernels.launch_counts["field_ew"]
+    kernels.reset_launch_counts()
+    _, plain = prove_mimc(64, device, modulus=P128, use_input=False, constant_count=16,
+                          options=TOY)
+    got = proof_digest(data)
+    print(f"division AIR pin: {got[0]} bytes sha256 {got[1]}; kernel-5 launches {div_products} "
+          f"(plain MiMC over the same constants {kernels.launch_counts['field_ew']})", flush=True)
+    require(got == DIV_PIN, f"division AIR proof differs from its pin {DIV_PIN}")
+    require(plain == data, "division AIR proof != plain MiMC's over the same constants")
+    require(div_products > kernels.launch_counts["field_ew"],
+            "the division AIR's prove launched no more products than plain MiMC's")
     for modulus, options, pin in ((P256, None, P256_64_PIN), (P64, TOY, P64_64_PIN)):
         _, data = prove_mimc(64, device, modulus=modulus, options=options)
         got = proof_digest(data)
@@ -1214,19 +1415,25 @@ def main() -> int:
         require(got == pin, f"p{modulus.bit_length()} proof differs from its pin {pin}")
 
     phase(f"bench config: MiMC-128, {BENCH_STEPS} steps, secret input 3")
-    bench_launches, _ = run_main_path(kernels, *make_mimc_stark(BENCH_STEPS, device),
-                                      BENCH_STEPS, BENCH_PIN, BENCH_KERNELS, "bench")
+    bench_launches, _, bench_totals = run_main_path(
+        kernels, *make_mimc_stark(BENCH_STEPS, device), BENCH_STEPS, BENCH_PIN, BENCH_KERNELS,
+        "bench")
 
     phase(f"MiMC-256: P256, {BENCH_STEPS} steps, secret input 3 (radix-2 path)")
-    mimc256_launches, _ = run_main_path(
+    mimc256_launches, _, mimc256_totals = run_main_path(
         kernels, *make_mimc_stark(BENCH_STEPS, device, modulus=P256), BENCH_STEPS,
         MIMC256_PIN, MIMC256_KERNELS, "mimc256")
 
     phase(f"MiMC-256: P256, {LARGE_STEPS} steps (Ne = {16 * LARGE_STEPS}: direct route)")
-    large_launches, large_data = run_main_path(
+    large_launches, large_data, large_totals = run_main_path(
         kernels, *make_mimc_stark(LARGE_STEPS, device, modulus=P256), LARGE_STEPS,
         LARGE_PIN, LARGE_KERNELS, "mimc256-2^18", spread=10)
     torch.cuda.empty_cache()
+    print(json.dumps({"path_kernel_totals": {
+        label: {short: [us / 1e3, n] for short, (us, n) in totals.items()
+                if short in ("digest_limbs_kernel", "outer_table_kernel")}
+        for label, totals in (("bench", bench_totals), ("mimc256", mimc256_totals),
+                              ("mimc256-2^18", large_totals))}}), flush=True)
     four = four_step_proof(device, LARGE_STEPS)
     print(f"mimc256-2^18 through the four-step route: {proof_digest(four)}", flush=True)
     require(four == large_data, "mimc256-2^18: the direct and four-step routes disagree")

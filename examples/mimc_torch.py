@@ -8,7 +8,8 @@ P256, the reference's mimc256), importing only genstark_tpu_torch.
 e.g. `python -m examples.mimc_torch 8192 cuda P256`, or the large-domain
 path `python -m examples.mimc_torch 262144 cuda P256` (Ne = 2^22).  It
 prints the proof's size and sha256 with the seconds it took and the peak
-host memory.
+host memory.  `make_div_stark` / `prove_div` build and prove the same
+recurrence with a constraint that divides by a register.
 """
 
 from __future__ import annotations
@@ -75,6 +76,43 @@ def prove_mimc(steps: int, device, seed_value: int = 3, **kwargs):
     else:
         proof = stark.prove(assertions, [], [seed_value])
     return stark, stark.serialize(proof)
+
+
+# The divisor register of the division AIR: nonzero at every step.
+DIVISORS = list(range(2, 18))
+
+
+def make_div_stark(steps: int, device, modulus: int = P128, options: dict = None):
+    """MiMC whose constraint divides by a register: (n0 * d) / d = r0^3 + k
+    over two cyclic registers, d = DIVISORS (static 0) and k = 16 round
+    constants (static 1).  The quotient equals n0 wherever d != 0, so the
+    proof is valid and equals plain MiMC's over the same constants; its Div
+    counts as its numerator's degree (2), so the declared degree stays 3.
+    The seed is an init parameter."""
+    field = create_prime_field(modulus)
+    constants = round_constants(field, 16)
+    schema = AirSchema(
+        field=field,
+        trace_width=1,
+        static_registers=[CyclicRegister(DIVISORS), CyclicRegister(constants)],
+        init=[seed(0)],
+        transition=[trace(0) ** 3 + static(1)],
+        constraints=[(nxt(0) * static(0)) / static(0) - (trace(0) ** 3 + static(1))],
+        base_steps=steps,
+        name="mimc_div",
+    )
+    default_options = {"hash_algorithm": "blake2s256", "extension_factor": 4,
+                       "exe_query_count": 8, "fri_query_count": 6}
+    default_options.update(options or {})
+    return instantiate(schema, default_options, device), constants
+
+
+def prove_div(steps: int, device, seed_value: int = 3, **kwargs):
+    """Prove one run of the division AIR; returns (stark, proof bytes)."""
+    stark, constants = make_div_stark(steps, device, **kwargs)
+    controls = run_mimc(stark.air.field, steps, constants, seed_value)
+    assertions = [Assertion(0, 0, controls[0]), Assertion(steps - 1, 0, controls[-1])]
+    return stark, stark.serialize(stark.prove(assertions, [], [seed_value]))
 
 
 if __name__ == "__main__":

@@ -178,9 +178,8 @@ def eval_device(expr: Expr, env: Dict, cache: Optional[Dict] = None):
             r = dev.mont_mul(eval_device(expr.a, env, cache),
                              dev.const(inv, shape=(1,) * env.get("ndim", 1)))
         else:
-            raise NotImplementedError(
-                "division by a non-constant needs the batched inverse, "
-                "which is not ported yet")
+            r = dev.mont_mul(eval_device(expr.a, env, cache),
+                             dev.inv(eval_device(b, env, cache)))
     elif isinstance(expr, Neg):
         r = dev._neg(eval_device(expr.a, env, cache))
     elif isinstance(expr, Exp):

@@ -7,14 +7,18 @@
 // genstark_tpu_torch/field/device.py (mont_mul_ref, add_ref, sub_ref,
 // outer_table_ref).
 //
-// What bounds them on this card: a Montgomery product at L 16-bit limbs is
-// ~2 L^2 32-bit multiplies plus the lazy-accumulator adds (~1,500 integer ops
-// at L = 16) on 8L bytes in and 4L out, so mul is issue-bound for L >= 8 and
-// add / sub (~6L ops) are memory-bound.  The plain torch formulation spends
-// ~200 launches and a [2L+1, N] int64 accumulator in device memory per
-// product; here one thread owns one element, its limbs and the accumulator
-// live in registers, and each operand is read once and the result written
-// once.
+// What bounds them on this card: kernel 5's Montgomery product (the 16-bit
+// one, field.cuh mont_mul) at L limbs is ~2 L^2 32-bit multiplies plus the
+// lazy-accumulator adds (~1,500 integer ops at L = 16) on 8L bytes in and 4L
+// out, so mul is issue-bound for L >= 8 and add / sub (~6L ops) are
+// memory-bound.  Kernel 6 writes 4L bytes a product and reads almost nothing
+// (its factors are nj + s elements), so its bytes bound is the output alone;
+// it runs the word product (mont_mul_w, 4k^2 + k multiplies for k = L/2),
+// which sets its time at this code's product rate.  The plain torch
+// formulation spends ~200 launches and a [2L+1, N] int64 accumulator in
+// device memory per product; here one thread owns one element, its limbs
+// and the accumulator live in registers, and each operand is read once and
+// the result written once.
 //
 // Design: kernel 5 takes the DeviceField broadcast rule natively.  The
 // wrapper (kernels.py field_ew) turns both operands into a limb stride plus
@@ -23,8 +27,9 @@
 // batch against a broadcast constant all launch as they are, with no copy.
 // Threads run along the flattened output, so the common case (one
 // coalesced dim, unit stride) is a contiguous load per limb across a warp.
-// None of the TPU's tiling rules (2048-lane tiles, the 2^16-element minimum,
-// L >= 8 sublanes, 256 <= s <= 8192) applies.
+// Kernel 6's design is at its kernel below.  None of the TPU's tiling rules
+// (2048-lane tiles, the 2^16-element minimum, L >= 8 sublanes, 256 <= s <=
+// 8192) applies.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -85,29 +90,74 @@ cudaError_t launch_ew(int op, const EwArgs& e, const Field& f, cudaStream_t st) 
   return cudaGetLastError();
 }
 
-template <int L>
-__global__ void __launch_bounds__(256) outer_table_kernel(const int32_t* __restrict__ outer,
-                                                          int nj,
-                                                          const int32_t* __restrict__ inner,
-                                                          int s, int32_t* __restrict__ out,
-                                                          Field f) {
+// Kernel 6 on the word product (field.cuh mont_mul_w, K = L/2 words).  A
+// block is a tile of `rows` consecutive j by kOuterCols consecutive k; thread
+// t owns column k = k0 + t.  It reads inner[k] once, as words, into
+// registers, and the block stages its rows' outer[j] once, as words, in
+// shared memory; then each thread runs along j: one product, then L 4-byte
+// stores, one to each limb plane, consecutive k across the warp (coalesced
+// runs).  The launcher sizes `rows` so that the grid is one wave of resident
+// blocks: a small table gets one or two products a thread and every SM, a
+// 2^22-product table 16 a thread (8 blocks an SM at 32 registers).  No
+// division by a runtime value.
+constexpr int kOuterCols = 256;
+constexpr int kOuterMaxRows = 64;
+
+template <int K>
+__global__ void __launch_bounds__(kOuterCols)
+outer_table_kernel(const int32_t* __restrict__ outer, int nj, const int32_t* __restrict__ inner,
+                   int s, int32_t* __restrict__ out, FieldW f, int rows, int k_tiles) {
+  __shared__ uint32_t orow[kOuterMaxRows * K];
+  const int kt = static_cast<int>(blockIdx.x % static_cast<unsigned>(k_tiles));
+  const int j0 = static_cast<int>(blockIdx.x / static_cast<unsigned>(k_tiles)) * rows;
+  const int nr = min(rows, nj - j0);
+  const int k = kt * kOuterCols + threadIdx.x;
+  // inner's loads go out before the staging's, so the two latencies overlap
+  uint32_t b[K];
+  if (k < s) load_elem_w<K>(inner, s, k, b);
+  for (int i = threadIdx.x; i < nr * K; i += kOuterCols) {
+    const int r = i / K, w = i % K;   // K is a compile-time constant
+    orow[i] = static_cast<uint32_t>(__ldg(outer + (2 * w) * nj + j0 + r)) |
+              (static_cast<uint32_t>(__ldg(outer + (2 * w + 1) * nj + j0 + r)) << 16);
+  }
+  __syncthreads();
+  if (k >= s) return;
   const long long n = static_cast<long long>(nj) * s;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long j = i / s, k = i - j * s;
-  uint32_t x[L], y[L];
-  load_elem<L>(outer, nj, j, x);
-  load_elem<L>(inner, s, k, y);
-  mont_mul<L>(x, y, f, x);
-  store_elem<L>(out, n, i, x);
+  long long i = static_cast<long long>(j0) * s + k;
+  for (int r = 0; r < nr; ++r, i += s) {
+    uint32_t a[K], t[K];
+#pragma unroll
+    for (int w = 0; w < K; ++w) a[w] = orow[r * K + w];
+    mont_mul_w<K>(a, b, f, t);
+    store_elem_w<K>(out, n, i, t);
+  }
 }
 
-template <int L>
+template <int K>
 cudaError_t launch_outer(const int32_t* outer, int nj, const int32_t* inner, int s,
-                         int32_t* out, const Field& f, cudaStream_t st) {
-  const long long n = static_cast<long long>(nj) * s;
-  const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
-  outer_table_kernel<L><<<blocks, 256, 0, st>>>(outer, nj, inner, s, out, f);
+                         int32_t* out, const FieldW& f, cudaStream_t st) {
+  // resident blocks of this instantiation on the card, read once
+  static int resident = 0;
+  if (resident == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, outer_table_kernel<K>,
+                                                          kOuterCols, 0);
+    if (err != cudaSuccess) return err;
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int k_tiles = (s + kOuterCols - 1) / kOuterCols;
+  // the fewest rows a block that fit the grid in one wave, at most kOuterMaxRows
+  const long long tiles = static_cast<long long>(nj) * k_tiles;
+  long long rows = (tiles + resident - 1) / resident;
+  rows = rows < 1 ? 1 : (rows > kOuterMaxRows ? kOuterMaxRows : rows);
+  const long long blocks = (nj + rows - 1) / rows * k_tiles;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  outer_table_kernel<K><<<static_cast<unsigned>(blocks), kOuterCols, 0, st>>>(
+      outer, nj, inner, s, out, f, static_cast<int>(rows), k_tiles);
   return cudaGetLastError();
 }
 
@@ -151,17 +201,17 @@ extern "C" int gs_field_ew(int op, int L, const void* a, const long long* a_str,
 extern "C" int gs_outer_table(int L, const void* outer, int nj, const void* inner, int s,
                               void* out, const uint32_t* field_words, void* stream) {
   if (nj <= 0 || s <= 0) return 0;
-  const gs::Field f = gs::field_from_words(field_words, L);
+  const gs::FieldW f = gs::fieldw_from_words(field_words, L);
   auto st = static_cast<cudaStream_t>(stream);
   auto o = static_cast<const int32_t*>(outer);
   auto in = static_cast<const int32_t*>(inner);
   auto t = static_cast<int32_t*>(out);
   switch (L) {
-    case 2: return gs::launch_outer<2>(o, nj, in, s, t, f, st);
-    case 4: return gs::launch_outer<4>(o, nj, in, s, t, f, st);
-    case 8: return gs::launch_outer<8>(o, nj, in, s, t, f, st);
-    case 14: return gs::launch_outer<14>(o, nj, in, s, t, f, st);
-    case 16: return gs::launch_outer<16>(o, nj, in, s, t, f, st);
+    case 2: return gs::launch_outer<1>(o, nj, in, s, t, f, st);
+    case 4: return gs::launch_outer<2>(o, nj, in, s, t, f, st);
+    case 8: return gs::launch_outer<4>(o, nj, in, s, t, f, st);
+    case 14: return gs::launch_outer<7>(o, nj, in, s, t, f, st);
+    case 16: return gs::launch_outer<8>(o, nj, in, s, t, f, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -17,6 +17,16 @@
 // static word positions, so a thread reads its message once and writes 8
 // words.  Threads run along the batch, so each message word is one
 // contiguous load across a warp (the word-major layout).
+//
+// Kernel 3 has a compile-time form for the layouts the prover hashes
+// (`digest_limbs_kernel`): the algorithm, L and the vector count are
+// template parameters and the layout is one of two, so every message word's
+// two limb planes are constants, the message length and block count are
+// constants, and a block's 16 loads issue together ahead of its rounds with
+// no index arithmetic.  Its launch bound caps a thread at 64 registers, so
+// four 256-thread blocks fit an SM and a batch of 2^17 messages is one wave
+// on the 132 SMs.  Leaves of another vector count take the runtime form
+// (`LimbSource`).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -80,6 +90,29 @@ struct LimbSource {
   }
 };
 
+// Kernel 3's compile-time layouts: element (v, limb, b) lies in limb plane
+// plane(v, limb), at base[plane * batch + b].  Leaves, [V, L, N] contiguous
+// with batch = N: plane = v * L + limb.  Stride-4 rows, [L, N] read as four
+// vectors of M = N / 4 with batch = M: element (v, limb, r) is at limb * N +
+// v * M + r, so plane = v + 4 * limb.  Once the compression is unrolled, i,
+// v, k and both planes are constants.
+template <int L, int V, bool ROWS>
+struct FixedLimbSource {
+  static constexpr int kWords = V * L / 2;
+  static constexpr int kBytes = 4 * kWords;
+  const uint32_t* base;
+  long long batch;
+  static __device__ __forceinline__ int plane(int v, int limb) {
+    return ROWS ? v + 4 * limb : v * L + limb;
+  }
+  __device__ __forceinline__ uint32_t operator()(int i, long long b) const {
+    if (i >= kWords) return 0u;
+    const int v = i / (L / 2), k = i % (L / 2);
+    const uint32_t* e = base + b;
+    return __ldg(e + plane(v, 2 * k) * batch) | (__ldg(e + plane(v, 2 * k + 1) * batch) << 16);
+  }
+};
+
 #define GS_B2_G(a, b, c, d, x, y) \
   do {                            \
     a = a + b + (x);              \
@@ -114,6 +147,9 @@ __device__ __forceinline__ void blake2s(const Src& src, long long b,
   for (int i = 0; i < 8; ++i) h[i] = kB2IV[i];
   h[0] ^= 0x01010020u;
   const int n_blocks = msg_bytes > 64 ? (msg_bytes + 63) / 64 : 1;
+  // unrolled where msg_bytes is a constant (kernel 3's fixed forms); a loop
+  // where it is an argument
+#pragma unroll
   for (int blk = 0; blk < n_blocks; ++blk) {
     const bool last = blk == n_blocks - 1;
     const uint32_t t = last ? static_cast<uint32_t>(msg_bytes) : (blk + 1) * 64u;
@@ -157,6 +193,7 @@ __device__ __forceinline__ void sha256(const Src& src, long long b,
   uint32_t st[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) st[i] = kShaH0[i];
+#pragma unroll
   for (int blk = 0; blk < n_blocks; ++blk) {
     uint32_t w[16];
 #pragma unroll
@@ -225,6 +262,62 @@ cudaError_t launch_digest(const Src& src, int algo, int msg_bytes,
   return cudaGetLastError();
 }
 
+constexpr int kHashThreads = 256;
+// 4 blocks of 256 threads an SM: at most 64 registers a thread
+constexpr int kHashMinBlocks = 4;
+
+template <int ALGO, int L, int V, bool ROWS>
+__global__ void __launch_bounds__(kHashThreads, kHashMinBlocks)
+digest_limbs_kernel(const uint32_t* __restrict__ base, long long batch,
+                    uint32_t* __restrict__ out) {
+  using Src = FixedLimbSource<L, V, ROWS>;
+  const long long b = static_cast<long long>(blockIdx.x) * kHashThreads + threadIdx.x;
+  if (b >= batch) return;
+  const Src src{base, batch};
+  uint32_t h[8];
+  if (ALGO == 1) {
+    blake2s(src, b, Src::kBytes, h);
+  } else {
+    sha256(src, b, Src::kBytes, h);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i * batch + b] = h[i];
+}
+
+// Kernel 3 for one algorithm and L: stride-4 rows, leaves of 1, 2 or 4
+// vectors in the compile-time form; leaves of any other count at run time.
+template <int ALGO, int L>
+cudaError_t launch_limbs(const uint32_t* base, int n_vec, bool rows, long long batch,
+                         uint32_t* out, cudaStream_t st) {
+  const unsigned blocks = static_cast<unsigned>((batch + kHashThreads - 1) / kHashThreads);
+  if (rows) {
+    digest_limbs_kernel<ALGO, L, 4, true><<<blocks, kHashThreads, 0, st>>>(base, batch, out);
+  } else if (n_vec == 1) {
+    digest_limbs_kernel<ALGO, L, 1, false><<<blocks, kHashThreads, 0, st>>>(base, batch, out);
+  } else if (n_vec == 2) {
+    digest_limbs_kernel<ALGO, L, 2, false><<<blocks, kHashThreads, 0, st>>>(base, batch, out);
+  } else if (n_vec == 4) {
+    digest_limbs_kernel<ALGO, L, 4, false><<<blocks, kHashThreads, 0, st>>>(base, batch, out);
+  } else {
+    const LimbSource src{base, L * batch, batch, L / 2, n_vec * L / 2};
+    return launch_digest(src, ALGO, 2 * n_vec * L, batch, out, st);
+  }
+  return cudaGetLastError();
+}
+
+template <int ALGO>
+cudaError_t launch_limbs_algo(int L, const uint32_t* base, int n_vec, bool rows,
+                              long long batch, uint32_t* out, cudaStream_t st) {
+  switch (L) {
+    case 2: return launch_limbs<ALGO, 2>(base, n_vec, rows, batch, out, st);
+    case 4: return launch_limbs<ALGO, 4>(base, n_vec, rows, batch, out, st);
+    case 8: return launch_limbs<ALGO, 8>(base, n_vec, rows, batch, out, st);
+    case 14: return launch_limbs<ALGO, 14>(base, n_vec, rows, batch, out, st);
+    case 16: return launch_limbs<ALGO, 16>(base, n_vec, rows, batch, out, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace gs
 
 // algo: 0 = sha256, 1 = blake2s256.  words: int32 [n_words, batch] LE words
@@ -238,16 +331,21 @@ extern "C" int gs_hash_words(int algo, const void* words, int n_words,
   return gs::launch_digest(src, algo, msg_bytes, batch, out, stream);
 }
 
-// Limb vectors: n_vec vectors of L 16-bit limbs per element; element
-// (v, limb, b) at base[v * vec_stride + limb * limb_stride + b].  The message
-// of column b is the LE bytes of every vector's element b, concatenated.
-extern "C" int gs_hash_limbs(int algo, const void* base, int n_vec, int L,
-                             long long vec_stride, long long limb_stride,
+// Kernel 3.  Leaves (rows = 0): base int32 [n_vec, L, batch] contiguous;
+// the message of column b is the LE bytes of every vector's element b,
+// concatenated.  Stride-4 rows (rows = 1, n_vec = 4): base int32 [L, 4 *
+// batch] contiguous; the message of row r is elements r, r + batch, r + 2
+// batch, r + 3 batch.  out: int32 [8, batch].
+extern "C" int gs_hash_limbs(int algo, const void* base, int n_vec, int L, int rows,
                              long long batch, void* out, void* stream) {
   if (batch <= 0) return 0;
-  if (L % 2) return cudaErrorInvalidValue;
-  const int n_words = n_vec * L / 2;
-  gs::LimbSource src{static_cast<const uint32_t*>(base), vec_stride,
-                     limb_stride, L / 2, n_words};
-  return gs::launch_digest(src, algo, 4 * n_words, batch, out, stream);
+  if (n_vec < 1 || (rows && n_vec != 4)) return cudaErrorInvalidValue;
+  auto b = static_cast<const uint32_t*>(base);
+  auto o = static_cast<uint32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (algo) {
+    case 0: return gs::launch_limbs_algo<0>(L, b, n_vec, rows != 0, batch, o, st);
+    case 1: return gs::launch_limbs_algo<1>(L, b, n_vec, rows != 0, batch, o, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

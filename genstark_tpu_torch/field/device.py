@@ -19,6 +19,9 @@ Two layers, as in the JAX package (`DeviceField` over `field/pallas_ops.py`):
   launches kernel 5 or 6 (csrc/field_ops.cu) or raises.  The kernels take
   any L, any broadcast and any strides, so none of the JAX package's TPU
   dispatch rules (2^16-element minimum, 2048-lane tiles, L >= 8) applies.
+
+The batched inverse `inv` (plain version `inv_ref`) is no kernel of its
+own, as in the JAX package: Montgomery's trick over the products above.
 """
 
 from __future__ import annotations
@@ -226,6 +229,53 @@ class DeviceField:
             if e:
                 base = self.mont_mul(base, base)
         return result
+
+    # ----- batched inversion (Montgomery's trick, log-doubling scans) -------
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Elementwise inverse of Montgomery-form [L, ...] with inv(0) = 0.
+        A CPU tensor runs `inv_ref`; on the card every product is one
+        kernel-5 launch (2 ceil(log2 N) + 2 of them) and the one total
+        product is inverted on the host."""
+        if a.device.type == "cpu":
+            return self.inv_ref(a)
+        return self._inv_with(self.mont_mul, a)
+
+    def inv_ref(self, a: torch.Tensor) -> torch.Tensor:
+        """Plain version of `inv`: the same steps on `mont_mul_ref`."""
+        return self._inv_with(self.mont_mul_ref, a)
+
+    def _inv_with(self, mul, a: torch.Tensor) -> torch.Tensor:
+        """The JAX package's `DeviceField.inv` (genstark_tpu/field/device.py
+        :294-357) over the product `mul`: zeros masked to one, inclusive
+        prefix and suffix products by Hillis-Steele doubling, the total
+        inverted, each element's inverse as prod_{k<i} * prod_{k>i} *
+        total^-1, zeros put back.  JAX inverts the total with a device Fermat
+        ladder because its prover is one jitted program; this prover
+        synchronizes at every root fetch anyway, so the one element goes to
+        the host, where pow(., p-2, p) on its Montgomery value tR gives
+        R^2 (tR)^-1 = t^-1 R: the same field element, one small copy each
+        way instead of ~2 log2 p launches."""
+        L = self.L
+        flat = a.reshape(L, -1)
+        n = flat.shape[1]
+        if n == 0:
+            return a.clone()
+        one = self.one((1,))
+        is_zero = (flat == 0).all(dim=0)
+        safe = torch.where(is_zero[None], one, flat)
+        prefix, suffix = safe, safe
+        k = 1
+        while k < n:
+            ident = one.expand(L, k)
+            prefix = mul(prefix, torch.cat([ident, prefix[:, :-k]], dim=1))
+            suffix = mul(suffix, torch.cat([suffix[:, k:], ident], dim=1))
+            k *= 2
+        total = limbs_to_ints(self.to_numpy(prefix[:, -1:]))[0]
+        total_inv = self.params.R2_mod * pow(total, self.p - 2, self.p) % self.p
+        pre_excl = torch.cat([one, prefix[:, :-1]], dim=1)
+        suf_excl = torch.cat([suffix[:, 1:], one], dim=1)
+        out = mul(mul(pre_excl, suf_excl), self.const(total_inv, (1,), to_mont=False))
+        return torch.where(is_zero[None], torch.zeros_like(out), out).reshape(a.shape)
 
     def combine_many_mont(self, vectors, coeffs_mont: torch.Tensor) -> torch.Tensor:
         """sum_k coeffs_mont[:, k] * vectors[k]; vectors: list of [L, N],

@@ -80,8 +80,7 @@ class Hash:
         if vectors_std.device.type == "cpu":
             words = torch.cat([elements_to_words(vectors_std[v]) for v in range(V)])
             return digest_rows_ref(self.algorithm, words, element_size * V)
-        base = vectors_std.contiguous()
-        return kernels.hash_limbs(self.algorithm, base, V, L, L * N, N, N)
+        return kernels.hash_limbs(self.algorithm, vectors_std.contiguous(), rows=False)
 
     def digest_stride_rows(self, values_std: torch.Tensor, element_size: int) -> torch.Tensor:
         """FRI row hashing: values [L, N] -> row r = v[r] || v[r+M] ||
@@ -92,8 +91,7 @@ class Hash:
             words = torch.cat([elements_to_words(values_std[:, k * M:(k + 1) * M])
                                for k in range(4)])
             return digest_rows_ref(self.algorithm, words, element_size * 4)
-        base = values_std.contiguous()
-        return kernels.hash_limbs(self.algorithm, base, 4, L, M, N, M)
+        return kernels.hash_limbs(self.algorithm, values_std.contiguous(), rows=True)
 
     def hash_pairs(self, digests: torch.Tensor) -> torch.Tensor:
         """One Merkle level: [8, 2N] -> [8, N]; pair k = leaves 2k, 2k+1."""

@@ -136,7 +136,7 @@ def _load():
         lib.gs_dft_level.restype = I
         lib.gs_hash_words.argtypes = [I, P, I, I, LL, P, P]
         lib.gs_hash_words.restype = I
-        lib.gs_hash_limbs.argtypes = [I, P, I, I, LL, LL, LL, P, P]
+        lib.gs_hash_limbs.argtypes = [I, P, I, I, I, LL, P, P]
         lib.gs_hash_limbs.restype = I
         lib.gs_lcomb_tail.argtypes = [I, P, P, P, P, P]
         lib.gs_lcomb_tail.restype = I
@@ -286,19 +286,30 @@ def hash_words(algorithm: str, words: torch.Tensor, msg_bytes: int) -> torch.Ten
     return out
 
 
-def hash_limbs(algorithm: str, base: torch.Tensor, n_vec: int, L: int,
-               vec_stride: int, limb_stride: int, batch: int) -> torch.Tensor:
-    """Kernel 3 (csrc/hash.cu gs_hash_limbs): message b = LE bytes of
-    element b of each of n_vec limb vectors, element (v, limb, b) at
-    base.flat[v*vec_stride + limb*limb_stride + b]."""
-    _require(base, "limbs", torch.int32)
-    last = (n_vec - 1) * vec_stride + (L - 1) * limb_stride + batch
-    if last > base.numel():
-        raise ValueError("limb view exceeds the tensor")
-    out = torch.empty((8, batch), dtype=torch.int32, device=base.device)
-    rc = _load().gs_hash_limbs(_ALGO[algorithm], base.data_ptr(), n_vec, L,
-                               vec_stride, limb_stride, batch, out.data_ptr(),
-                               _stream(base))
+def hash_limbs(algorithm: str, values: torch.Tensor, rows: bool) -> torch.Tensor:
+    """Kernel 3 (csrc/hash.cu gs_hash_limbs), messages built from
+    standard-form limbs, int32 [8, B] digests.  Leaves (`rows` false):
+    values [V, L, N] contiguous, message b = LE bytes of values[0][:, b] ||
+    values[1][:, b] || ...  Stride-4 rows: values [L, N] contiguous, N % 4
+    == 0, message r = v[r] || v[r + M] || v[r + 2M] || v[r + 3M], M = N/4.
+    Rows and leaves of 1, 2 or 4 vectors run the kernel's compile-time
+    form, leaves of any other count its runtime form."""
+    _require(values, "limbs", torch.int32)
+    if rows:
+        if values.dim() != 2 or values.shape[1] % 4:
+            raise ValueError(f"stride-4 rows take values [L, N] with N % 4 == 0, "
+                             f"got {tuple(values.shape)}")
+        n_vec, (L, N) = 4, values.shape
+        batch = N // 4
+    else:
+        if values.dim() != 3 or values.shape[0] < 1:
+            raise ValueError(f"leaves take values [V, L, N], got {tuple(values.shape)}")
+        n_vec, L, batch = values.shape
+    if L not in FIELD_LS:
+        raise ValueError(f"hash_limbs takes L in {FIELD_LS}, not {L}")
+    out = torch.empty((8, batch), dtype=torch.int32, device=values.device)
+    rc = _load().gs_hash_limbs(_ALGO[algorithm], values.data_ptr(), n_vec, L, int(rows), batch,
+                               out.data_ptr(), _stream(values))
     _check(rc, "hash_limbs")
     launch_counts["hash_limbs"] += 1
     return out

@@ -78,9 +78,11 @@ class Stark:
         context = self.air.init_proving_context(inputs, seed)
         try:
             trace_std = context.generate_execution_trace_std()
+            self._validate_assertions(context, trace_std, assertions)
+        except StarkError:
+            raise
         except Exception as error:
             raise StarkError("Failed to generate the execution trace") from error
-        self._validate_assertions(context, trace_std, assertions)
         return self._prover(context, assertions).prove(trace_std)
 
     def _prover(self, context, assertions) -> Prover:

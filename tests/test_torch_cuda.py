@@ -128,18 +128,132 @@ def test_field_ew_kernel_equals_plain_and_counts(device, modulus):
             assert torch.equal(got, ref(x, y))
 
 
-@pytest.mark.parametrize("modulus", [P128, P256], ids=["p128", "p256"])
-def test_outer_table_kernel_equals_plain(device, modulus):
+@ALL_FIELDS
+@pytest.mark.parametrize("nj,s", [(512, 256), (2048, 2048), (37, 300), (1, 1), (3, 1000)])
+def test_outer_table_kernel_equals_plain(device, modulus, nj, s):
+    """Kernel 6 (word product): the path's tables, a 2^22-product table, an
+    s that is not a power of two, one element, and rows of several column
+    tiles; p - 1 in both factors.  One launch each."""
     from genstark_tpu_torch import kernels
     field = create_prime_field(modulus)
     dev = field.device_field(device)
-    rng = np.random.default_rng(3)
-    outer = dev.from_numpy(_elements(rng, modulus, dev.L, 512))
-    inner = dev.from_numpy(_elements(rng, modulus, dev.L, 256))
+    rng = np.random.default_rng(nj + s)
+    outer = dev.from_numpy(_elements(rng, modulus, dev.L, nj))
+    inner = dev.from_numpy(_elements(rng, modulus, dev.L, s))
+    outer[:, :1] = torch.as_tensor(_pm1(field, 1).astype(np.int32), device=device)
+    inner[:, -1:] = torch.as_tensor(_pm1(field, 1).astype(np.int32), device=device)
     before = kernels.launch_counts["outer_table"]
     got = dev.outer_table(outer, inner)
     assert kernels.launch_counts["outer_table"] == before + 1
     assert torch.equal(got, dev.outer_table_ref(outer, inner))
+
+
+def _limbs_plain(algo, values, form, elem):
+    from genstark_tpu_torch.hash import digest_rows_ref, elements_to_words
+    if form == "rows":
+        M = values.shape[1] // 4
+        parts = [values[:, k * M:(k + 1) * M] for k in range(4)]
+    else:
+        parts = list(values)
+    return digest_rows_ref(algo, torch.cat([elements_to_words(t) for t in parts]),
+                           len(parts) * elem)
+
+
+@ALL_FIELDS
+@pytest.mark.parametrize("algo", ["sha256", "blake2s256"])
+def test_hash_limbs_forms_equal_plain(device, modulus, algo):
+    """Kernel 3: leaves of 1, 2 and 4 vectors (compile-time form) and of 3
+    (runtime form), and stride-4 rows, at 1, 255 and 2^17 messages; through
+    the Hash entry points for the leaves of two vectors and the rows.  One
+    launch each."""
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.hash import create_hash
+    field = create_prime_field(modulus)
+    L, elem = field.params.L, field.element_size
+    rng = np.random.default_rng(modulus % 67)
+    h = create_hash(algo)
+    for form in (1, 2, 3, 4, "rows"):
+        for batch in (1, 255, 2 ** 17):
+            if form == "rows":
+                values = torch.as_tensor(_elements(rng, modulus, L, 4 * batch).astype(np.int32),
+                                         device=device)
+            else:
+                values = torch.as_tensor(np.stack([_elements(rng, modulus, L, batch)
+                                                   for _ in range(form)]).astype(np.int32),
+                                         device=device)
+            want = _limbs_plain(algo, values, form, elem)
+            before = kernels.launch_counts["hash_limbs"]
+            assert torch.equal(kernels.hash_limbs(algo, values, rows=form == "rows"), want)
+            if form == "rows":
+                assert torch.equal(h.digest_stride_rows(values, elem), want)
+            elif form == 2:
+                assert torch.equal(h.merge_element_rows(values, elem), want)
+            assert kernels.launch_counts["hash_limbs"] == before + (2 if form in (2, "rows") else 1)
+
+
+@pytest.mark.parametrize("algo", ["sha256", "blake2s256"])
+@pytest.mark.parametrize("form", [2, "rows"])
+def test_hash_limbs_at_2_22_messages(device, algo, form):
+    """Kernel 3 at the 2^18-step path's 2^22 messages over P256: leaves of
+    two vectors and stride-4 rows (the plain version in column chunks)."""
+    from genstark_tpu_torch import kernels
+    field = create_prime_field(P256)
+    L, elem, B = 16, field.element_size, 2 ** 22
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+    shape = (L, 4 * B) if form == "rows" else (2, L, B)
+    values = torch.randint(0, 1 << 16, shape, generator=g, device=device, dtype=torch.int32)
+    got = kernels.hash_limbs(algo, values, rows=form == "rows")
+    chunk = 1 << 20
+    for i0 in range(0, B, chunk):
+        if form == "rows":
+            part = torch.cat([values[:, k * B + i0:k * B + i0 + chunk] for k in range(4)], dim=1)
+        else:
+            part = values[..., i0:i0 + chunk]
+        assert torch.equal(got[:, i0:i0 + chunk], _limbs_plain(algo, part, form, elem))
+
+
+def test_hash_limbs_raises_on_unsupported_layouts(device):
+    from genstark_tpu_torch import kernels
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="N % 4"):
+        kernels.hash_limbs("sha256", torch.zeros((8, 6), dtype=torch.int32, device=device), True)
+    with pytest.raises(ValueError, match="L in"):
+        kernels.hash_limbs("sha256", torch.zeros((2, 6, 8), dtype=torch.int32, device=device),
+                           False)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.hash_limbs("sha256", torch.zeros((2, 8, 8), dtype=torch.int32,
+                                                 device=device).transpose(1, 2), False)
+    assert kernels.launch_counts == before
+
+
+@ALL_FIELDS
+def test_inv_on_card_equals_plain(device, modulus):
+    """DeviceField.inv on the card: every product one kernel-5 launch (2
+    ceil(log2 N) + 2), equal to inv_ref, zeros (first, inside, last) and a
+    batched shape included."""
+    from genstark_tpu_torch import kernels
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    rng = np.random.default_rng(modulus % 73)
+    for shape in ((1,), (2,), (4099,), (3, 16)):
+        n = int(np.prod(shape))
+        a = _elements(rng, modulus, dev.L, n)
+        if n > 2:
+            a[:, [0, n // 2, n - 1]] = 0
+        x = dev.from_numpy(a).reshape((dev.L,) + shape)
+        before = kernels.launch_counts["field_ew"]
+        got = dev.inv(x)
+        assert kernels.launch_counts["field_ew"] == before + 2 * (n - 1).bit_length() + 2
+        assert torch.equal(got, dev.inv_ref(x))
+
+
+def test_division_pin_on_card(device):
+    import hashlib
+    import chip_smoke
+    from examples.mimc_torch import prove_div
+    _, data = prove_div(64, device)
+    assert (len(data), hashlib.sha256(data).hexdigest()) == chip_smoke.DIV_PIN
 
 
 def test_field_kernels_raise_on_unsupported_shapes(device):
