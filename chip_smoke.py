@@ -5,7 +5,12 @@ the two probe kernels, proves the pinned toy proofs (the division AIR among
 them), the bench configuration (MiMC-128, 2^13 steps, secret input 3),
 MiMC-256 at 2^13 steps (the radix-2 path) and MiMC-256 at 2^18 and 2^20
 steps (the large-domain path: direct radix-2 route with the stage kernels),
-and prints one JSON line per contract at the end.
+the reference's Rescue and Poseidon Merkle-proof configurations at depth 16
+and the lib224-import Merkle proof, each compiled from its AirScript source,
+and its elliptic-curve point multiplication, compiled from AirAssembly, each
+with its trace from the native generator; parses, re-serializes and verifies
+every proof it makes with the port's verifier; and prints one JSON line per
+contract at the end.
 
     python3 chip_smoke.py
 
@@ -57,6 +62,24 @@ LARGE_PIN = (197428, "77ac03bf41603b6dc55ee72ec00680901a5d0d8929cf792f2b7a61268c
 LARGEST_STEPS = 2 ** 20
 # The direct route's transform size on the 2^18-step path (Ne).
 LARGE_N = 2 ** 22
+# The reference's Merkle-proof benchmark rows (its README; examples/rescue.py
+# and examples/poseidon.py options), depth 16, index 42, compiled from their
+# AirScript sources: Rescue (8 registers, 2^9 steps, p128, ext 16, 60/24
+# queries) and Poseidon (12 registers, 2^10 steps, p128, ext 32, 44/20),
+# the branch drawn from the prng (`branch_case`); and the lib224-import
+# Merkle proof (examples/merkle_import_torch.py, 6 registers, p224, depth 8,
+# index 42).  The port's proofs from its plain versions on the CPU
+# (tests/test_torch_script.py's slow tests recompute them and hold them
+# equal to the JAX package's).
+RESCUE16_PIN = (73999, "f33e927c61a45a3f6d45f620e66a6bd535517c64c2fbabdd241bb4dfa82819a3")
+POSEIDON16_PIN = (87655, "6831b6b4e480ccae3b09f2e19ba9f87050b0f0136358fa9510248928dffb663c")
+LIB224_PIN = (86843, "b039c5610f10eb278154453303498dd449ffa4e5cc92deabd6574a5520e192ee")
+# The reference's elliptic-curve point multiplication (examples/elliptic_torch.py:
+# pointmul.aa from the port's stdlib, 8 registers x 256 steps over P224, ext
+# 16, 48/24 queries; its constraints divide by registers): the port's proof
+# on the CPU (tests/test_torch_script.py's slow test holds it to the JAX
+# package's).
+POINTMUL_PIN = (80901, "1ae96e3fba29bbd5bbe889726d0f68e73a6885a004e7478788c7d5cc738ad44f")
 
 # Kernels each main path must launch.
 BENCH_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
@@ -66,6 +89,8 @@ MIMC256_KERNELS = ("hash_words", "hash_limbs", "lcomb_tail", "field_ew", "outer_
 LARGE_KERNELS = ("bfly_stage", "bfly_stage_split", "butterfly", "field_ew", "outer_table",
                  "hash_words", "hash_limbs", "lcomb_tail")
 PROBE_KERNELS = ("mont_chain", "u32_chain")
+MERKLE_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew")
+P224_KERNELS = ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew")
 
 # The card's memory rate for the bytes bound, and its dense int8
 # tensor-core rate (one multiply-add is 2 ops) for kernel 1's digit
@@ -408,15 +433,46 @@ def check_hash_limbs_forms(device, fields, results):
               flush=True)
 
 
-def check_tail(dev, field, rng, results, record_times: bool = True):
-    """Kernel 4 at the bench shape: Ne = 2^17, B = 1, V = 2, raised copies
-    on, factored tables with s = 256, at the field's L.  Run at every L,
-    it holds each instantiation of the word product's carry chains (field.cuh)
-    bit for bit, as the compiler emitted them."""
+# The Merkle configurations' commitments: (label, modulus, V = trace
+# registers + secret inputs, Ne, ext, B asserted registers).
+MERKLE_SHAPES = (("rescue16", "P128", 10, 2 ** 13, 16, 1),
+                 ("poseidon16", "P128", 16, 2 ** 15, 32, 2),
+                 ("lib224", "P224", 8, 2 ** 14, 32, 1))
+
+
+def check_merkle_shapes(device, rng, results):
+    """Kernel 3's runtime form (leaves of V vectors outside 1, 2 and 4) and
+    kernel 4 (its constants in shared memory) at the Merkle configurations'
+    shapes, against their plain versions."""
+    from genstark_tpu_torch import field as fields
+    from genstark_tpu_torch import kernels
+    seeds = iter(range(300, 400))
+    for label, name, V, Ne, ext, B in MERKLE_SHAPES:
+        field = fields.create_prime_field(getattr(fields, name))
+        values = limbs_values(device, next(seeds), field, V, Ne)
+        for algo in ("blake2s256", "sha256"):
+            e = max_abs_err(kernels.hash_limbs(algo, values, rows=False),
+                            limbs_plain(algo, values, V, field.element_size, 0, Ne))
+            print(f"hash_limbs {algo} {label}: leaves V={V} L={field.params.L} B={Ne} "
+                  f"max_abs_err={e}", flush=True)
+            require(e == 0, f"hash_limbs kernel != plain version at {label}'s leaves")
+            r = results["hash_limbs"]
+            r["max_abs_err"] = max(r["max_abs_err"], e)
+        check_tail(field.device_field(device), field, rng, results, record_times=False,
+                   shape=(Ne, ext, B, V))
+
+
+def check_tail(dev, field, rng, results, record_times: bool = True,
+               shape=(2 ** 17, 16, 1, 2)):
+    """Kernel 4 at the bench shape (Ne, ext, B, V) = (2^17, 16, 1, 2), or
+    another `shape`: raised copies on, factored tables with s = 256, at the
+    field's L.  Run at every L, it holds each instantiation of the word
+    product's carry chains (field.cuh) bit for bit, as the compiler emitted
+    them."""
     import numpy as np
     from genstark_tpu_torch.field.limbs import power_series_mont_np
     from genstark_tpu_torch.protocol.lincomb_kernel import lcomb_tail, lcomb_tail_ref
-    Ne, s, ext, B, V = 2 ** 17, 256, 16, 1, 2
+    (Ne, ext, B, V), s = shape, 256
     p, L = field.modulus, dev.L
     rnd = lambda n: dev.from_numpy(random_elements(rng, p, L, n))
     qe = rnd(Ne)
@@ -436,7 +492,7 @@ def check_tail(dev, field, rng, results, record_times: bool = True):
     km = cuda_ms(lambda: lcomb_tail(*args))
     dm = device_ms(lambda: lcomb_tail(*args))
     pm = cuda_ms(lambda: lcomb_tail_ref(*args), reps=2)
-    print(f"lcomb_tail Ne={Ne} L={L} B={B} V={V}: max_abs_err={e} "
+    print(f"lcomb_tail Ne={Ne} L={L} ext={ext} B={B} V={V}: max_abs_err={e} "
           f"kernel {km:.4f} ms (device {fmt_ms(dm)}) plain {pm:.4f} ms", flush=True)
     require(e == 0, "lcomb_tail kernel != plain version")
     r = results["lcomb_tail"]
@@ -1017,13 +1073,13 @@ def check_largest_shapes(device, field, results) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_prove(stark, assertions) -> dict:
+def profile_prove(stark, assertions, inputs) -> dict:
     """Device kernel time by name over one prove, and the device's busy
     share of the wall time; returns port_totals of the profile.  A
     measurement only: a profiler that captures nothing is reported, not
     fatal."""
     try:
-        by_name, stages, wall_ms = profile_run(lambda: stark.prove(assertions, [[3]]))
+        by_name, stages, wall_ms = profile_run(lambda: stark.prove(assertions, inputs))
     except Exception as err:  # noqa: BLE001 - measurement boundary
         print(f"profiler failed: {err!r}", flush=True)
         return {}
@@ -1183,24 +1239,58 @@ def mimc_assertions(stark, constants, steps: int):
     return [Assertion(0, 0, controls[0]), Assertion(steps - 1, 0, controls[-1])]
 
 
-def run_main_path(kernels, stark, constants, steps: int, pin, required, label: str,
-                  spread: int = 20):
-    """One main path (MiMC, `steps` steps, secret input 3): a warm-up
-    prove; the launch counts set to 0, one prove checked against its pin
-    (where there is one), the counts and the peak device memory read; best
-    of 5 and the spread of `spread` proves; one profiled prove.  Returns
-    (launches, proof bytes, the profile's port kernel totals)."""
+def verify_proof(stark, assertions, data: bytes, public, label: str, reps: int = 0):
+    """The port's verifier on `data`: parse(serialize) gives the same bytes
+    and verify accepts it; with reps > 0, verify_ms as bench.py measures it,
+    the best of `reps` after one warm-up.  Returns verify_ms or None."""
+    parsed = stark.parse(data)
+    require(stark.serialize(parsed) == data, f"{label}: parse + serialize changed the bytes")
+    require(stark.verify(assertions, parsed, public) is True, f"{label}: verify failed")
+    if not reps:
+        return None
+    times = []
+    for _ in range(reps):
+        parsed = stark.parse(data)
+        t0 = time.monotonic()
+        stark.verify(assertions, parsed, public)
+        times.append((time.monotonic() - t0) * 1e3)
+    print(f"{label} verify_ms best of {reps} {min(times):.3f} (all {[round(t, 3) for t in times]})",
+          flush=True)
+    return min(times)
+
+
+def require_native(stark, label: str) -> float:
+    """The last prove's trace came from the native generator; its seconds."""
+    ctx = stark.last_context
+    require(ctx.trace_source == "native", f"{label}: trace from {ctx.trace_source}, not native")
+    return ctx.trace_seconds
+
+
+def run_main_path(kernels, stark, assertions, inputs, pin, required, label: str,
+                  spread: int = 20, public=None):
+    """One main path: a warm-up prove (with the g++ build of the schema's
+    trace generator); the launch counts set to 0, one prove checked against
+    its pin (where there is one), the counts and the peak device memory
+    read; the proof parsed, re-serialized and verified (verify_ms best of 5);
+    best of 5 and the spread of `spread` proves with each prove's native
+    trace seconds; one profiled prove.  Returns (launches, proof bytes, the
+    profile's port kernel totals)."""
     import torch
-    assertions = mimc_assertions(stark, constants, steps)
+    from genstark_tpu_torch.native import tracegen
+    built = dict(tracegen.build_seconds)
     t0 = time.monotonic()
-    stark.prove(assertions, [[3]])
+    stark.prove(assertions, inputs)
     torch.cuda.synchronize()
     warmup = time.monotonic() - t0
+    builds = {k: round(v, 3) for k, v in tracegen.build_seconds.items() if k not in built}
+    print(f"{label} g++ build of the trace generator in the warm-up: {builds or 'cached'} s; "
+          f"warm-up trace {require_native(stark, label):.6f} s", flush=True)
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    data = stark.serialize(stark.prove(assertions, [[3]]))
+    data = stark.serialize(stark.prove(assertions, inputs))
     launches = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
+    require_native(stark, label)
     got = proof_digest(data)
     print(f"{label} proof: {got[0]} bytes sha256 {got[1]}", flush=True)
     print(f"{label} launches in one prove: {launches}", flush=True)
@@ -1210,20 +1300,24 @@ def run_main_path(kernels, stark, constants, steps: int, pin, required, label: s
         require(got == pin, f"{label} proof differs from its pin {pin}")
     missing = [k for k in required if launches[k] == 0]
     require(not missing, f"{label}: kernels of the path never launched: {missing}")
-    times = []
+    verify_proof(stark, assertions, data, public, label, reps=5)
+    times, traces = [], []
     for _ in range(spread):
         t0 = time.monotonic()
-        stark.prove(assertions, [[3]])
+        stark.prove(assertions, inputs)
         torch.cuda.synchronize()
         times.append(time.monotonic() - t0)
+        traces.append(require_native(stark, label))
     ranked = sorted(times)
     print(f"{label} warmup {warmup:.4f} s; prove best-of-5 {min(times[:5]):.6f} s; over "
           f"{len(times)} proves median {ranked[len(ranked) // 2]:.6f} s, min "
           f"{ranked[0]:.6f} s, max {ranked[-1]:.6f} s; security {stark.security_level}",
           flush=True)
+    print(f"{label} native trace seconds: best-of-5 {min(traces[:5]):.6f}, median "
+          f"{sorted(traces)[len(traces) // 2]:.6f} over {len(traces)} proves", flush=True)
     print(f"{label} prove seconds: {[round(t, 6) for t in times]}", flush=True)
     phase(f"{label}: where the time goes (torch.profiler, one prove)")
-    return launches, data, profile_prove(stark, assertions)
+    return launches, data, profile_prove(stark, assertions, inputs)
 
 
 def four_step_proof(device, steps: int) -> bytes:
@@ -1240,6 +1334,7 @@ def four_step_proof(device, steps: int) -> bytes:
         data = stark.serialize(stark.prove(mimc_assertions(stark, constants, steps), [[3]]))
     finally:
         radix2.DIRECT_ABOVE = saved
+    require_native(stark, "four-step")
     plans = next(iter(stark._provers.values()))._get_plans()
     routes = {k: p.route for k, p in plans.items()}
     require("direct" not in routes.values(), f"four-step prove took the direct route: {routes}")
@@ -1260,25 +1355,30 @@ def run_largest(kernels, device, steps: int, label: str) -> dict:
     stark.prove(assertions, [[3]])
     torch.cuda.synchronize()
     warmup = time.monotonic() - t0
-    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    times, datas, launches = [], [], None
+    times, datas, launches, traces, peaks = [], [], None, [], []
     for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         proof = stark.prove(assertions, [[3]])
         torch.cuda.synchronize()
         times.append(time.monotonic() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        traces.append(require_native(stark, label))
         if launches is None:
             launches = dict(kernels.launch_counts)
         datas.append(stark.serialize(proof))
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peaks)
+    print(f"{label} peak device memory of each prove: {peaks}", flush=True)
     got = proof_digest(datas[0])
     print(f"{label} proof: {got[0]} bytes sha256 {got[1]}", flush=True)
     print(f"{label} launches in one prove: {launches}", flush=True)
     print(f"{label} warmup {warmup:.4f} s; prove best-of-3 {min(times):.6f} s; prove seconds "
           f"{[round(t, 6) for t in times]}; peak device memory {peak} bytes "
           f"({peak / 2 ** 30:.3f} GiB)", flush=True)
+    print(f"{label} native trace seconds: {[round(t, 6) for t in traces]}", flush=True)
     require(datas[0] == datas[1] == datas[2], f"{label}: two proves gave different bytes")
+    verify_proof(stark, assertions, datas[0], None, label, reps=1)
     missing = [k for k in LARGE_KERNELS if launches[k] == 0]
     require(not missing, f"{label}: kernels of the path never launched: {missing}")
     return launches
@@ -1305,8 +1405,8 @@ def main() -> int:
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
     sys.path.insert(0, os.path.join(HERE, "examples"))
-    from mimc_torch import make_mimc_stark, prove_div, prove_mimc, run_mimc
-    from genstark_tpu_torch.protocol import Assertion
+    from mimc_torch import make_mimc_stark, prove_div, prove_mimc, round_constants
+    from examples import elliptic_torch, merkle_import_torch, poseidon_torch, rescue_torch
 
     phase("build")
     t0 = time.monotonic()
@@ -1363,6 +1463,7 @@ def main() -> int:
     check_stages(device, [all_fields[1], all_fields[3], f256], rng, results)
     check_butterfly_bitrev(device, all_fields, rng, results)
     check_hash_limbs_forms(device, all_fields, results)
+    check_merkle_shapes(device, rng, results)
     check_probes(device, all_fields, rng, results)
     torch.cuda.synchronize()
 
@@ -1384,19 +1485,24 @@ def main() -> int:
     check_largest_shapes(device, f256, results)
     print(f"largest-shape checks {time.monotonic() - t0:.1f} s", flush=True)
 
-    phase("pinned toy proofs on the card")
+    phase("pinned toy proofs on the card, each verified by the port")
+    toy_assertions = lambda stark, count: mimc_assertions(
+        stark, round_constants(stark.air.field, count), 64)
     for modulus, count, pin in ((P32, 16, P32_PIN), (P128, 32, P128_PIN)):
         stark, constants = make_mimc_stark(64, device, modulus=modulus, use_input=False,
                                            constant_count=count, options=TOY)
-        controls = run_mimc(stark.air.field, 64, constants, 3)
-        data = stark.serialize(stark.prove(
-            [Assertion(0, 0, controls[0]), Assertion(63, 0, controls[-1])], [], [3]))
+        assertions = toy_assertions(stark, count)
+        data = stark.serialize(stark.prove(assertions, [], [3]))
+        require_native(stark, "toy")
         got = proof_digest(data)
         print(f"p{modulus.bit_length()} pin: {got[0]} bytes sha256 {got[1]}", flush=True)
         require(got == pin, f"p{modulus.bit_length()} proof differs from its pin {pin}")
+        verify_proof(stark, assertions, data, None, f"p{modulus.bit_length()} pin")
     kernels.reset_launch_counts()
-    _, data = prove_div(64, device)
+    div_stark, data = prove_div(64, device)
     div_products = kernels.launch_counts["field_ew"]
+    require_native(div_stark, "division AIR")
+    verify_proof(div_stark, toy_assertions(div_stark, 16), data, None, "division AIR")
     kernels.reset_launch_counts()
     _, plain = prove_mimc(64, device, modulus=P128, use_input=False, constant_count=16,
                           options=TOY)
@@ -1408,26 +1514,51 @@ def main() -> int:
     require(div_products > kernels.launch_counts["field_ew"],
             "the division AIR's prove launched no more products than plain MiMC's")
     for modulus, options, pin in ((P256, None, P256_64_PIN), (P64, TOY, P64_64_PIN)):
-        _, data = prove_mimc(64, device, modulus=modulus, options=options)
+        stark, data = prove_mimc(64, device, modulus=modulus, options=options)
+        require_native(stark, "toy")
         got = proof_digest(data)
         print(f"p{modulus.bit_length()} secret-input pin: {got[0]} bytes sha256 {got[1]}",
               flush=True)
         require(got == pin, f"p{modulus.bit_length()} proof differs from its pin {pin}")
+        verify_proof(stark, toy_assertions(stark, 64), data, None,
+                     f"p{modulus.bit_length()} secret-input pin")
+
+    def mimc_path(steps, modulus=P128):
+        stark, constants = make_mimc_stark(steps, device, modulus=modulus)
+        return stark, mimc_assertions(stark, constants, steps), [[3]]
 
     phase(f"bench config: MiMC-128, {BENCH_STEPS} steps, secret input 3")
     bench_launches, _, bench_totals = run_main_path(
-        kernels, *make_mimc_stark(BENCH_STEPS, device), BENCH_STEPS, BENCH_PIN, BENCH_KERNELS,
-        "bench")
+        kernels, *mimc_path(BENCH_STEPS), BENCH_PIN, BENCH_KERNELS, "bench")
 
     phase(f"MiMC-256: P256, {BENCH_STEPS} steps, secret input 3 (radix-2 path)")
     mimc256_launches, _, mimc256_totals = run_main_path(
-        kernels, *make_mimc_stark(BENCH_STEPS, device, modulus=P256), BENCH_STEPS,
-        MIMC256_PIN, MIMC256_KERNELS, "mimc256")
+        kernels, *mimc_path(BENCH_STEPS, P256), MIMC256_PIN, MIMC256_KERNELS, "mimc256")
+
+    phase("the reference's Merkle-proof configurations (compiled from AirScript) and "
+          "point multiplication (AirAssembly)")
+    merkle_launches = []
+    for label, case, pin, required in (
+            ("rescue-merkle-16", lambda: rescue_torch.branch_case(16, 42, None, device),
+             RESCUE16_PIN, MERKLE_KERNELS),
+            ("poseidon-merkle-16", lambda: poseidon_torch.branch_case(16, 42, None, device),
+             POSEIDON16_PIN, MERKLE_KERNELS),
+            ("lib224-merkle-8", lambda: merkle_import_torch.merkle_proof_case(
+                8, 42, None, device), LIB224_PIN, P224_KERNELS),
+            ("pointmul", lambda: elliptic_torch.pointmul_case(None, device) + (None,),
+             POINTMUL_PIN, P224_KERNELS)):
+        stark, assertions, inputs, public = case()
+        print(f"{label}: {stark.air.trace_register_count} registers, "
+              f"{stark.air.secret_input_count} secret inputs, "
+              f"{assertions[0].step + 1} steps, ext {stark.air.extension_factor}", flush=True)
+        launches_, _, _ = run_main_path(kernels, stark, assertions, inputs, pin, required,
+                                        label, spread=5, public=public)
+        merkle_launches.append(launches_)
 
     phase(f"MiMC-256: P256, {LARGE_STEPS} steps (Ne = {16 * LARGE_STEPS}: direct route)")
     large_launches, large_data, large_totals = run_main_path(
-        kernels, *make_mimc_stark(LARGE_STEPS, device, modulus=P256), LARGE_STEPS,
-        LARGE_PIN, LARGE_KERNELS, "mimc256-2^18", spread=10)
+        kernels, *mimc_path(LARGE_STEPS, P256), LARGE_PIN, LARGE_KERNELS, "mimc256-2^18",
+        spread=10)
     torch.cuda.empty_cache()
     print(json.dumps({"path_kernel_totals": {
         label: {short: [us / 1e3, n] for short, (us, n) in totals.items()
@@ -1443,8 +1574,13 @@ def main() -> int:
     phase(f"MiMC-256: P256, {LARGEST_STEPS} steps (Ne = {16 * LARGEST_STEPS})")
     largest_launches = run_largest(kernels, device, LARGEST_STEPS, "mimc256-2^20")
 
+    from genstark_tpu_torch.native import tracegen
+    print(f"g++ builds of the native trace generators: {len(tracegen.build_seconds)}, "
+          f"{sum(tracegen.build_seconds.values()):.3f} s in all "
+          f"({ {k: round(v, 3) for k, v in tracegen.build_seconds.items()} })", flush=True)
     launches = {k: bench_launches[k] + mimc256_launches[k] + large_launches[k]
-                + largest_launches[k] + rates["launches"].get(k, 0) for k in meta}
+                + largest_launches[k] + sum(m[k] for m in merkle_launches)
+                + rates["launches"].get(k, 0) for k in meta}
     line = []
     for name in meta:
         r = results[name]

@@ -1,12 +1,13 @@
 """AIR intermediate representation: expression DAG + register schema.
 
-Counterpart of ``genstark_tpu/air/ir.py`` (a copy trimmed to what the
-prover's main path uses): the expression nodes, degree inference, the device
-batch interpreter `eval_device` (it drives any `dev` with the DeviceField
-surface, here the torch one), the host code generator for trace generation,
-the static-register descriptors and `AirSchema`.  The AirScript and
-AirAssembly compilers that lower to this IR are not ported yet;
-`air/convert.py` rebuilds a schema from a JAX-package schema instead.
+Counterpart of ``genstark_tpu/air/ir.py`` (a copy): the expression nodes,
+degree inference, the device batch interpreter `eval_device` (it drives any
+`dev` with the DeviceField surface, here the torch one), the host scalar
+interpreter `eval_host` (verifier point checks), the host code generator for
+trace generation, the static-register descriptors, `AirSchema` and
+`substitute` (component inlining).  The AirScript (air/script.py) and
+AirAssembly (air/assembly.py) compilers lower to this IR; `air/convert.py`
+rebuilds a schema from a JAX-package schema.
 """
 
 from __future__ import annotations
@@ -190,6 +191,43 @@ def eval_device(expr: Expr, env: Dict, cache: Optional[Dict] = None):
     return r
 
 
+def eval_host(expr: Expr, env: Dict, cache: Optional[Dict] = None) -> int:
+    """Scalar evaluation with python ints.  env keys: 'field' (HostField),
+    'trace', 'next', 'static', 'seed' (lists of ints)."""
+    if cache is None:
+        cache = {}
+    key = id(expr)
+    if key in cache:
+        return cache[key]
+    f = env["field"]
+    if isinstance(expr, Const):
+        r = expr.value % f.p
+    elif isinstance(expr, TraceReg):
+        r = env["trace"][expr.index]
+    elif isinstance(expr, NextReg):
+        r = env["next"][expr.index]
+    elif isinstance(expr, StaticReg):
+        r = env["static"][expr.index]
+    elif isinstance(expr, SeedVal):
+        r = env["seed"][expr.index]
+    elif isinstance(expr, Add):
+        r = f.add(eval_host(expr.a, env, cache), eval_host(expr.b, env, cache))
+    elif isinstance(expr, Sub):
+        r = f.sub(eval_host(expr.a, env, cache), eval_host(expr.b, env, cache))
+    elif isinstance(expr, Mul):
+        r = f.mul(eval_host(expr.a, env, cache), eval_host(expr.b, env, cache))
+    elif isinstance(expr, Div):
+        r = f.div(eval_host(expr.a, env, cache), eval_host(expr.b, env, cache))
+    elif isinstance(expr, Neg):
+        r = f.neg(eval_host(expr.a, env, cache))
+    elif isinstance(expr, Exp):
+        r = f.exp(eval_host(expr.a, env, cache), expr.e)
+    else:
+        raise TypeError(f"unknown expr node {type(expr)}")
+    cache[key] = r
+    return r
+
+
 def compile_host_fn(exprs: Sequence[Expr], p: int) -> Callable:
     """Code-generate a host evaluator `fn(trace, static, seed, next) -> list`
     over python ints mod p: the sequential per-step trace recurrence is
@@ -344,3 +382,36 @@ class AirSchema:
     @property
     def secret_input_count(self) -> int:
         return len(self.secret_input_registers)
+
+
+def substitute(expr: Expr, trace_map: Optional[Dict[int, Expr]] = None,
+               static_map: Optional[Dict[int, Expr]] = None,
+               cache: Optional[Dict] = None) -> Expr:
+    """Rewrite an expression DAG, replacing TraceReg/StaticReg leaves by
+    index.  Used to inline AirAssembly components into AirScript programs
+    (`with $r[a..b] yield Component(...)`): the component's trace registers
+    map to the caller's target registers and its static registers map to
+    caller statics or argument expressions.  Unmapped leaves pass through;
+    DAG sharing is preserved via the cache."""
+    if cache is None:
+        cache = {}
+    key = id(expr)
+    if key in cache:
+        return cache[key]
+    if isinstance(expr, TraceReg) and trace_map and expr.index in trace_map:
+        r = trace_map[expr.index]
+    elif isinstance(expr, StaticReg) and static_map and expr.index in static_map:
+        r = static_map[expr.index]
+    elif isinstance(expr, (Const, TraceReg, NextReg, StaticReg, SeedVal)):
+        r = expr
+    elif isinstance(expr, (Add, Sub, Mul, Div)):
+        r = type(expr)(substitute(expr.a, trace_map, static_map, cache),
+                       substitute(expr.b, trace_map, static_map, cache))
+    elif isinstance(expr, Neg):
+        r = Neg(substitute(expr.a, trace_map, static_map, cache))
+    elif isinstance(expr, Exp):
+        r = Exp(substitute(expr.a, trace_map, static_map, cache), expr.e)
+    else:
+        raise TypeError(f"unknown expr node {type(expr)}")
+    cache[key] = r
+    return r

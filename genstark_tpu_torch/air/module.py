@@ -1,12 +1,14 @@
-"""AIR module + proving context.
+"""AIR module + proving and verification contexts.
 
 Counterpart of ``genstark_tpu/air/module.py`` (`AirModule`,
-`ProvingContext` and the input layout), trimmed to the prover's main path:
-trace generation is the Python host interpreter (`_generate_trace_pyhost`
-there; the native C++ generator and the device trace scan are not ported
-yet), the trace ships as standard-form u32 limbs [R, L, T], and
-`evaluate_transition_constraints` evaluates the constraint DAG over a
-domain with the torch DeviceField.
+`ProvingContext`, `VerificationContext` and the input layout).  The trace
+is generated on the host by the native C++ generator (native/tracegen.py,
+built with g++) and, only where no C++ compiler exists, by the Python
+interpreter; each context records which one ran in `trace_source`.  The
+device trace scan is not ported.  The trace ships as standard-form u32
+limbs [R, L, T]; `evaluate_transition_constraints` evaluates the
+constraint DAG over a domain with the torch DeviceField, and the
+verification context evaluates it at one point with host ints.
 
 Domain conventions (identical to the JAX package):
   execution domain   size T            root w_t = w^ext
@@ -17,6 +19,7 @@ with cf = 2^ceil(log2(max constraint degree)).
 
 from __future__ import annotations
 
+import time
 from functools import cached_property
 from typing import Dict, List, Optional, Sequence
 
@@ -24,8 +27,9 @@ import numpy as np
 import torch
 
 from ..field.limbs import ints_to_limbs, limbs_to_ints
+from ..native import NativeUnavailable, native_trace_fn
 from .ir import (AirSchema, CyclicRegister, InputRegister, MaskRegister,
-                 compile_host_fn, eval_device)
+                 compile_host_fn, eval_device, eval_host)
 
 
 def default_extension_factor(max_degree: int) -> int:
@@ -66,6 +70,11 @@ class AirModule:
                              seed: Optional[Sequence[int]] = None) -> "ProvingContext":
         return ProvingContext(self, inputs or [], list(seed or []))
 
+    def init_verification_context(self, input_shapes: Sequence[Sequence[int]],
+                                  public_inputs: Optional[Sequence] = None
+                                  ) -> "VerificationContext":
+        return VerificationContext(self, input_shapes, public_inputs or [])
+
 
 def _nested_shape(values, rank: int) -> List[int]:
     """Shape of a (uniform) nested input list; validates uniformity."""
@@ -92,7 +101,8 @@ def _flatten(values, rank: int) -> List:
 
 def compute_input_layout(schema: AirSchema, shapes: Sequence[Sequence[int]]):
     """Given per-input-register shapes, derive each register's value span
-    and the trace length (span rules documented on InputRegister)."""
+    and the trace length (span rules documented on InputRegister).
+    Returns (trace_length, spans, value counts per input register)."""
     input_regs = schema.input_registers
     if len(shapes) != len(input_regs):
         raise ValueError("input shape count mismatch")
@@ -129,6 +139,7 @@ def compute_input_layout(schema: AirSchema, shapes: Sequence[Sequence[int]]):
         spans[k] = s
         return s
 
+    totals = {}
     trace_length = schema.base_steps if not input_regs else None
     for k in input_regs:
         reg = schema.static_registers[k]
@@ -138,6 +149,7 @@ def compute_input_layout(schema: AirSchema, shapes: Sequence[Sequence[int]]):
         n = 1
         for d in shape_of[k]:
             n *= d
+        totals[k] = n
         t = n * span(k)
         if trace_length is None:
             trace_length = t
@@ -145,13 +157,51 @@ def compute_input_layout(schema: AirSchema, shapes: Sequence[Sequence[int]]):
             raise ValueError(
                 f"inconsistent input spans: register {k} implies trace length {t}, "
                 f"others imply {trace_length}")
-    return trace_length, spans
+    return trace_length, spans, totals
 
 
-class ProvingContext:
+class _ContextBase:
+    """Domain bookkeeping shared by the proving and verification contexts."""
+
+    def __init__(self, module: AirModule, trace_length: int):
+        self.module = module
+        self.schema = module.schema
+        self.field = module.field
+        if trace_length < 2 or trace_length & (trace_length - 1):
+            raise ValueError("trace length must be a power of 2, at least 2")
+        ext = module.extension_factor
+        self.trace_length = trace_length
+        self.extension_factor = ext
+        self.evaluation_domain_size = trace_length * ext
+        self.composition_domain_size = trace_length * module.composition_factor
+        # generator of the evaluation domain
+        self.root_of_unity = self.field.get_root_of_unity(self.evaluation_domain_size)
+
+    @property
+    def constraint_degrees(self) -> List[int]:
+        return self.schema.constraint_degrees
+
+    def _cyclic_pattern(self, k: int) -> Optional[List[int]]:
+        """Periodic pattern for register k if it is cyclic-like (cycle/mask).
+        Mask period = the source input register's value span; the mask is
+        aligned with the shifted source column."""
+        reg = self.schema.static_registers[k]
+        if isinstance(reg, CyclicRegister):
+            return [v % self.field.modulus for v in reg.values]
+        if isinstance(reg, MaskRegister):
+            span = self.input_spans[reg.source]
+            src = self.schema.static_registers[reg.source]
+            pattern = [0] * span
+            pattern[src.shift % span] = 1
+            if reg.inverted:
+                pattern = [1 - v for v in pattern]
+            return pattern
+        return None
+
+
+class ProvingContext(_ContextBase):
     def __init__(self, module: AirModule, inputs: Sequence, seed: List[int]):
         schema = module.schema
-        self.schema = schema
         self.field = module.field
         input_regs = schema.input_registers
         if len(inputs) != len(input_regs):
@@ -167,40 +217,16 @@ class ProvingContext:
                 raise ValueError("binary input register requires 0/1 values")
             self.input_values[k] = values
             self.input_shapes.append(shape)
-        trace_length, self.input_spans = compute_input_layout(schema, self.input_shapes)
-        if trace_length < 2 or trace_length & (trace_length - 1):
-            raise ValueError("trace length must be a power of 2, at least 2")
-        ext = module.extension_factor
-        self.trace_length = trace_length
-        self.extension_factor = ext
-        self.evaluation_domain_size = trace_length * ext
-        self.composition_domain_size = trace_length * module.composition_factor
-        # generator of the evaluation domain
-        self.root_of_unity = self.field.get_root_of_unity(self.evaluation_domain_size)
+        trace_length, self.input_spans, _ = compute_input_layout(schema, self.input_shapes)
+        super().__init__(module, trace_length)
         self.seed = [int(s) % self.field.modulus for s in seed]
         self._trace_std = None
-
-    @property
-    def constraint_degrees(self) -> List[int]:
-        return self.schema.constraint_degrees
+        # "native" or "python": which generator made this context's trace,
+        # and its host seconds (the g++ build of a new schema included)
+        self.trace_source = None
+        self.trace_seconds = None
 
     # ----- static register columns (host) ------------------------------------
-    def _cyclic_pattern(self, k: int) -> Optional[List[int]]:
-        """Periodic pattern for register k if it is cyclic-like (cycle/mask).
-        Mask period = the source input register's value span."""
-        reg = self.schema.static_registers[k]
-        if isinstance(reg, CyclicRegister):
-            return [v % self.field.modulus for v in reg.values]
-        if isinstance(reg, MaskRegister):
-            span = self.input_spans[reg.source]
-            src = self.schema.static_registers[reg.source]
-            pattern = [0] * span
-            pattern[src.shift % span] = 1
-            if reg.inverted:
-                pattern = [1 - v for v in pattern]
-            return pattern
-        return None
-
     @cached_property
     def static_columns(self) -> List[List[int]]:
         """Per static register: the full column of T standard-form ints."""
@@ -253,28 +279,73 @@ class ProvingContext:
 
     # ----- execution trace (host) ---------------------------------------------
     def generate_execution_trace_std(self) -> np.ndarray:
-        """Run the AIR on the host: standard-form limbs, u32 [R, L, T]."""
+        """Run the AIR on the host: standard-form limbs, u32 [R, L, T].  The
+        native generator runs unless no C++ compiler exists; any other
+        failure of it raises."""
         if self._trace_std is None:
-            schema = self.schema
-            p = self.field.modulus
-            T = self.trace_length
-            R = schema.trace_width
-            init_fn = compile_host_fn(schema.init, p)
-            step_fn = compile_host_fn(schema.transition, p)
-            cols = self.static_columns
-            K = len(cols)
-            statics = [[cols[k][t] for k in range(K)] for t in range(T)] if K \
-                else [[]] * T
-            state = init_fn([0] * R, statics[0], self.seed)
-            rows = [state]
-            for t in range(T - 1):
-                state = step_fn(state, statics[t])
-                rows.append(state)
-            L = self.field.params.L
-            flat = [rows[t][r] for r in range(R) for t in range(T)]
-            self._trace_std = np.asarray(ints_to_limbs(flat, L)).reshape(
-                L, R, T).transpose(1, 0, 2).copy()
+            t0 = time.monotonic()
+            try:
+                self._trace_std = self._generate_trace_native()
+                self.trace_source = "native"
+            except NativeUnavailable:
+                self._trace_std = self._generate_trace_pyhost()
+                self.trace_source = "python"
+            self.trace_seconds = time.monotonic() - t0
         return self._trace_std
+
+    def _statics_struct(self):
+        """Pattern-compressed static columns for the native generator:
+        per register (values, span, start_pos) with column[t] =
+        values[((t + start_pos) mod (len*span)) / span].  None when some
+        register type has no compressed form (then full columns are used)."""
+        T = self.trace_length
+        out = []
+        for k, reg in enumerate(self.schema.static_registers):
+            pattern = self._cyclic_pattern(k)
+            if pattern is not None:
+                out.append((pattern, 1, 0))
+            elif isinstance(reg, InputRegister):
+                span = self.input_spans[k]
+                if len(self.input_values[k]) * span != T:
+                    raise ValueError("input register span does not match trace length")
+                # col[t] = expanded[(t - shift) mod T], expanded = repeat(values, span)
+                out.append((self.input_values[k], span,
+                            (-reg.shift) % T if reg.shift else 0))
+            else:
+                return None
+        return out
+
+    def _generate_trace_native(self) -> np.ndarray:
+        """Code-generated C++ recurrence (native/tracegen.py): the u32
+        [R, L, T] upload layout, written by the generated code itself."""
+        schema = self.schema
+        run = native_trace_fn(schema.init, schema.transition, self.field.modulus,
+                              len(self.seed), len(schema.static_registers))
+        struct = self._statics_struct()
+        cols = self.static_columns if struct is None else None
+        return run(cols, self.seed, self.trace_length, statics_struct=struct)
+
+    def _generate_trace_pyhost(self) -> np.ndarray:
+        """The Python interpreter over big ints (no C++ compiler)."""
+        schema = self.schema
+        p = self.field.modulus
+        T = self.trace_length
+        R = schema.trace_width
+        init_fn = compile_host_fn(schema.init, p)
+        step_fn = compile_host_fn(schema.transition, p)
+        cols = self.static_columns
+        K = len(cols)
+        statics = [[cols[k][t] for k in range(K)] for t in range(T)] if K \
+            else [[]] * T
+        state = init_fn([0] * R, statics[0], self.seed)
+        rows = [state]
+        for t in range(T - 1):
+            state = step_fn(state, statics[t])
+            rows.append(state)
+        L = self.field.params.L
+        flat = [rows[t][r] for r in range(R) for t in range(T)]
+        return np.asarray(ints_to_limbs(flat, L)).reshape(
+            L, R, T).transpose(1, 0, 2).copy()
 
     def trace_value_host(self, register: int, step: int) -> int:
         """Standard-form python int at (register, step) of the host trace."""
@@ -294,3 +365,79 @@ class ProvingContext:
                "static": list(static_evals)}
         cache = {}
         return torch.stack([eval_device(c, env, cache) for c in schema.constraints])
+
+
+class VerificationContext(_ContextBase):
+    """The verifier's context: domains from the proof's input shapes, and
+    the static registers evaluated at one point (cyclic and public input
+    registers interpolated on the host, secret ones from the proof)."""
+
+    def __init__(self, module: AirModule, input_shapes: Sequence[Sequence[int]],
+                 public_inputs: Sequence):
+        schema = module.schema
+        self.field = module.field
+        input_regs = schema.input_registers
+        public_regs = [k for k in input_regs if not schema.static_registers[k].secret]
+        if len(public_inputs) != len(public_regs):
+            raise ValueError(
+                f"expected {len(public_regs)} public inputs, got {len(public_inputs)}")
+        self.input_shapes = [list(s) for s in input_shapes]
+        trace_length, self.input_spans, counts = compute_input_layout(
+            schema, self.input_shapes)
+        super().__init__(module, trace_length)
+        self.public_input_values: Dict[int, List[int]] = {}
+        for slot, k in enumerate(public_regs):
+            reg: InputRegister = schema.static_registers[k]
+            values = [int(v) % self.field.modulus
+                      for v in _flatten(public_inputs[slot], reg.rank)]
+            if len(values) != counts[k]:
+                raise ValueError("public input length does not match input shape")
+            self.public_input_values[k] = values
+
+    @cached_property
+    def _static_evaluators(self):
+        """Per static register: ('secret', slot) or ('eval', x -> value)."""
+        f = self.field.host
+        T = self.trace_length
+        evaluators = []
+        secret_slot = 0
+        for k, reg in enumerate(self.schema.static_registers):
+            pattern = self._cyclic_pattern(k)
+            if isinstance(reg, InputRegister) and reg.secret:
+                evaluators.append(("secret", secret_slot))
+                secret_slot += 1
+                continue
+            if pattern is not None:
+                ell = len(pattern)
+                coeffs = f.interpolate_roots(pattern) if ell > 1 else list(pattern)
+                power = T // ell
+
+                def make_cyclic(coeffs=coeffs, power=power):
+                    return lambda x: f.eval_poly_at(coeffs, f.exp(x, power))
+                evaluators.append(("eval", make_cyclic()))
+            else:
+                # public input register: interpolate the full expanded column
+                values = self.public_input_values[k]
+                span = self.input_spans[k]
+                expanded = [v for v in values for _ in range(span)]
+                if reg.shift:
+                    s = (-reg.shift) % T
+                    expanded = expanded[s:] + expanded[:s]
+                coeffs = f.interpolate_roots(expanded)
+
+                def make_full(coeffs=coeffs):
+                    return lambda x: f.eval_poly_at(coeffs, x)
+                evaluators.append(("eval", make_full()))
+        return evaluators
+
+    def evaluate_constraints_at(self, x: int, p_values: List[int],
+                                n_values: List[int], s_values: List[int]) -> List[int]:
+        """Single-point constraint evaluation on the host; s_values are the
+        committed secret-register values from the proof."""
+        static_vals = []
+        for kind, payload in self._static_evaluators:
+            static_vals.append(s_values[payload] if kind == "secret" else payload(x))
+        env = {"field": self.field.host, "trace": p_values, "next": n_values,
+               "static": static_vals}
+        cache = {}
+        return [eval_host(c, env, cache) for c in self.schema.constraints]

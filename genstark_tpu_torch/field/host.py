@@ -2,8 +2,8 @@
 
 Counterpart of ``genstark_tpu/field/host.py`` (a copy).  It is the
 execution path for all *small* computations in the protocol:
-boundary-constraint interpolants, FRI remainder checks, Fiat-Shamir
-derivations (``prng``), table seeds.
+boundary-constraint interpolants, FRI remainder checks, verifier point
+evaluations, Fiat-Shamir derivations (``prng``), table seeds.
 """
 
 from __future__ import annotations
@@ -29,6 +29,9 @@ class HostField:
 
     def mul(self, a: int, b: int) -> int:
         return (a * b) % self.p
+
+    def div(self, a: int, b: int) -> int:
+        return (a * self.inv(b)) % self.p
 
     def neg(self, a: int) -> int:
         return (-a) % self.p
@@ -146,6 +149,16 @@ class HostField:
                 out[j] = (out[j] + num[j] * c) % self.p
         return out
 
+    def interpolate_roots(self, ys: Sequence[int]) -> List[int]:
+        """Inverse NTT over the natural domain of size len(ys) (powers of the
+        canonical root of unity).  Small host-side version: the verifier's
+        cyclic and public-input static registers."""
+        n = len(ys)
+        w_inv = self.inv(self.get_root_of_unity(n))
+        coeffs = _ntt_host(list(ys), w_inv, self.p)
+        n_inv = self.inv(n)
+        return [(c * n_inv) % self.p for c in coeffs]
+
     # ----- PRNG -------------------------------------------------------------
     def prng(self, seed: bytes, count: int = None):
         """sha256-counter PRNG producing field elements.
@@ -175,4 +188,21 @@ def _div_linear(poly: Sequence[int], root: int, p: int) -> List[int]:
     for i in reversed(range(1, n)):
         carry = (poly[i] + carry * root) % p
         out[i - 1] = carry
+    return out
+
+
+def _ntt_host(values: List[int], w: int, p: int) -> List[int]:
+    """Simple recursive NTT for host-side (small) transforms."""
+    n = len(values)
+    if n == 1:
+        return values
+    even = _ntt_host(values[0::2], (w * w) % p, p)
+    odd = _ntt_host(values[1::2], (w * w) % p, p)
+    out = [0] * n
+    wk = 1
+    for k in range(n // 2):
+        t = (wk * odd[k]) % p
+        out[k] = (even[k] + t) % p
+        out[k + n // 2] = (even[k] - t) % p
+        wk = (wk * w) % p
     return out

@@ -7,7 +7,8 @@ levels, leaves first, root last (level k starts at row `level_offset(n,
 k)`).  Proof scheduling (`plan_batch`) and assembly (`assemble_batch`) are
 host index bookkeeping, copied from the JAX package so the proofs carry the
 same sibling schedule; `MerkleTree` is the host-side tree used for small
-trees and the pinned-root check.
+trees and the pinned-root check, and `MerkleTree.verify_batch` (JAX :264)
+replays the schedule for the verifier.
 """
 
 from __future__ import annotations
@@ -110,3 +111,48 @@ class MerkleTree:
         emissions, coords = plan_batch(positions, self.depth)
         fetched = [self._levels[level][idx] for level, idx in coords]
         return assemble_batch(positions, self.depth, emissions, fetched)
+
+    @staticmethod
+    def verify_batch(root: bytes, positions: Sequence[int],
+                     proof: BatchMerkleProof, hash_) -> bool:
+        """Verify a batched proof.  proof.values must already be leaf digests
+        (the protocol rehashes raw leaf bytes first)."""
+        if len(positions) != len(proof.values):
+            return False
+        if len(set(positions)) != len(positions):
+            return False
+        if len(proof.nodes) != len(positions):
+            return False
+        depth = proof.depth
+        level_vals = {}
+        for p, v in zip(positions, proof.values):
+            if not (0 <= p < (1 << depth)):
+                return False
+            level_vals[p] = v
+        cursors = [0] * len(positions)
+        for level in range(depth):
+            done = set()
+            parents = {}
+            for ci, p in enumerate(positions):
+                idx = p >> level
+                if idx in done or (idx ^ 1) in done:
+                    continue
+                done.add(idx)
+                sib = idx ^ 1
+                if sib not in level_vals:
+                    col = proof.nodes[ci]
+                    if cursors[ci] >= len(col):
+                        return False
+                    level_vals[sib] = col[cursors[ci]]
+                    cursors[ci] += 1
+                a = level_vals.get(idx)
+                if a is None:
+                    return False
+                b = level_vals[sib]
+                left, right = (a, b) if idx % 2 == 0 else (b, a)
+                parents[idx >> 1] = hash_.digest(left + right)
+            level_vals = parents
+        for ci, col in enumerate(proof.nodes):
+            if cursors[ci] != len(col):
+                return False                      # trailing unconsumed nodes
+        return level_vals.get(0) == root

@@ -1,4 +1,5 @@
-"""Protocol layer of the port: the prover's main path and proof codec."""
+"""Protocol layer of the port: the prover's main path, the proof codec and
+the verifier."""
 
 from .fri import StarkError
 from .proof import FriComponent, LowDegreeProof, StarkProof

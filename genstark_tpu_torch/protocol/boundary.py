@@ -1,8 +1,8 @@
 """Boundary constraints B(x) = (P(x) - I(x)) / Z(x) per asserted register.
 
 Counterpart of ``genstark_tpu/protocol/boundary.py``: the constructor
-(:20-82) and the prover's tables path of `evaluate_all` with
-`_synthetic_divide` (:84-159).  I interpolates the asserted (x_step, value)
+(:20-44), the verifier's `evaluate_at` (:46) and `z_dens_at` (:62), and the
+prover's tables path of `evaluate_all` with `_synthetic_divide` (:84-159).  I interpolates the asserted (x_step, value)
 points, Z = prod (x - x_step); register order is first-appearance order of
 the assertions.
 """
@@ -43,6 +43,19 @@ class BoundaryConstraints:
     @property
     def count(self) -> int:
         return len(self.polys)
+
+    def evaluate_at(self, p_values: List[int], x: int, z_invs: List[int]) -> List[int]:
+        """z_invs: Z_b(x)^-1 per register (insertion order), which the
+        verifier batches across query positions (`z_dens_at`)."""
+        f = self.field.host
+        return [f.mul(f.sub(p_values[register], f.eval_poly_at(c["i_poly"], x)), z_invs[b])
+                for b, (register, c) in enumerate(self.polys.items())]
+
+    def z_dens_at(self, x: int) -> List[int]:
+        """Z_b(x) denominators per register (insertion order), for batched
+        inversion by the verifier."""
+        f = self.field.host
+        return [f.eval_poly_at(c["z_poly"], x) for c in self.polys.values()]
 
     def i_polys_std(self) -> np.ndarray:
         """Interpolant coefficients as standard-form limbs u32 [B, L, T_pad]

@@ -1,8 +1,10 @@
 """Fold-by-4 FRI: the prover's device fold and host checks.
 
 Counterpart of ``genstark_tpu/protocol/fri.py``: `fold_traced` (:326-378)
-on torch, `get_augmented_positions` (:50) and the remainder degree check of
-`LowDegreeProver.verify_remainder` (:275).  The proof dataclasses are in
+on torch, `get_augmented_positions` (:50), the remainder degree check of
+`LowDegreeProver.verify_remainder` (:275) and the host verifier of
+`LowDegreeProver` (`verify` :152-231, `_check_quartics` :232 and the value
+parsers :295-315) as `LowDegreeVerifier`.  The proof dataclasses are in
 protocol/proof.py.
 
 The fold needs no quartic interpolation: for a row with xs = {x, qx, -x,
@@ -18,6 +20,8 @@ from __future__ import annotations
 from typing import List
 
 import torch
+
+from ..merkle import BatchMerkleProof, MerkleTree
 
 MAX_REMAINDER_LENGTH = 256
 
@@ -87,3 +91,146 @@ def verify_remainder(field, extension_factor: int, remainder: List[int],
         if f.eval_poly_at(poly, domain[p]) != remainder[p]:
             raise StarkError(
                 f"Remainder is not a valid degree {max_degree_plus1 - 1} polynomial")
+
+
+def rehashed(proof: BatchMerkleProof, hash_) -> BatchMerkleProof:
+    """The proof with its raw leaf bytes replaced by their digests."""
+    return BatchMerkleProof(values=[hash_.digest(v) for v in proof.values],
+                            nodes=proof.nodes, depth=proof.depth)
+
+
+class LowDegreeVerifier:
+    """The host verifier of a fold-by-4 FRI proof (raises StarkError)."""
+
+    def __init__(self, idx_generator, hash_, context):
+        self.field = context.field
+        self.context = context
+        self.hash = hash_
+        self.idx_generator = idx_generator
+
+    def verify(self, proof, lc_values: List[int], exe_positions: List[int],
+               max_degree_plus1: int) -> bool:
+        field = self.field
+        f = field.host
+        hash_ = self.hash
+        root_of_unity = self.context.root_of_unity
+        column_length = self.context.evaluation_domain_size
+
+        quartic_roots = [1,
+                         f.exp(root_of_unity, column_length // 4),
+                         f.exp(root_of_unity, column_length // 2),
+                         f.exp(root_of_unity, column_length * 3 // 4)]
+
+        # 1 ----- linear combination correctness
+        lc_positions = get_augmented_positions(exe_positions, column_length)
+        lc_checks = self._parse_column_values(proof.lc_proof.values, exe_positions,
+                                              lc_positions, column_length)
+        if not MerkleTree.verify_batch(proof.lc_root, lc_positions,
+                                       rehashed(proof.lc_proof, hash_), hash_):
+            raise StarkError("Verification of linear combination Merkle proof failed")
+        for got, want in zip(lc_values, lc_checks):
+            if got != want:
+                raise StarkError("Verification of linear combination correctness failed")
+
+        # 2 ----- recursive components
+        p_root = proof.lc_root
+        column_length //= 4
+        for depth, component in enumerate(proof.components):
+            positions = self.idx_generator.get_fri_indexes(component.column_root,
+                                                           column_length)
+            augmented = get_augmented_positions(positions, column_length)
+
+            column_values = self._parse_column_values(component.column_proof.values,
+                                                      positions, augmented,
+                                                      column_length)
+            if not MerkleTree.verify_batch(component.column_root, augmented,
+                                           rehashed(component.column_proof, hash_),
+                                           hash_):
+                raise StarkError(f"Verification of column Merkle proof failed at depth {depth}")
+
+            poly_values = self._parse_poly_values(component.poly_proof.values)
+            if not MerkleTree.verify_batch(p_root, positions,
+                                           rehashed(component.poly_proof, hash_), hash_):
+                raise StarkError(f"Verification of polynomial Merkle proof failed at depth {depth}")
+
+            special_x = field.prng(p_root)
+            self._check_quartics(f, root_of_unity, quartic_roots, positions,
+                                 poly_values, column_values, special_x, depth)
+
+            p_root = component.column_root
+            root_of_unity = f.exp(root_of_unity, 4)
+            max_degree_plus1 //= 4
+            column_length //= 4
+
+        # 3 ----- remainder
+        if max_degree_plus1 > len(proof.remainder):
+            raise StarkError("Remainder degree is greater than number of remainder values")
+        # re-commit the remainder and compare to the last layer root
+        m = len(proof.remainder) // 4
+        elem = field.element_size
+        row_buffers = [b"".join(int(proof.remainder[r + j * m]).to_bytes(
+            elem, "little") for j in range(4)) for r in range(m)]
+        c_tree = MerkleTree.create_from_bytes([hash_.digest(b) for b in row_buffers], hash_)
+        if c_tree.root != p_root:
+            raise StarkError("Remainder values do not match Merkle root of the last column")
+
+        verify_remainder(field, self.idx_generator.extension_factor, proof.remainder,
+                         max_degree_plus1, root_of_unity)
+        return True
+
+    @staticmethod
+    def _check_quartics(f, w, quartic_roots, positions, poly_values,
+                        column_values, special_x, depth) -> None:
+        """The per-query degree-4 check in closed form: the interpolation
+        points are the 4 roots of x^4 = xe^4, so with N(x) = x^4 - xe^4 and
+        N'(x_j) = 4 x_j^3,  P(x*) = N(x*) * sum_j y_j / (4 x_j^3 (x* - x_j)).
+        All denominators of a layer invert in one batch."""
+        p = f.p
+        c4 = [4 * pow(r, 3, p) % p for r in quartic_roots]
+        sx4 = pow(special_x, 4, p)
+        dens: List[int] = []
+        rows = []
+        for position in positions:
+            xe = f.exp(w, position)
+            xe3 = xe * xe % p * xe % p
+            nx = (sx4 - xe3 * xe) % p                     # N(x*) = x*^4 - xe^4
+            for j, r in enumerate(quartic_roots):
+                dens.append(c4[j] * xe3 % p * ((special_x - r * xe) % p) % p)
+            rows.append(nx)
+        try:
+            invs = f.batch_inv(dens)
+        except ZeroDivisionError:
+            # special_x collided with an interpolation point: generic fallback
+            for i, position in enumerate(positions):
+                xe = f.exp(w, position)
+                xs = [f.mul(qr, xe) for qr in quartic_roots]
+                poly = f.interpolate(xs, poly_values[i])
+                if f.eval_poly_at(poly, special_x) != column_values[i]:
+                    raise StarkError(
+                        f"Degree 4 polynomial didn't evaluate to column value at depth {depth}")
+            return
+        for i in range(len(positions)):
+            acc = 0
+            for j in range(4):
+                acc = (acc + poly_values[i][j] * invs[4 * i + j]) % p
+            if rows[i] * acc % p != column_values[i]:
+                raise StarkError(
+                    f"Degree 4 polynomial didn't evaluate to column value at depth {depth}")
+
+    def _parse_poly_values(self, buffers: List[bytes]) -> List[List[int]]:
+        elem = self.field.element_size
+        return [[int.from_bytes(buf[i * elem:(i + 1) * elem], "little") for i in range(4)]
+                for buf in buffers]
+
+    def _parse_column_values(self, buffers: List[bytes], positions: List[int],
+                             augmented_positions: List[int],
+                             column_length: int) -> List[int]:
+        row_length = column_length // 4
+        elem = self.field.element_size
+        out = []
+        for position in positions:
+            idx = augmented_positions.index(position % row_length)
+            buf = buffers[idx]
+            offset = (position // row_length) * elem
+            out.append(int.from_bytes(buf[offset:offset + elem], "little"))
+        return out

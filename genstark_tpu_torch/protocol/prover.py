@@ -44,7 +44,7 @@ from torch.profiler import record_function
 from ..field.limbs import ints_to_limbs, limbs_to_ints, power_series_mont_np
 from ..merkle import assemble_batch, build_tree_flat, level_offset, plan_batch, tree_row_count
 from ..ntt import make_plan, transform
-from .composition import CompositionPolynomial
+from .composition import CompositionPolynomial, transcript_coefficients
 from .fri import MAX_REMAINDER_LENGTH, fold, get_augmented_positions, verify_remainder
 from .lincomb import LinearCombination
 from .lincomb_kernel import lcomb_tail
@@ -71,12 +71,14 @@ class Prover:
     _factor_threshold = 4096
 
     def __init__(self, stark, context, assertions, dev):
-        self.stark = stark
+        # no reference to `stark`: the Stark caches its provers, and a cycle
+        # would keep a dropped Stark's device tables until the cyclic collector
+        self.index_generator = stark.index_generator
         self.context = context
         self.field = context.field
         self.dev = dev
         self.hash = stark.hash
-        self.c_poly = CompositionPolynomial(assertions, context)
+        self.c_poly = CompositionPolynomial(assertions, None, context)
         self.l_comb = LinearCombination(self.c_poly.composition_degree, context)
         Ne = context.evaluation_domain_size
         self.Ne = Ne
@@ -215,12 +217,11 @@ class Prover:
         L = self.dev.L
         V = self.context.schema.trace_width + len(self.secret_idx)
         n_ps = V * (2 if self.l_comb.ps_incremental_degree > 0 else 1)
-        stream = self.field.prng(e_root, self.c_poly.coefficient_count + n_ps)
-        dc = self.c_poly.d_coefficient_count
-        bc = self.c_poly.b_coefficient_count
+        d, b, l = transcript_coefficients(
+            self.field, e_root,
+            (self.c_poly.d_coefficient_count, self.c_poly.b_coefficient_count, n_ps))
         up = lambda ints: self.dev.from_numpy(ints_to_limbs(ints, L))
-        return (up(stream[:dc]), up(stream[dc:dc + bc]),
-                up([v * R % p for v in stream[dc + bc:]]))
+        return up(d), up(b), up([v * R % p for v in l])
 
     def _stage_lcomb(self, p_polys, static_polys, e_std, e_root: bytes) -> torch.Tensor:
         """Composition polynomial + random linear combination -> L(x)
@@ -316,9 +317,8 @@ class Prover:
         """Host transcript + batch-proof planning: positions, per-tree plans
         and the gather indices (the JAX package's `_host_plans`, against the
         port's flat tree layout)."""
-        stark = self.stark
         Ne = self.Ne
-        idx_gen = stark.index_generator
+        idx_gen = self.index_generator
         layer_roots = root_bytes[1:]                            # lc + columns
         lc_root = layer_roots[0]
         exe_positions = idx_gen.get_exe_indexes(lc_root, Ne)
@@ -334,7 +334,7 @@ class Prover:
             plans.append((tree_index, positions, depth, emissions, coords))
             return len(plans) - 1
 
-        augmented_positions = stark.get_augmented_positions(exe_positions, Ne)
+        augmented_positions = idx_gen.get_augmented_positions(exe_positions, Ne)
         e_plan = plan(0, augmented_positions)
         lc_aug = get_augmented_positions(exe_positions, Ne)
         lc_plan = plan(1, lc_aug)

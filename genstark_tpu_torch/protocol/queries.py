@@ -64,3 +64,13 @@ class QueryIndexGenerator:
     def get_fri_indexes(self, seed: bytes, column_length: int) -> List[int]:
         return get_pseudorandom_indexes(seed, self.fri_query_count, column_length,
                                         self.extension_factor)
+
+    def get_augmented_positions(self, positions: List[int], domain_size: int) -> List[int]:
+        """Evaluation spot checks: pos and (pos + ext) mod N, insertion-ordered
+        dedup (the JAX package's `Stark._get_augmented_positions`)."""
+        skip = self.extension_factor
+        out = dict()
+        for p in positions:
+            out[p] = True
+            out[(p + skip) % domain_size] = True
+        return list(out.keys())

@@ -1,7 +1,8 @@
 """Transition vanishing polynomial Z(x) = (x^T - 1)/(x - x_last).
 
-Counterpart of ``genstark_tpu/protocol/zeropoly.py`` (constructor and the
-periodic inverse numerator the prover's tail uses).
+Counterpart of ``genstark_tpu/protocol/zeropoly.py`` (constructor, the
+verifier's point evaluation `evaluate_at` as `inverse_at` on a batched
+inverse, and the periodic inverse numerator the prover's tail uses).
 """
 
 from __future__ import annotations
@@ -17,6 +18,12 @@ class ZeroPolynomial:
         ext = context.extension_factor
         self.trace_length = T
         self.x_at_last_step = self.field.exp(context.root_of_unity, (T - 1) * ext)
+
+    def inverse_at(self, x: int, numerator_inv: int) -> int:
+        """1/Z(x) = (x - x_last) / (x^T - 1) from 1/(x^T - 1), which the
+        verifier batches across query positions."""
+        f = self.field.host
+        return f.mul(f.sub(x, self.x_at_last_step), numerator_inv)
 
     def inverse_numerators(self) -> List[int]:
         """1/(x^T - 1) over one period of the evaluation domain, as

@@ -1,6 +1,8 @@
-"""Shared utilities of the port: a timed logger and the security arithmetic.
+"""Shared utilities of the port: a timed logger, the security arithmetic
+and the AirScript literal inliners.
 
-Counterpart of ``genstark_tpu/utils/__init__.py`` (`Logger`, `pow_log2`).
+Counterpart of ``genstark_tpu/utils/__init__.py`` (`Logger`, `pow_log2`,
+`inline_vector`, `inline_matrix`).
 """
 
 from __future__ import annotations
@@ -37,3 +39,15 @@ def pow_log2(base: float, exponent: int) -> float:
         twos += 1
         exponent //= 2
     return (2 ** twos) * math.log2(base ** exponent)
+
+
+def inline_vector(values) -> str:
+    """Render ints as an AirScript vector literal (the reference's
+    `inline.vector`)."""
+    return "[" + ", ".join(str(int(v)) for v in values) + "]"
+
+
+def inline_matrix(rows) -> str:
+    """Render ints as an AirScript matrix literal (the reference's
+    `inline.matrix`)."""
+    return "[" + ", ".join(inline_vector(r) for r in rows) + "]"

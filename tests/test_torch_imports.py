@@ -1,7 +1,8 @@
 """The port stands alone: no file under genstark_tpu_torch/ (nor
-chip_smoke.py or examples/mimc_torch.py) imports jax or genstark_tpu."""
+chip_smoke.py or an examples/*_torch.py) imports jax or genstark_tpu."""
 
 import ast
+import glob
 import os
 
 import pytest
@@ -11,7 +12,8 @@ FORBIDDEN = ("jax", "jaxlib", "genstark_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "examples", "mimc_torch.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += glob.glob(os.path.join(ROOT, "examples", "*_torch.py"))
     for dirpath, _, names in os.walk(os.path.join(ROOT, "genstark_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(files)
