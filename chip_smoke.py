@@ -9,8 +9,11 @@ the reference's Rescue and Poseidon Merkle-proof configurations at depth 16
 and the lib224-import Merkle proof, each compiled from its AirScript source,
 and its elliptic-curve point multiplication, compiled from AirAssembly, each
 with its trace from the native generator; parses, re-serializes and verifies
-every proof it makes with the port's verifier; and prints one JSON line per
-contract at the end.
+every proof it makes with the port's verifier; counts the synchronizing
+calls of one warm prove on every path (one, the proof's fetch, after the
+prove's first kernel) and requires every proof to come out of the
+device-sampled one-fetch path; and prints one JSON line per contract at the
+end.
 
     python3 chip_smoke.py
 
@@ -83,14 +86,19 @@ POINTMUL_PIN = (80901, "1ae96e3fba29bbd5bbe889726d0f68e73a6885a004e7478788c7d5cc
 
 # Kernels each main path must launch.
 BENCH_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
-                 "outer_table")
+                 "outer_table", "sample_queries")
 MIMC256_KERNELS = ("hash_words", "hash_limbs", "lcomb_tail", "field_ew", "outer_table",
-                   "butterfly")
+                   "butterfly", "sample_queries")
 LARGE_KERNELS = ("bfly_stage", "bfly_stage_split", "butterfly", "field_ew", "outer_table",
-                 "hash_words", "hash_limbs", "lcomb_tail")
+                 "hash_words", "hash_limbs", "lcomb_tail", "sample_queries")
 PROBE_KERNELS = ("mont_chain", "u32_chain")
-MERKLE_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew")
-P224_KERNELS = ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew")
+MERKLE_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
+                  "sample_queries")
+P224_KERNELS = ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
+                "sample_queries")
+# the division AIR's constraint divides by a register: its proves run inv,
+# whose total is inverted by kernel A
+DIV_KERNELS = ("dft_level", "hash_words", "field_ew", "sample_queries", "mont_pow")
 
 # The card's memory rate for the bytes bound, and its dense int8
 # tensor-core rate (one multiply-add is 2 ops) for kernel 1's digit
@@ -99,6 +107,10 @@ MEM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 # u32 ops per blake2s compression: 10 rounds of 8 G functions of 14 ops.
 BLAKE2S_BLOCK_OPS = 10 * 8 * 14
+# u32 ops per SHA-256 compression: 64 rounds of 24 (Sigma1 5, Ch 3, T1 4
+# adds, Sigma0 5, Maj 5, 2 adds), 48 schedule words of 13 (sigma0 5, sigma1
+# 5, 3 adds), 8 final adds.
+SHA256_BLOCK_OPS = 64 * 24 + 48 * 13 + 8
 
 
 class SmokeFailure(Exception):
@@ -850,6 +862,188 @@ def check_probes(device, fields, rng, results):
     print(f"u32_chain n={n}: max_abs_err={e} kernel {km:.4f} ms plain {pm:.4f} ms", flush=True)
 
 
+def check_mont_pow(kernels, device, fields, rng, results):
+    """Kernel A against mont_pow_ref, bit for bit, at every L, e = p - 2:
+    1000 elements with zero among them in one launch, and inv's [L, 1]
+    total alone (against the first column of the same plain result); at L
+    = 16 also a 256-bit exponent.  The reported time is one P256 element
+    (inv's launch)."""
+    import torch
+    r = results["mont_pow"]
+    for field in fields:
+        dev = field.device_field(device)
+        p, L = field.modulus, dev.L
+        x = dev.from_numpy(random_elements(rng, p, L, 1000))
+        x[:, 500] = 0
+        want = dev.mont_pow_ref(x, p - 2)
+        err = max(max_abs_err(kernels.mont_pow(dev, x, p - 2), want),
+                  max_abs_err(kernels.mont_pow(dev, x[:, :1], p - 2), want[:, :1]))
+        require(not want[:, 500].any(), "mont_pow_ref: 0^(p-2) != 0")
+        timing = ""
+        if L == 16:
+            e = (1 << 256) - 1
+            err = max(err, max_abs_err(kernels.mont_pow(dev, x[:, :8], e),
+                                       dev.mont_pow_ref(x[:, :8], e)))
+            one = x[:, :1].contiguous()
+            km = cuda_ms(lambda: kernels.mont_pow(dev, one, p - 2))
+            t0 = time.monotonic()
+            dev.mont_pow_ref(one, p - 2)
+            torch.cuda.synchronize()
+            pm = (time.monotonic() - t0) * 1e3
+            # the ladder's products: a square a bit below the top, a multiply
+            # a set bit below it
+            products = (p - 2).bit_length() - 1 + bin(p - 2).count("1") - 1
+            r.update(ms=km, plain_ms=pm, bytes=2 * 4 * L, work=[(("mont_w", L), products)],
+                     device_ms=device_ms(lambda: kernels.mont_pow(dev, one, p - 2)))
+            timing = (f"; one element ({products} products): kernel {km:.4f} ms "
+                      f"(device {fmt_ms(r['device_ms'])}) plain {pm:.4f} ms (one call)")
+        print(f"mont_pow p{p.bit_length()} L={L} ([L, 1000] with a zero and [L, 1], e = p - 2"
+              f"{'; 8 elements, e = 2^256 - 1' if L == 16 else ''}): max_abs_err={err}{timing}",
+              flush=True)
+        require(err == 0, f"mont_pow kernel != plain version at L = {L}")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+
+def candidates_needed(seed: bytes, count: int, max_: int, excl: int) -> int:
+    """Candidates the host sampler (protocol/queries.py) hashes before its
+    set is complete: the work this seed's set needs."""
+    from genstark_tpu_torch.protocol.queries import _sha256_int
+    state, taken, i = _sha256_int(seed), set(), 0
+    while len(taken) < count:
+        index = _sha256_int(state + i) % max_
+        if not (excl and index % excl == 0):
+            taken.add(index)
+        i += 1
+    return i
+
+
+def check_sample_queries(kernels, device, rng, results):
+    """Kernel B against sample_sets_ref, bit for bit: the bench's six sets
+    (48 execution positions over 2^17 excluding multiples of 16, 24 a FRI
+    layer over 2^15 .. 2^7) and a set over 2^32 (indexes above 2^31: the
+    int64 case), from seeded roots; the positions also against the host
+    sampler.  The reported time is the bench's sets in one launch; its
+    bound counts the SHA-256 compressions these seeds need (the state and
+    each candidate up to the set's last), and the bytes in and out."""
+    import numpy as np
+    import torch
+    from genstark_tpu_torch.protocol import device_queries as dq
+    from genstark_tpu_torch.protocol.queries import get_pseudorandom_indexes
+    n_cand = lambda c: 32 * c + 512
+    bench = [(48, 2 ** 17, 16, n_cand(48))] + [(24, 2 ** k, 16, n_cand(24))
+                                                for k in (15, 13, 11, 9, 7)]
+    r = results["sample_queries"]
+    for label, specs in (("bench", bench), ("max 2^32", [(24, 2 ** 32, 16, n_cand(24))])):
+        roots_np = rng.integers(-2 ** 31, 2 ** 31, size=(len(specs), 8),
+                                dtype=np.int64).astype(np.int32)
+        roots = torch.as_tensor(roots_np, device=device)
+        idx, found = kernels.sample_queries(roots, specs)
+        want_idx, want_found = dq.sample_sets_ref(roots, specs)
+        err = max(max_abs_err(idx, want_idx), max_abs_err(found, want_found))
+        seeds = [roots_np[k].view("<u4").tobytes() for k in range(len(specs))]
+        host = all(idx[k, :c].tolist() == get_pseudorandom_indexes(seeds[k], c, m, x)
+                   for k, (c, m, x, _) in enumerate(specs))
+        timing = ""
+        if label == "bench":
+            km = cuda_ms(lambda: kernels.sample_queries(roots, specs))
+            pm = cuda_ms(lambda: dq.sample_sets_ref(roots, specs), reps=2)
+            needed = sum(1 + candidates_needed(seeds[k], c, m, x)
+                         for k, (c, m, x, _) in enumerate(specs))
+            r.update(ms=km, plain_ms=pm, bytes=len(specs) * (32 + 4) + idx.numel() * 8,
+                     work=[("u32", needed * SHA256_BLOCK_OPS)],
+                     device_ms=device_ms(lambda: kernels.sample_queries(roots, specs)))
+            timing = (f" ({needed} compressions needed): kernel {km:.4f} ms (device "
+                      f"{fmt_ms(r['device_ms'])}) plain {pm:.4f} ms")
+        else:
+            require(bool((idx >= 2 ** 31).any()), "no index above 2^31 over max_ = 2^32")
+        print(f"sample_queries {label} sets {[(c, m) for c, m, _, _ in specs]}: "
+              f"max_abs_err={err}, host sampler {'equal' if host else 'DIFFERS'}{timing}",
+              flush=True)
+        require(err == 0 and host, f"sample_queries kernel != plain version ({label})")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+
+# The runtime's synchronizing calls, whose host time is the wait.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy", "cudaMemcpyAsync")
+
+
+def count_syncs(kernels, fn) -> dict:
+    """The synchronizing calls of one call of fn() (a warm prove): torch's
+    sync debug mode reports each one ("warn"; each warning recorded with
+    its site in the port and the port kernel launches made before it:
+    `after_first_kernel` counts those made after the call's first port
+    kernel); then torch.profiler over a second call gives the host ms spent
+    in the runtime's synchronizing calls (`host_wait_ms`, None where the
+    profiler records none)."""
+    import traceback
+    import warnings
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    launched = lambda: sum(kernels.launch_counts.values())
+    torch.cuda.synchronize()
+    start, records = launched(), []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # a sync's warning, not torch's one-time notice that the mode is a
+        # prototype (which speaks of "synchronizing operations" too)
+        text = str(message)
+        if "synchroniz" in text and "prototype" not in text:
+            # the innermost frame of the port (torch names its C++ source)
+            frames = [f for f in traceback.extract_stack() if "genstark_tpu_torch" in f.filename]
+            site = (f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno} "
+                    f"{frames[-1].name}" if frames else f"{filename}:{lineno}")
+            records.append((launched() - start, site))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    waits = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in SYNC_CALLS:
+            us, n = waits.get(e.name, (0.0, 0))
+            waits[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    sites = {}
+    for _, site in records:
+        sites[site] = sites.get(site, 0) + 1
+    return {"syncs": len(records), "after_first_kernel": sum(n > 0 for n, _ in records),
+            "sites": sites,
+            "host_wait_ms": sum(us for us, _ in waits.values()) / 1e3 if waits else None,
+            "wait_calls": {k: [round(us / 1e3, 4), n] for k, (us, n) in waits.items()}}
+
+
+def host_fallbacks(stark):
+    """Proves of this Stark that took the host-sampled path (None for a
+    prover without a device sampler)."""
+    counts = [getattr(p, "host_fallbacks", None) for p in stark._provers.values()]
+    return None if None in counts else sum(counts)
+
+
+def check_one_fetch(kernels, stark, prove, label: str, sync_log: dict) -> None:
+    """One warm prove synchronizes once after its first kernel (the
+    proof's fetch), and no prove of the path fell back to the host
+    sampler."""
+    syncs = count_syncs(kernels, prove)
+    fallbacks = host_fallbacks(stark)
+    sync_log[label] = dict(syncs, host_fallbacks=fallbacks)
+    print(f"{label} synchronizing calls in one warm prove: {syncs['syncs']} "
+          f"({syncs['after_first_kernel']} after its first kernel); host wait "
+          f"{fmt_ms(syncs['host_wait_ms'])} in {syncs['wait_calls']}; sites {syncs['sites']}; "
+          f"host_fallbacks {fallbacks}", flush=True)
+    require(syncs["after_first_kernel"] == 1,
+            f"{label}: {syncs['after_first_kernel']} synchronizing calls after the first kernel")
+    require(fallbacks == 0, f"{label}: {fallbacks} proves took the host-sampled path")
+
+
 def measure_rates(kernels, device, fields) -> dict:
     """The probe path: Montgomery products per second at every L (slope
     between depths 16 and 64 over 2^21 elements) and u32 ops per second,
@@ -1267,14 +1461,16 @@ def require_native(stark, label: str) -> float:
 
 
 def run_main_path(kernels, stark, assertions, inputs, pin, required, label: str,
-                  spread: int = 20, public=None):
+                  sync_log: dict, spread: int = 20, public=None):
     """One main path: a warm-up prove (with the g++ build of the schema's
     trace generator); the launch counts set to 0, one prove checked against
     its pin (where there is one), the counts and the peak device memory
     read; the proof parsed, re-serialized and verified (verify_ms best of 5);
     best of 5 and the spread of `spread` proves with each prove's native
-    trace seconds; one profiled prove.  Returns (launches, proof bytes, the
-    profile's port kernel totals)."""
+    trace seconds; the synchronizing calls of one warm prove and the
+    host-sampled fallbacks (`check_one_fetch`, into sync_log); one profiled
+    prove.  Returns (launches, proof bytes, the profile's port kernel
+    totals)."""
     import torch
     from genstark_tpu_torch.native import tracegen
     built = dict(tracegen.build_seconds)
@@ -1316,6 +1512,7 @@ def run_main_path(kernels, stark, assertions, inputs, pin, required, label: str,
     print(f"{label} native trace seconds: best-of-5 {min(traces[:5]):.6f}, median "
           f"{sorted(traces)[len(traces) // 2]:.6f} over {len(traces)} proves", flush=True)
     print(f"{label} prove seconds: {[round(t, 6) for t in times]}", flush=True)
+    check_one_fetch(kernels, stark, lambda: stark.prove(assertions, inputs), label, sync_log)
     phase(f"{label}: where the time goes (torch.profiler, one prove)")
     return launches, data, profile_prove(stark, assertions, inputs)
 
@@ -1342,10 +1539,11 @@ def four_step_proof(device, steps: int) -> bytes:
     return data
 
 
-def run_largest(kernels, device, steps: int, label: str) -> dict:
+def run_largest(kernels, device, steps: int, label: str, sync_log: dict) -> dict:
     """MiMC-256 at `steps` steps: a warm-up, then three proves (launch
     counts of the first, best of 3, peak memory); the three proofs must be
-    identical.  Returns the launches of one prove."""
+    identical; then `check_one_fetch`.  Returns the launches of one
+    prove."""
     import torch
     from mimc_torch import make_mimc_stark
     from genstark_tpu_torch.field import P256
@@ -1381,6 +1579,7 @@ def run_largest(kernels, device, steps: int, label: str) -> dict:
     verify_proof(stark, assertions, datas[0], None, label, reps=1)
     missing = [k for k in LARGE_KERNELS if launches[k] == 0]
     require(not missing, f"{label}: kernels of the path never launched: {missing}")
+    check_one_fetch(kernels, stark, lambda: stark.prove(assertions, [[3]]), label, sync_log)
     return launches
 
 
@@ -1440,6 +1639,10 @@ def main() -> int:
         "bfly_stage_split": (src + "butterfly_stage.cu", tpu + "ntt/pallas_kernels.py:308"),
         "mont_chain": (src + "probes.cu", "scripts/roofline.py:78"),
         "u32_chain": (src + "probes.cu", "scripts/vpu_bound.py:24"),
+        # the port's kernels without a Pallas row: the JAX functions they
+        # replace run in XLA
+        "mont_pow": (src + "field_ops.cu", tpu + "field/device.py:329"),
+        "sample_queries": (src + "queries.cu", tpu + "protocol/device_queries.py:53"),
     }
     results = {k: {"max_abs_err": 0, "ms": None, "plain_ms": None} for k in meta}
     rng = np.random.default_rng(2024)
@@ -1465,6 +1668,8 @@ def main() -> int:
     check_hash_limbs_forms(device, all_fields, results)
     check_merkle_shapes(device, rng, results)
     check_probes(device, all_fields, rng, results)
+    check_mont_pow(kernels, device, all_fields, rng, results)
+    check_sample_queries(kernels, device, rng, results)
     torch.cuda.synchronize()
 
     phase("DeviceField.inv on the card against inv_ref (kernel 5)")
@@ -1500,9 +1705,16 @@ def main() -> int:
         verify_proof(stark, assertions, data, None, f"p{modulus.bit_length()} pin")
     kernels.reset_launch_counts()
     div_stark, data = prove_div(64, device)
-    div_products = kernels.launch_counts["field_ew"]
+    div_launches = dict(kernels.launch_counts)
+    div_products = div_launches["field_ew"]
+    missing = [k for k in DIV_KERNELS if div_launches[k] == 0]
+    require(not missing, f"division AIR: kernels of the path never launched: {missing}")
     require_native(div_stark, "division AIR")
-    verify_proof(div_stark, toy_assertions(div_stark, 16), data, None, "division AIR")
+    div_assertions = toy_assertions(div_stark, 16)
+    verify_proof(div_stark, div_assertions, data, None, "division AIR")
+    sync_log = {}
+    check_one_fetch(kernels, div_stark, lambda: div_stark.prove(div_assertions, [], [3]),
+                    "division AIR", sync_log)
     kernels.reset_launch_counts()
     _, plain = prove_mimc(64, device, modulus=P128, use_input=False, constant_count=16,
                           options=TOY)
@@ -1529,11 +1741,12 @@ def main() -> int:
 
     phase(f"bench config: MiMC-128, {BENCH_STEPS} steps, secret input 3")
     bench_launches, _, bench_totals = run_main_path(
-        kernels, *mimc_path(BENCH_STEPS), BENCH_PIN, BENCH_KERNELS, "bench")
+        kernels, *mimc_path(BENCH_STEPS), BENCH_PIN, BENCH_KERNELS, "bench", sync_log)
 
     phase(f"MiMC-256: P256, {BENCH_STEPS} steps, secret input 3 (radix-2 path)")
     mimc256_launches, _, mimc256_totals = run_main_path(
-        kernels, *mimc_path(BENCH_STEPS, P256), MIMC256_PIN, MIMC256_KERNELS, "mimc256")
+        kernels, *mimc_path(BENCH_STEPS, P256), MIMC256_PIN, MIMC256_KERNELS, "mimc256",
+        sync_log)
 
     phase("the reference's Merkle-proof configurations (compiled from AirScript) and "
           "point multiplication (AirAssembly)")
@@ -1552,13 +1765,13 @@ def main() -> int:
               f"{stark.air.secret_input_count} secret inputs, "
               f"{assertions[0].step + 1} steps, ext {stark.air.extension_factor}", flush=True)
         launches_, _, _ = run_main_path(kernels, stark, assertions, inputs, pin, required,
-                                        label, spread=5, public=public)
+                                        label, sync_log, spread=5, public=public)
         merkle_launches.append(launches_)
 
     phase(f"MiMC-256: P256, {LARGE_STEPS} steps (Ne = {16 * LARGE_STEPS}: direct route)")
     large_launches, large_data, large_totals = run_main_path(
         kernels, *mimc_path(LARGE_STEPS, P256), LARGE_PIN, LARGE_KERNELS, "mimc256-2^18",
-        spread=10)
+        sync_log, spread=10)
     torch.cuda.empty_cache()
     print(json.dumps({"path_kernel_totals": {
         label: {short: [us / 1e3, n] for short, (us, n) in totals.items()
@@ -1572,7 +1785,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase(f"MiMC-256: P256, {LARGEST_STEPS} steps (Ne = {16 * LARGEST_STEPS})")
-    largest_launches = run_largest(kernels, device, LARGEST_STEPS, "mimc256-2^20")
+    largest_launches = run_largest(kernels, device, LARGEST_STEPS, "mimc256-2^20", sync_log)
+    print(json.dumps({"syncs": sync_log}), flush=True)
 
     from genstark_tpu_torch.native import tracegen
     print(f"g++ builds of the native trace generators: {len(tracegen.build_seconds)}, "
@@ -1580,7 +1794,7 @@ def main() -> int:
           f"({ {k: round(v, 3) for k, v in tracegen.build_seconds.items()} })", flush=True)
     launches = {k: bench_launches[k] + mimc256_launches[k] + large_launches[k]
                 + largest_launches[k] + sum(m[k] for m in merkle_launches)
-                + rates["launches"].get(k, 0) for k in meta}
+                + div_launches[k] + rates["launches"].get(k, 0) for k in meta}
     line = []
     for name in meta:
         r = results[name]

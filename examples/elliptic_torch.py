@@ -4,7 +4,8 @@ with pointmul.aa) with the same source, options and oracle, importing only
 genstark_tpu_torch: double-and-add over secp224r1's base field (p = 2^224 -
 2^96 + 1), 8 registers x 256 steps, the scalar fed LSB-first as a rank-2 bit
 input.  The AirAssembly source is the port's generated stdlib
-(`pointmul_source`); its constraints divide by registers.
+(`pointmul_source`); its transition divides by registers (host work, in
+the trace), its constraints do not (so a prove runs no `inv`).
 
 The oracle is plain affine secp224r1 arithmetic (a = -3), which reproduces
 the coordinates the reference hard-codes (pointMul.ts:30-33).

@@ -1,4 +1,5 @@
-// Kernels 5 and 6: elementwise field ops and the factored power table.
+// Kernels 5 and 6: elementwise field ops and the factored power table;
+// kernel A: a power of each element (the Fermat inverse of `inv`'s total).
 //
 // Kernel 5 (`field_ew`) replaces the TPU kernel genstark_tpu/field/pallas_ops.py
 // `_ew_call` (:34, pallas_call :57): Montgomery mul, modular add and sub over
@@ -27,9 +28,9 @@
 // batch against a broadcast constant all launch as they are, with no copy.
 // Threads run along the flattened output, so the common case (one
 // coalesced dim, unit stride) is a contiguous load per limb across a warp.
-// Kernel 6's design is at its kernel below.  None of the TPU's tiling rules
-// (2048-lane tiles, the 2^16-element minimum, L >= 8 sublanes, 256 <= s <=
-// 8192) applies.
+// The designs of kernels 6 and A are at their kernels below.  None of the
+// TPU's tiling rules (2048-lane tiles, the 2^16-element minimum, L >= 8
+// sublanes, 256 <= s <= 8192) applies.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -161,6 +162,49 @@ cudaError_t launch_outer(const int32_t* outer, int nj, const int32_t* inner, int
   return cudaGetLastError();
 }
 
+// Kernel A: out = a^e for each element of a Montgomery-form [L, n] array,
+// the Fermat ladder of the JAX package's `_fermat_inv_single`
+// (genstark_tpu/field/device.py:329, which XLA computes: no Pallas kernel),
+// on the word product.  Plain version: field/device.py mont_pow_ref.
+// DeviceField.inv raises its total product to p - 2 with one launch of one
+// element, so no inverse leaves the card.  What bounds it: nothing of the
+// card's rates; one thread runs ~1.5 log2(e) dependent products, so its time
+// is that chain's latency (a few microseconds at p256).  Design: one thread
+// an element, the exponent's words by value, from the top bit down: square,
+// then multiply where the bit is set.
+constexpr int kMaxExpWords = 8;
+
+struct PowArgs {
+  uint32_t e[kMaxExpWords];   // exponent, little-endian words
+  int nbits;                  // bit length of e (>= 1)
+};
+
+template <int K>
+__global__ void __launch_bounds__(128)
+mont_pow_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, long long n,
+                PowArgs pa, FieldW f) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[K], r[K];
+  load_elem_w<K>(a, n, i, x);
+#pragma unroll
+  for (int w = 0; w < K; ++w) r[w] = x[w];
+  for (int bit = pa.nbits - 2; bit >= 0; --bit) {
+    mont_mul_w<K>(r, r, f, r);
+    if ((pa.e[bit >> 5] >> (bit & 31)) & 1u) mont_mul_w<K>(r, x, f, r);
+  }
+  store_elem_w<K>(out, n, i, r);
+}
+
+template <int K>
+cudaError_t launch_pow(const int32_t* a, int32_t* out, long long n, const PowArgs& pa,
+                       const FieldW& f, cudaStream_t st) {
+  const long long blocks = (n + 127) / 128;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  mont_pow_kernel<K><<<static_cast<unsigned>(blocks), 128, 0, st>>>(a, out, n, pa, f);
+  return cudaGetLastError();
+}
+
 }  // namespace gs
 
 // op: 0 mul, 1 add, 2 sub.  a_str / b_str: limb stride then nd batch
@@ -212,6 +256,34 @@ extern "C" int gs_outer_table(int L, const void* outer, int nj, const void* inne
     case 8: return gs::launch_outer<4>(o, nj, in, s, t, f, st);
     case 14: return gs::launch_outer<7>(o, nj, in, s, t, f, st);
     case 16: return gs::launch_outer<8>(o, nj, in, s, t, f, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// a, out: int32 [L, n] contiguous (Montgomery); e: n_words little-endian
+// words of the exponent, e >= 1.
+extern "C" int gs_mont_pow(int L, const void* a, void* out, long long n, const uint32_t* e,
+                           int n_words, const uint32_t* field_words, void* stream) {
+  if (n <= 0) return 0;
+  if (n_words < 1 || n_words > gs::kMaxExpWords) return cudaErrorInvalidValue;
+  gs::PowArgs pa = {};
+  pa.nbits = 0;
+  for (int w = 0; w < n_words; ++w) {
+    pa.e[w] = e[w];
+    for (int b = 0; b < 32; ++b)
+      if ((e[w] >> b) & 1u) pa.nbits = 32 * w + b + 1;
+  }
+  if (pa.nbits == 0) return cudaErrorInvalidValue;
+  const gs::FieldW f = gs::fieldw_from_words(field_words, L);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto x = static_cast<const int32_t*>(a);
+  auto o = static_cast<int32_t*>(out);
+  switch (L) {
+    case 2: return gs::launch_pow<1>(x, o, n, pa, f, st);
+    case 4: return gs::launch_pow<2>(x, o, n, pa, f, st);
+    case 8: return gs::launch_pow<4>(x, o, n, pa, f, st);
+    case 14: return gs::launch_pow<7>(x, o, n, pa, f, st);
+    case 16: return gs::launch_pow<8>(x, o, n, pa, f, st);
     default: return cudaErrorInvalidValue;
   }
 }

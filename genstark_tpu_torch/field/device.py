@@ -20,8 +20,16 @@ Two layers, as in the JAX package (`DeviceField` over `field/pallas_ops.py`):
   any L, any broadcast and any strides, so none of the JAX package's TPU
   dispatch rules (2^16-element minimum, 2048-lane tiles, L >= 8) applies.
 
-The batched inverse `inv` (plain version `inv_ref`) is no kernel of its
-own, as in the JAX package: Montgomery's trick over the products above.
+The batched inverse `inv` (plain version `inv_ref`) is Montgomery's trick
+over the products above, as in the JAX package; its one total is raised to
+p - 2 by `mont_pow` (kernel A, csrc/field_ops.cu; plain version
+`mont_pow_ref`), so an inverse stays on the device.
+
+`from_numpy` uploads from pinned memory, asynchronously (a pageable
+host-to-device copy synchronizes the stream as a fetch does), and `const`
+and `one` are memoized per DeviceField, keyed by (value, rank, form), so a
+warm prove uploads no constant.  The schema's constants and the prover's
+few scalars bound the cache.  Callers never write into a constant.
 """
 
 from __future__ import annotations
@@ -49,11 +57,20 @@ class DeviceField:
         self.device = torch.device(device)
         self._p64 = torch.as_tensor(params.p_limbs.astype(np.int64),
                                     device=self.device)
+        self._consts = {}
 
     # ----- host <-> device conversion ---------------------------------------
     def from_numpy(self, arr: np.ndarray) -> torch.Tensor:
-        """numpy u32 16-bit limbs (any shape) -> int32 tensor on the device."""
-        return torch.from_numpy(np.ascontiguousarray(arr).astype(np.int32)).to(self.device)
+        """numpy u32 16-bit limbs (any shape) -> int32 tensor on the device,
+        without a synchronization: on the card the limbs are written once
+        into pinned host memory and copied on the current stream (the
+        caching host allocator keeps the block until that copy is done)."""
+        arr = np.ascontiguousarray(arr)
+        if self.device.type == "cpu":
+            return torch.from_numpy(arr.astype(np.int32))
+        host = torch.empty(arr.shape, dtype=_I32, pin_memory=True)
+        np.copyto(host.numpy(), arr, casting="unsafe")
+        return host.to(self.device, non_blocking=True)
 
     def to_numpy(self, t: torch.Tensor) -> np.ndarray:
         """int32 limb tensor -> numpy u32 (the JAX package's layout)."""
@@ -69,11 +86,16 @@ class DeviceField:
         return limbs_to_ints(self.to_numpy(t).reshape(self.L, -1))
 
     def const(self, value: int, shape=(), to_mont: bool = True) -> torch.Tensor:
-        """Broadcastable constant: [L] + [1]*len(shape)."""
-        if to_mont:
-            value = (value * self.params.R_mod) % self.p
-        limbs = int_to_limbs(value % self.p, self.L)
-        return self.from_numpy(limbs).reshape((self.L,) + (1,) * len(shape))
+        """Broadcastable constant: [L] + [1]*len(shape), uploaded once per
+        (value, rank, form) and shared: never written into."""
+        key = (value % self.p, len(shape), to_mont)
+        t = self._consts.get(key)
+        if t is None:
+            value = key[0] * self.params.R_mod % self.p if to_mont else key[0]
+            t = self.from_numpy(int_to_limbs(value, self.L)).reshape(
+                (self.L,) + (1,) * len(shape))
+            self._consts[key] = t
+        return t
 
     def one(self, shape=()) -> torch.Tensor:
         """Montgomery representation of 1, broadcastable over shape."""
@@ -204,13 +226,10 @@ class DeviceField:
         return self.mont_mul(a, a)
 
     def _to_mont(self, a: torch.Tensor) -> torch.Tensor:
-        r2 = self.from_numpy(self.params.r2_limbs).reshape((self.L,) + (1,) * (a.dim() - 1))
-        return self.mont_mul(a, r2)
+        return self.mont_mul(a, self.const(self.params.R2_mod, a.shape[1:], to_mont=False))
 
     def _from_mont(self, a: torch.Tensor) -> torch.Tensor:
-        one = self.from_numpy(int_to_limbs(1, self.L)).reshape(
-            (self.L,) + (1,) * (a.dim() - 1))
-        return self.mont_mul(a, one)
+        return self.mont_mul(a, self.const(1, a.shape[1:], to_mont=False))
 
     # ----- derived ops (through the public ops) ------------------------------
     def _exp_static(self, a: torch.Tensor, e: int) -> torch.Tensor:
@@ -230,31 +249,50 @@ class DeviceField:
                 base = self.mont_mul(base, base)
         return result
 
-    # ----- batched inversion (Montgomery's trick, log-doubling scans) -------
+    # ----- powers and the batched inverse ---------------------------------
+    def mont_pow(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """a^e for Montgomery-form [L, n] and a python int e >= 1.  A CPU
+        tensor runs `mont_pow_ref`; any other launches kernel A (one thread
+        an element runs the whole ladder) or raises."""
+        if a.device.type == "cpu":
+            return self.mont_pow_ref(a, e)
+        return kernels.mont_pow(self, a, e)
+
+    def mont_pow_ref(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """Plain version of kernel A: the JAX package's `_fermat_inv_single`
+        ladder (genstark_tpu/field/device.py:329) for any exponent e >= 1:
+        from the top bit down, square, and multiply by a where the bit is
+        set, on `mont_mul_ref`."""
+        if e < 1:
+            raise ValueError("mont_pow takes an exponent e >= 1")
+        result = a
+        for bit in bin(e)[3:]:
+            result = self.mont_mul_ref(result, result)
+            if bit == "1":
+                result = self.mont_mul_ref(result, a)
+        return result.to(_I32)
+
     def inv(self, a: torch.Tensor) -> torch.Tensor:
         """Elementwise inverse of Montgomery-form [L, ...] with inv(0) = 0.
         A CPU tensor runs `inv_ref`; on the card every product is one
-        kernel-5 launch (2 ceil(log2 N) + 2 of them) and the one total
-        product is inverted on the host."""
+        kernel-5 launch (2 ceil(log2 N) + 2 of them) and the total's
+        inverse one kernel-A launch: nothing leaves the device."""
         if a.device.type == "cpu":
             return self.inv_ref(a)
-        return self._inv_with(self.mont_mul, a)
+        return self._inv_with(self.mont_mul, self.mont_pow, a)
 
     def inv_ref(self, a: torch.Tensor) -> torch.Tensor:
-        """Plain version of `inv`: the same steps on `mont_mul_ref`."""
-        return self._inv_with(self.mont_mul_ref, a)
+        """Plain version of `inv`: the same steps on `mont_mul_ref` and
+        `mont_pow_ref`."""
+        return self._inv_with(self.mont_mul_ref, self.mont_pow_ref, a)
 
-    def _inv_with(self, mul, a: torch.Tensor) -> torch.Tensor:
+    def _inv_with(self, mul, power, a: torch.Tensor) -> torch.Tensor:
         """The JAX package's `DeviceField.inv` (genstark_tpu/field/device.py
-        :294-357) over the product `mul`: zeros masked to one, inclusive
-        prefix and suffix products by Hillis-Steele doubling, the total
-        inverted, each element's inverse as prod_{k<i} * prod_{k>i} *
-        total^-1, zeros put back.  JAX inverts the total with a device Fermat
-        ladder because its prover is one jitted program; this prover
-        synchronizes at every root fetch anyway, so the one element goes to
-        the host, where pow(., p-2, p) on its Montgomery value tR gives
-        R^2 (tR)^-1 = t^-1 R: the same field element, one small copy each
-        way instead of ~2 log2 p launches."""
+        :294-357) over the product `mul` and the power `power`: zeros masked
+        to one, inclusive prefix and suffix products by Hillis-Steele
+        doubling, the total inverted by the Fermat ladder total^(p-2) on the
+        device, each element's inverse as prod_{k<i} * prod_{k>i} *
+        total^-1, zeros put back."""
         L = self.L
         flat = a.reshape(L, -1)
         n = flat.shape[1]
@@ -270,11 +308,10 @@ class DeviceField:
             prefix = mul(prefix, torch.cat([ident, prefix[:, :-k]], dim=1))
             suffix = mul(suffix, torch.cat([suffix[:, k:], ident], dim=1))
             k *= 2
-        total = limbs_to_ints(self.to_numpy(prefix[:, -1:]))[0]
-        total_inv = self.params.R2_mod * pow(total, self.p - 2, self.p) % self.p
+        total_inv = power(prefix[:, -1:].contiguous(), self.p - 2)
         pre_excl = torch.cat([one, prefix[:, :-1]], dim=1)
         suf_excl = torch.cat([suffix[:, 1:], one], dim=1)
-        out = mul(mul(pre_excl, suf_excl), self.const(total_inv, (1,), to_mont=False))
+        out = mul(mul(pre_excl, suf_excl), total_inv)
         return torch.where(is_zero[None], torch.zeros_like(out), out).reshape(a.shape)
 
     def combine_many_mont(self, vectors, coeffs_mont: torch.Tensor) -> torch.Tensor:

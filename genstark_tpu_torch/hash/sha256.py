@@ -57,19 +57,30 @@ def digest_rows_le(words: torch.Tensor, msg_bytes: int) -> torch.Tensor:
     be[total - 1] = torch.full_like(zero, bitlen & M32)
     state = [torch.full_like(zero, x) for x in H0]
     for blk in range(n_blocks):
-        w = be[blk * 16:(blk + 1) * 16]
-        a, b, c, d, e, f, g, h = state
-        for r in range(64):
-            if r >= 16:
-                w1, w9, w14 = w[(r + 1) % 16], w[(r + 9) % 16], w[(r + 14) % 16]
-                s0 = rotr(w1, 7) ^ rotr(w1, 18) ^ (w1 >> 3)
-                s1 = rotr(w14, 17) ^ rotr(w14, 19) ^ (w14 >> 10)
-                w[r % 16] = (w[r % 16] + s0 + w9 + s1) & M32
-            S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)
-            ch = (e & f) ^ (~e & g & M32)
-            t1 = (h + S1 + ch + K[r] + w[r % 16]) & M32
-            S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)
-            maj = (a & b) ^ (a & c) ^ (b & c)
-            a, b, c, d, e, f, g, h = (t1 + S0 + maj) & M32, a, b, c, (d + t1) & M32, e, f, g
-        state = [(x + y) & M32 for x, y in zip(state, (a, b, c, d, e, f, g, h))]
+        state = compress(state, be[blk * 16:(blk + 1) * 16])
     return torch.stack([bswap(x) for x in state])
+
+
+def compress(state, block):
+    """One SHA-256 compression: state 8 and block 16 big-endian words, each
+    an int64 tensor of 32-bit values (the block list is overwritten by the
+    message schedule) -> the new state as 8 words.  A word's rotations are
+    shifts of x | x << 32 (its bits 0..62 are two copies of x), masked once
+    after their xor."""
+    w = block
+    a, b, c, d, e, f, g, h = state
+    for r in range(64):
+        if r >= 16:
+            w1, w9, w14 = w[(r + 1) % 16], w[(r + 9) % 16], w[(r + 14) % 16]
+            x1, x14 = w1 | (w1 << 32), w14 | (w14 << 32)
+            s0 = ((x1 >> 7) ^ (x1 >> 18) ^ (w1 >> 3)) & M32
+            s1 = ((x14 >> 17) ^ (x14 >> 19) ^ (w14 >> 10)) & M32
+            w[r % 16] = (w[r % 16] + s0 + w9 + s1) & M32
+        xe, xa = e | (e << 32), a | (a << 32)
+        S1 = ((xe >> 6) ^ (xe >> 11) ^ (xe >> 25)) & M32
+        ch = (e & f) ^ (~e & g)
+        t1 = h + S1 + ch + K[r] + w[r % 16]
+        S0 = ((xa >> 2) ^ (xa >> 13) ^ (xa >> 22)) & M32
+        maj = (a & (b | c)) | (b & c)
+        a, b, c, d, e, f, g, h = (t1 + S0 + maj) & M32, a, b, c, (d + t1) & M32, e, f, g
+    return [(x + y) & M32 for x, y in zip(state, (a, b, c, d, e, f, g, h))]

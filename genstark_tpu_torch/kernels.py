@@ -1,8 +1,8 @@
 """Build, load and launch the port's CUDA kernels.
 
 The kernels live in ``csrc/`` (dft_level.cu, hash.cu, lcomb_tail.cu,
-field_ops.cu, butterfly.cu, butterfly_stage.cu, probes.cu, sharing
-field.cuh).  At first use each source is
+field_ops.cu, butterfly.cu, butterfly_stage.cu, probes.cu, queries.cu,
+sharing field.cuh).  At first use each source is
 compiled by its own ``nvcc`` for ``sm_90a`` (all started together), and the
 objects are linked into ONE shared library with a plain C interface, under
 ``_build/<hash of the sources>/``, loaded with ctypes.  Nothing is built or
@@ -12,8 +12,8 @@ Each wrapper below checks device, dtype, shape and layout, launches on the
 current CUDA stream, raises if the launch failed, and adds one to its entry
 in ``launch_counts``.  The wrappers take CUDA tensors only: the modules that
 own a kernel (field/device.py, ntt/dft.py, ntt/radix2.py, hash/__init__.py,
-protocol/lincomb_kernel.py, roofline.py) send CPU tensors to their plain
-versions.
+protocol/lincomb_kernel.py, protocol/device_queries.py, roofline.py) send
+CPU tensors to their plain versions.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 _SOURCES = ("dft_level.cu", "hash.cu", "lcomb_tail.cu", "field_ops.cu", "butterfly.cu",
-            "butterfly_stage.cu", "probes.cu")
+            "butterfly_stage.cu", "probes.cu", "queries.cu")
 _HEADERS = ("field.cuh",)
 _LIB_NAME = "libgenstark_kernels.so"
 
@@ -46,11 +46,13 @@ SMEM_BYTES = 232448
 
 # Launch counts per kernel (kernel 1: dft_level; 2: hash_words; 3:
 # hash_limbs; 4: lcomb_tail; 5: field_ew; 6: outer_table; 7: bfly_stage; 8:
-# butterfly; 9: bfly_stage_split; 10: mont_chain; 11: u32_chain).  A wrapper
-# adds one where it launches.
+# butterfly; 9: bfly_stage_split; 10: mont_chain; 11: u32_chain; and the
+# port's kernels without a Pallas row, A: mont_pow; B: sample_queries).  A
+# wrapper adds one where it launches.
 launch_counts = {"dft_level": 0, "hash_words": 0, "hash_limbs": 0, "lcomb_tail": 0,
                  "field_ew": 0, "outer_table": 0, "bfly_stage": 0, "butterfly": 0,
-                 "bfly_stage_split": 0, "mont_chain": 0, "u32_chain": 0}
+                 "bfly_stage_split": 0, "mont_chain": 0, "u32_chain": 0, "mont_pow": 0,
+                 "sample_queries": 0}
 # The JAX package's rule between rows 7 and 9 (pallas_kernels.py:378, _BLK):
 # a pass whose lowest stage has half-size m <= STAGE_SPLIT_ABOVE counts as
 # row 7.
@@ -152,6 +154,10 @@ def _load():
         lib.gs_mont_chain.restype = I
         lib.gs_u32_chain.argtypes = [P, P, LL, P]
         lib.gs_u32_chain.restype = I
+        lib.gs_mont_pow.argtypes = [I, P, P, LL, P, I, P, P]
+        lib.gs_mont_pow.restype = I
+        lib.gs_sample_queries.argtypes = [P, I, P, P, P, P, I, P, P, P]
+        lib.gs_sample_queries.restype = I
         _lib = lib
     return _lib
 
@@ -438,6 +444,30 @@ def outer_table(dev, outer: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def mont_pow(dev, a: torch.Tensor, e: int) -> torch.Tensor:
+    """Kernel A (csrc/field_ops.cu gs_mont_pow): contract of
+    DeviceField.mont_pow_ref.  a int32 [L, n] Montgomery (any layout; made
+    contiguous), e a python int in [1, 2^256) -> a new [L, n] tensor of
+    a^e."""
+    L = _field_l(dev)
+    _require(a, "a", torch.int32, contiguous=False)
+    if a.dim() != 2 or a.shape[0] != L:
+        raise ValueError(f"mont_pow takes a [{L}, n], got {tuple(a.shape)}")
+    if not 1 <= e < 1 << 256:
+        raise ValueError("mont_pow takes an exponent in [1, 2^256)")
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    if a.shape[1] == 0:
+        return out
+    words = np.asarray([(e >> (32 * w)) & 0xFFFFFFFF for w in range(8)], dtype=np.uint32)
+    fw = np.ascontiguousarray(_field_words(dev))
+    rc = _load().gs_mont_pow(L, a.data_ptr(), out.data_ptr(), a.shape[1], _u32p(words), 8,
+                             _u32p(fw), _stream(a))
+    _check(rc, "mont_pow")
+    launch_counts["mont_pow"] += 1
+    return out
+
+
 # ----------------------------------------------------------------- kernel 8
 def butterfly_max_n(L: int) -> int:
     """Largest local transform one block holds in shared memory: L x n
@@ -543,3 +573,43 @@ def u32_chain(x: torch.Tensor) -> torch.Tensor:
     _check(rc, "u32_chain")
     launch_counts["u32_chain"] += 1
     return out
+
+
+# ----------------------------------------------------------------- kernel B
+# csrc/queries.cu: query sets a launch, positions a set (its list in shared
+# memory) and candidates a set.
+SAMPLE_MAX_SETS = 32
+SAMPLE_MAX_COUNT = 1024
+SAMPLE_MAX_CAND = 1 << 24
+
+
+def sample_queries(roots: torch.Tensor, specs) -> tuple:
+    """Kernel B (csrc/queries.cu gs_sample_queries): contract of
+    protocol.device_queries.sample_sets_ref.  roots int32 [S, 8]: each
+    set's seed, a 32-byte digest as LE words; specs: S tuples (count, max_,
+    exclude_multiples_of, n_cand), max_ a power of two <= 2^32, exclude 0
+    or a power of two.  Returns (idx int64 [S, max count], zero-padded;
+    found int32 [S])."""
+    S = len(specs)
+    _require(roots, "roots", torch.int32, (S, 8))
+    if not 1 <= S <= SAMPLE_MAX_SETS:
+        raise ValueError(f"sample_queries takes 1 to {SAMPLE_MAX_SETS} sets, got {S}")
+    for count, max_, excl, n_cand in specs:
+        if max_ < 1 or max_ & (max_ - 1) or max_ > 1 << 32:
+            raise ValueError(f"max_ must be a power of two <= 2^32, got {max_}")
+        if excl < 0 or excl & (excl - 1) or excl > 1 << 32:
+            raise ValueError(f"exclude_multiples_of must be 0 or a power of two, got {excl}")
+        if not 1 <= count <= SAMPLE_MAX_COUNT or not 1 <= n_cand <= SAMPLE_MAX_CAND:
+            raise ValueError(f"count {count} and n_cand {n_cand} out of range")
+    cap = max(c for c, _, _, _ in specs)
+    idx = torch.empty((S, cap), dtype=torch.int64, device=roots.device)
+    found = torch.empty((S,), dtype=torch.int32, device=roots.device)
+    ints = lambda v: (ctypes.c_longlong * S)(*v)
+    rc = _load().gs_sample_queries(
+        roots.data_ptr(), S, ints([c for c, _, _, _ in specs]),
+        ints([m - 1 for _, m, _, _ in specs]), ints([x for _, _, x, _ in specs]),
+        ints([n for _, _, _, n in specs]), cap, idx.data_ptr(), found.data_ptr(),
+        _stream(roots))
+    _check(rc, "sample_queries")
+    launch_counts["sample_queries"] += 1
+    return idx, found

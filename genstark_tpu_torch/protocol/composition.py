@@ -5,7 +5,9 @@ Counterpart of ``genstark_tpu/protocol/composition.py``: the constructor
 coefficient counts), the grouping helpers and the verifier's point
 evaluation `evaluate_at` (:199).  The prover evaluates C(x) on the device
 (protocol/prover.py and the tail kernel).  Both draw their coefficients
-from one prng(e_root) stream through `transcript_coefficients`.
+from one prng(e_root) stream: the verifier through
+`transcript_coefficients` on the host, the prover through
+`transcript_coefficients_dev` on the device (`fused.py:713-725`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 from typing import List, Sequence
 
 from .boundary import BoundaryConstraints
+from .fiat_shamir import prng_elements_dev
 from .zeropoly import ZeroPolynomial
 
 
@@ -38,6 +41,18 @@ def transcript_coefficients(field, seed: bytes, counts: Sequence[int]) -> List[L
     out, start = [], 0
     for n in counts:
         out.append(stream[start:start + n])
+        start += n
+    return out
+
+
+def transcript_coefficients_dev(dev, seed_words, counts: Sequence[int]):
+    """`transcript_coefficients` on the device: consecutive [L, n]
+    Montgomery slices of the one stream prng_elements_dev(seed_words),
+    seed_words the int32 [8] words of the seed digest."""
+    stream = prng_elements_dev(dev, seed_words, sum(counts))
+    out, start = [], 0
+    for n in counts:
+        out.append(stream[:, start:start + n])
         start += n
     return out
 

@@ -230,8 +230,8 @@ def test_hash_limbs_raises_on_unsupported_layouts(device):
 @ALL_FIELDS
 def test_inv_on_card_equals_plain(device, modulus):
     """DeviceField.inv on the card: every product one kernel-5 launch (2
-    ceil(log2 N) + 2), equal to inv_ref, zeros (first, inside, last) and a
-    batched shape included."""
+    ceil(log2 N) + 2) and the total's inverse one kernel-A launch, equal to
+    inv_ref, zeros (first, inside, last) and a batched shape included."""
     from genstark_tpu_torch import kernels
     field = create_prime_field(modulus)
     dev = field.device_field(device)
@@ -243,8 +243,10 @@ def test_inv_on_card_equals_plain(device, modulus):
             a[:, [0, n // 2, n - 1]] = 0
         x = dev.from_numpy(a).reshape((dev.L,) + shape)
         before = kernels.launch_counts["field_ew"]
+        pows = kernels.launch_counts["mont_pow"]
         got = dev.inv(x)
         assert kernels.launch_counts["field_ew"] == before + 2 * (n - 1).bit_length() + 2
+        assert kernels.launch_counts["mont_pow"] == pows + 1
         assert torch.equal(got, dev.inv_ref(x))
 
 
@@ -615,3 +617,64 @@ def test_word_chain_kernel_equals_plain(device, modulus):
     x[:, :2] = torch.as_tensor(_pm1(field, 2).astype(np.int32), device=device)
     assert torch.equal(roofline.mont_chain(dev, x, 7, general=True),
                        roofline.mont_chain_ref(dev, x, 7, general=True))
+
+
+@pytest.mark.parametrize("modulus", [P32, P64, P128, P224, P256],
+                         ids=["p32", "p64", "p128", "p224", "p256"])
+def test_mont_pow_kernel_equals_plain(device, modulus):
+    """Kernel A against mont_pow_ref: one element (inv's use) and 300, zero
+    among them, the exponent p - 2, small ones and a 256-bit one."""
+    from genstark_tpu_torch import kernels
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    rng = np.random.default_rng(modulus % 211)
+    a = _elements(rng, modulus, dev.L, 300)
+    a[:, 7] = 0
+    x = dev.from_numpy(a)
+    for e in (field.modulus - 2, 1, 2, 5, (1 << 256) - 1):
+        for xin in (x[:, :1], x):
+            before = kernels.launch_counts["mont_pow"]
+            got = kernels.mont_pow(dev, xin, e)
+            assert kernels.launch_counts["mont_pow"] == before + 1
+            assert torch.equal(got, dev.mont_pow_ref(xin, e))
+
+
+def _odd_hex_roots(rng, n):
+    """Roots whose state sha256(root) begins with a zero nibble (the state's
+    hex length is odd or short), as int32 [n, 8] LE words."""
+    import hashlib
+    out = []
+    while len(out) < n:
+        root = rng.integers(0, 256, size=32, dtype=np.uint8).tobytes()
+        if hashlib.sha256(root).digest()[0] < 16:
+            out.append(np.frombuffer(root, dtype="<u4").view(np.int32))
+    return np.stack(out)
+
+
+def test_sample_queries_kernel_equals_plain(device):
+    """Kernel B against sample_sets_ref: the bench's sets (48 over 2^17,
+    24 over each layer's column length, multiples of 16 excluded), a set
+    over 2^32 (indexes above 2^31), one with no exclusion, one whose
+    window runs out, and odd-hex states; and against the host sampler."""
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.protocol import device_queries as dq
+    from genstark_tpu_torch.protocol.queries import get_pseudorandom_indexes
+    rng = np.random.default_rng(17)
+    specs = ([(48, 1 << 17, 16, 32 * 48 + 512)]
+             + [(24, 1 << k, 16, 32 * 24 + 512) for k in (15, 13, 11, 9)]
+             + [(24, 1 << 32, 16, 32 * 24 + 512), (8, 1 << 8, 0, 768), (48, 1 << 17, 16, 8)]
+             + [(16, 1 << 12, 4, 1024)] * 3)
+    roots_np = np.concatenate([
+        rng.integers(-2 ** 31, 2 ** 31, size=(8, 8), dtype=np.int64).astype(np.int32),
+        _odd_hex_roots(rng, 3)])
+    roots = torch.as_tensor(roots_np, device=device)
+    before = kernels.launch_counts["sample_queries"]
+    idx, found = kernels.sample_queries(roots, specs)
+    assert kernels.launch_counts["sample_queries"] == before + 1
+    want_idx, want_found = dq.sample_sets_ref(roots, specs)
+    assert torch.equal(idx, want_idx) and torch.equal(found, want_found)
+    assert int(found[7]) < 48 and bool((idx[5] >= 1 << 31).any())
+    for s, (count, max_, excl, _) in enumerate(specs):
+        if s != 7:
+            seed = roots_np[s].view("<u4").tobytes()
+            assert idx[s, :count].tolist() == get_pseudorandom_indexes(seed, count, max_, excl)

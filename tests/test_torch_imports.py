@@ -1,5 +1,6 @@
 """The port stands alone: no file under genstark_tpu_torch/ (nor
-chip_smoke.py or an examples/*_torch.py) imports jax or genstark_tpu."""
+chip_smoke.py, an examples/*_torch.py or a scripts/torch_*.py) imports jax
+or genstark_tpu."""
 
 import ast
 import glob
@@ -14,6 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "genstark_tpu")
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     files += glob.glob(os.path.join(ROOT, "examples", "*_torch.py"))
+    files += glob.glob(os.path.join(ROOT, "scripts", "torch_*.py"))
     for dirpath, _, names in os.walk(os.path.join(ROOT, "genstark_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(files)
