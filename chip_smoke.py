@@ -7,9 +7,14 @@ MiMC-256 at 2^13 steps (the radix-2 path) and MiMC-256 at 2^18 and 2^20
 steps (the large-domain path: direct radix-2 route with the stage kernels),
 the reference's Rescue and Poseidon Merkle-proof configurations at depth 16
 and the lib224-import Merkle proof, each compiled from its AirScript source,
-and its elliptic-curve point multiplication, compiled from AirAssembly, each
-with its trace from the native generator; parses, re-serializes and verifies
-every proof it makes with the port's verifier; counts the synchronizing
+and its elliptic-curve point multiplication, compiled from AirAssembly, and
+the reference's fibonacci (2^17 steps) and static-variables demos, each
+with its trace from the native generator; proves five of these again with
+the staged prover (`prove_staged`), whose bytes must equal the one-fetch
+prove's, with no plain version called; runs the public ntt / intt /
+low_degree_extend at the staged paths' sizes against the plain path;
+parses, re-serializes and verifies every proof it makes with the port's
+verifier; counts the synchronizing
 calls of one warm prove on every path (one, the proof's fetch, after the
 prove's first kernel) and requires every proof to come out of the
 device-sampled one-fetch path; and prints one JSON line per contract at the
@@ -23,6 +28,7 @@ or the JAX package.  Exits non-zero, printing no result, on any failure.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -84,6 +90,20 @@ LIB224_PIN = (86843, "b039c5610f10eb278154453303498dd449ffa4e5cc92deabd6574a5520
 # package's).
 POINTMUL_PIN = (80901, "1ae96e3fba29bbd5bbe889726d0f68e73a6885a004e7478788c7d5cc738ad44f")
 
+# The reference's two demos: the fibonacci at its largest size
+# (2^17 steps, p32, default options: ext 4, 80/40 queries, sha256; Ne =
+# 2^19) and the static-variables demo at its own (64 steps over the field
+# 96769: L = 2, not of solinas form, the radix-2 route; Ne = 256), with the
+# reference's oracle values (examples/fibonacci_torch.py EXPECTED,
+# examples/demo_static_torch.py EXPECTED_RESULT).  Pins: the JAX
+# package's proofs on the CPU (tests/test_torch_examples.py holds the demo's
+# and its slow tests recompute both).
+FIB_STEPS = 2 ** 17
+FIB_PIN = (150506, "d587e78a6557cba93d5f8bc10689bbcc3859258a6ca6577b9e071ffd4269c663")
+DEMO_STEPS = 64
+DEMO_PIN = (6744, "5b934baaabb63a82243317f415cd033047af8f07860844e1453811a611dcc5b4")
+DEMO_MODULUS = 96769
+
 # Kernels each main path must launch.
 BENCH_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
                  "outer_table", "sample_queries")
@@ -99,6 +119,33 @@ P224_KERNELS = ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew
 # the division AIR's constraint divides by a register: its proves run inv,
 # whose total is inverted by kernel A
 DIV_KERNELS = ("dft_level", "hash_words", "field_ew", "sample_queries", "mont_pow")
+FIB_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
+               "outer_table", "sample_queries")
+DEMO_KERNELS = ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
+                "sample_queries")
+# The staged prover forms every table by power_series and every field op on
+# kernel 5, commits with kernels 2 and 3, and transforms with kernel 1 (p32,
+# p128) or kernel 8 (every other field at these sizes); it samples on the
+# host, so no kernel B, and forms C(x) and L(x) without kernel 4.
+STAGED_DIGIT = ("dft_level", "hash_words", "hash_limbs", "field_ew")
+STAGED_RADIX2 = ("butterfly", "hash_words", "hash_limbs", "field_ew")
+# The public ntt / intt / low_degree_extend at the staged paths' sizes:
+# (modulus, trace length T, evaluation domain Ne).
+NTT_SIZES = (("P32", FIB_STEPS, 4 * FIB_STEPS), ("P128", BENCH_STEPS, 16 * BENCH_STEPS),
+             ("P256", BENCH_STEPS, 16 * BENCH_STEPS), (DEMO_MODULUS, DEMO_STEPS, 4 * DEMO_STEPS))
+# The plain versions, which a prove on CUDA tensors must never call:
+# (module, class or None, names).
+PLAIN_VERSIONS = (
+    ("genstark_tpu_torch.field.device", "DeviceField",
+     ("mont_mul_ref", "add_ref", "sub_ref", "outer_table_ref", "mont_pow_ref", "inv_ref")),
+    ("genstark_tpu_torch.hash", None, ("digest_rows_ref",)),
+    ("genstark_tpu_torch.ntt.dft", None, ("run_dft_level_ref",)),
+    ("genstark_tpu_torch.ntt.radix2", None,
+     ("butterfly_ref", "butterfly_stage_ref", "butterfly_stages_ref", "transform_ref")),
+    ("genstark_tpu_torch.protocol.lincomb_kernel", None, ("lcomb_tail_ref",)),
+    ("genstark_tpu_torch.protocol.device_queries", None,
+     ("sample_sets_ref", "sample_indexes_ref")),
+)
 
 # The card's memory rate for the bytes bound, and its dense int8
 # tensor-core rate (one multiply-add is 2 ops) for kernel 1's digit
@@ -1583,6 +1630,158 @@ def run_largest(kernels, device, steps: int, label: str, sync_log: dict) -> dict
     return launches
 
 
+@contextlib.contextmanager
+def plain_calls():
+    """Counts the calls of every plain version (PLAIN_VERSIONS) made inside
+    the block: {qualified name: calls}."""
+    import importlib
+    counts, saved = {}, []
+    for module, owner, names in PLAIN_VERSIONS:
+        target = importlib.import_module(module)
+        if owner is not None:
+            target = getattr(target, owner)
+        for name in names:
+            fn = getattr(target, name)
+
+            key = f"{module}.{owner}.{name}" if owner else f"{module}.{name}"
+
+            def counted(*args, _fn=fn, _key=key, **kwargs):
+                counts[_key] = counts.get(_key, 0) + 1
+                return _fn(*args, **kwargs)
+            saved.append((target, name, fn))
+            setattr(target, name, counted)
+    try:
+        yield counts
+    finally:
+        for target, name, fn in saved:
+            setattr(target, name, fn)
+
+
+def median(values):
+    return sorted(values)[len(values) // 2]
+
+
+def run_staged(kernels, stark, assertions, inputs, pin, required, label: str,
+               sync_log: dict, smi_line: str, public=None, reps: int = 5):
+    """One configuration through both provers: a warm-up of each; the
+    launch counts set to 0, one `prove_staged`, the counts read, with every
+    plain version's calls counted (there must be none); its bytes equal to
+    `prove`'s and to the pin (where there is one), verified by the port;
+    then `reps` turns of prove and prove_staged (best and median of each)
+    and the synchronizing calls of one warm prove_staged.  Returns
+    (launches, stats)."""
+    import torch
+    fused = stark.serialize(stark.prove(assertions, inputs))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    stark.prove_staged(assertions, inputs)
+    torch.cuda.synchronize()
+    warmup = time.monotonic() - t0
+    kernels.reset_launch_counts()
+    with plain_calls() as plain:
+        data = stark.serialize(stark.prove_staged(assertions, inputs))
+        torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    require_native(stark, label)
+    got = proof_digest(data)
+    print(f"{label} prove_staged proof: {got[0]} bytes sha256 {got[1]}; launches in one "
+          f"prove_staged: {launches}; plain-version calls {plain or 0}", flush=True)
+    require(not plain, f"{label}: prove_staged on the card ran plain versions {plain}")
+    require(data == fused, f"{label}: prove_staged and prove gave different bytes")
+    if pin is not None:
+        require(got == pin, f"{label} staged proof differs from its pin {pin}")
+    missing = [k for k in required if launches[k] == 0]
+    require(not missing, f"{label}: kernels of the staged path never launched: {missing}")
+    verify_proof(stark, assertions, data, public, f"{label} staged")
+    times = {"prove": [], "prove_staged": []}
+    for _ in range(reps):
+        for name, fn in (("prove", stark.prove), ("prove_staged", stark.prove_staged)):
+            t0 = time.monotonic()
+            fn(assertions, inputs)
+            torch.cuda.synchronize()
+            times[name].append(time.monotonic() - t0)
+    syncs = count_syncs(kernels, lambda: stark.prove_staged(assertions, inputs))
+    sync_log[f"{label} staged"] = syncs
+    stats = {k: {"best": min(v), "median": median(v), "all": [round(t, 6) for t in v]}
+             for k, v in times.items()}
+    print(f"{label}: prove_staged_s best of {reps} {stats['prove_staged']['best']:.6f}, median "
+          f"{stats['prove_staged']['median']:.6f} (warm-up {warmup:.4f}); prove_s best of "
+          f"{reps} {stats['prove']['best']:.6f}, median {stats['prove']['median']:.6f}; "
+          f"on {smi_line}", flush=True)
+    print(f"{label} staged synchronizing calls in one warm prove_staged: {syncs['syncs']} "
+          f"({syncs['after_first_kernel']} after its first kernel); host wait "
+          f"{fmt_ms(syncs['host_wait_ms'])}; sites {syncs['sites']}", flush=True)
+    return launches, dict(stats, syncs=syncs["syncs"], bytes=got[0])
+
+
+def plain_transform(dev, x, plan):
+    """The public transform's plain path, on the tensors' device: the
+    radix-2 route's `transform_ref`, or the digit route with every level
+    run by `run_dft_level_ref`."""
+    from genstark_tpu_torch import ntt
+    from genstark_tpu_torch.ntt import dft, radix2
+    if isinstance(plan, radix2.Radix2Plan):
+        return radix2.transform_ref(dev, x, plan)
+    saved = dft.run_dft_level
+    dft.run_dft_level = dft.run_dft_level_ref
+    try:
+        return ntt._digit_transform(dev, x, plan)
+    finally:
+        dft.run_dft_level = saved
+
+
+def check_public_ntt(kernels, device, rng, smi_line: str) -> None:
+    """The public ntt / intt / low_degree_extend on the card at the staged
+    paths' sizes (NTT_SIZES) against their plain path on the same card
+    tensors, tolerance 0, and their round trips; kernel 5 and kernel 8 at
+    the demo's field first (its p far below 2^32)."""
+    import torch
+    from genstark_tpu_torch import field as fields
+    from genstark_tpu_torch import ntt
+    from genstark_tpu_torch.field import create_prime_field
+    demo = create_prime_field(DEMO_MODULUS)
+    dev = demo.device_field(device)
+    a = dev.from_numpy(random_elements(rng, DEMO_MODULUS, dev.L, 2 ** 15))
+    b = dev.from_numpy(random_elements(rng, DEMO_MODULUS, dev.L, 2 ** 15))
+    pm1 = dev.from_numpy(p_minus_1(demo, 2 ** 15))
+    for op, ref in (("mul", dev.mont_mul_ref), ("add", dev.add_ref), ("sub", dev.sub_ref)):
+        err = max(max_abs_err(kernels.field_ew(dev, op, x, y), ref(x, y))
+                  for x, y in ((a, b), (a, b[:, :1]), (pm1, pm1)))
+        print(f"field_ew p = {DEMO_MODULUS} L=2 {op} [2, 2^15]: max_abs_err={err}", flush=True)
+        require(err == 0, f"field_ew at p = {DEMO_MODULUS} != plain version")
+    for name, T, Ne in NTT_SIZES:
+        modulus = getattr(fields, name) if isinstance(name, str) else name
+        field = create_prime_field(modulus)
+        dev = field.device_field(device)
+        x = dev.from_numpy(random_elements(rng, modulus, dev.L, T))
+        kernels.reset_launch_counts()
+        coeffs = ntt.intt(field, x)
+        evals = ntt.ntt(field, x)
+        lde = ntt.low_degree_extend(field, coeffs, Ne)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launch_counts.items() if v}
+        plan = lambda n, inverse: ntt._plan(field, dev, n, inverse)
+        errs = {
+            "intt": max_abs_err(coeffs, plain_transform(dev, x, plan(T, True))),
+            "ntt": max_abs_err(evals, plain_transform(dev, x, plan(T, False))),
+            "lde": max_abs_err(lde, plain_transform(
+                dev, torch.nn.functional.pad(coeffs, (0, Ne - T)), plan(Ne, False))),
+            "ntt(intt(x)) - x": max_abs_err(ntt.ntt(field, coeffs), x),
+            "lde[::ext] - x": max_abs_err(lde[:, ::Ne // T].contiguous(), x),
+            "intt(lde) - coeffs": max_abs_err(
+                ntt.intt(field, lde), torch.nn.functional.pad(coeffs, (0, Ne - T))),
+        }
+        km = cuda_ms(lambda: ntt.low_degree_extend(field, ntt.intt(field, x), Ne))
+        pm = cuda_ms(lambda: plain_transform(dev, torch.nn.functional.pad(
+            plain_transform(dev, x, plan(T, True)), (0, Ne - T)), plan(Ne, False)), reps=2)
+        print(f"public ntt p{modulus.bit_length()} (L={dev.L}, {type(plan(T, True)).__name__}) "
+              f"T={T} Ne={Ne}: max_abs_err {errs}; launches {launches}; intt + LDE "
+              f"{km:.4f} ms, plain path {pm:.4f} ms on {smi_line}", flush=True)
+        require(not any(errs.values()), f"public ntt at p{modulus.bit_length()}: {errs}")
+        del x, coeffs, evals, lde
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "genstark_tpu_torch")):
         raise SmokeFailure("genstark_tpu_torch is not beside chip_smoke.py")
@@ -1605,7 +1804,8 @@ def main() -> int:
     from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
     sys.path.insert(0, os.path.join(HERE, "examples"))
     from mimc_torch import make_mimc_stark, prove_div, prove_mimc, round_constants
-    from examples import elliptic_torch, merkle_import_torch, poseidon_torch, rescue_torch
+    from examples import (demo_static_torch, elliptic_torch, fibonacci_torch,
+                          merkle_import_torch, poseidon_torch, rescue_torch)
 
     phase("build")
     t0 = time.monotonic()
@@ -1768,6 +1968,50 @@ def main() -> int:
                                         label, sync_log, spread=5, public=public)
         merkle_launches.append(launches_)
 
+    phase(f"the reference's demos on the one-fetch path: fibonacci ({FIB_STEPS} steps, p32) "
+          f"and static variables ({DEMO_STEPS} steps, p = {DEMO_MODULUS})")
+    fib_field = create_prime_field(P32)
+    fib_last = fibonacci_torch.run_fibonacci(fib_field, FIB_STEPS, 1)[-1][1]
+    demo_last = demo_static_torch.run_demo(create_prime_field(DEMO_MODULUS), DEMO_STEPS, 1)[-1]
+    print(f"oracles: fibonacci {fib_last} (reference {fibonacci_torch.EXPECTED[FIB_STEPS]}), "
+          f"static variables {demo_last} (reference {demo_static_torch.EXPECTED_RESULT})",
+          flush=True)
+    require(fib_last == fibonacci_torch.EXPECTED[FIB_STEPS], "fibonacci oracle != reference")
+    require(demo_last == demo_static_torch.EXPECTED_RESULT, "static-variables oracle != reference")
+    demo_cases = {
+        "fibonacci": lambda: fibonacci_torch.fib_case(FIB_STEPS, device=device) + (None,),
+        "demo-static": lambda: demo_static_torch.demo_case(DEMO_STEPS, device=device) + (None,)}
+    demo_launches = []
+    for label, pin, required in (("fibonacci", FIB_PIN, FIB_KERNELS),
+                                 ("demo-static", DEMO_PIN, DEMO_KERNELS)):
+        stark, assertions, inputs, _ = demo_cases[label]()
+        launches_, _, _ = run_main_path(kernels, stark, assertions, inputs, pin, required,
+                                        label, sync_log, spread=5)
+        demo_launches.append(launches_)
+
+    phase("the staged prover: prove_staged against prove, bytes, pins, plain-version calls, "
+          "syncs and launches")
+    staged = {}
+    for label, case, pin, required in (
+            ("bench", lambda: mimc_path(BENCH_STEPS) + (None,), BENCH_PIN, STAGED_DIGIT),
+            ("mimc256", lambda: mimc_path(BENCH_STEPS, P256) + (None,), MIMC256_PIN,
+             STAGED_RADIX2),
+            ("rescue-merkle-16", lambda: rescue_torch.branch_case(16, 42, None, device),
+             RESCUE16_PIN, STAGED_DIGIT),
+            ("fibonacci", demo_cases["fibonacci"], FIB_PIN, STAGED_DIGIT),
+            ("demo-static", demo_cases["demo-static"], DEMO_PIN, STAGED_RADIX2)):
+        stark, assertions, inputs, public = case()
+        launches_, stats = run_staged(kernels, stark, assertions, inputs, pin, required, label,
+                                      sync_log, smi_line, public=public)
+        staged[label] = dict(stats, launches=launches_)
+        del stark
+    torch.cuda.empty_cache()
+    print(json.dumps({"staged": staged, "device": smi_line}), flush=True)
+
+    phase("the public ntt / intt / low_degree_extend at the staged paths' sizes against the "
+          "plain path (tolerance 0)")
+    check_public_ntt(kernels, device, rng, smi_line)
+
     phase(f"MiMC-256: P256, {LARGE_STEPS} steps (Ne = {16 * LARGE_STEPS}: direct route)")
     large_launches, large_data, large_totals = run_main_path(
         kernels, *mimc_path(LARGE_STEPS, P256), LARGE_PIN, LARGE_KERNELS, "mimc256-2^18",
@@ -1794,6 +2038,8 @@ def main() -> int:
           f"({ {k: round(v, 3) for k, v in tracegen.build_seconds.items()} })", flush=True)
     launches = {k: bench_launches[k] + mimc256_launches[k] + large_launches[k]
                 + largest_launches[k] + sum(m[k] for m in merkle_launches)
+                + sum(m[k] for m in demo_launches)
+                + sum(st["launches"][k] for st in staged.values())
                 + div_launches[k] + rates["launches"].get(k, 0) for k in meta}
     line = []
     for name in meta:

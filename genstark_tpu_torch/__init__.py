@@ -9,11 +9,16 @@ the execution trace is generated C++ built with g++ (native/).
 
 Public API, the counterparts of the JAX package's `__init__.py:24-59`:
 
-- `instantiate(schema_or_source, options, device, component)` builds a
-  Stark from an AirSchema, AirAssembly source text / bytes or a path to a
-  `.aa` file;
-- `instantiate_script(source, options, device, base_path)` builds a Stark
-  from AirScript source text / bytes or a path.
+- `instantiate(schema_or_source, options, device, component, logger=)`
+  builds a Stark from an AirSchema, AirAssembly source text / bytes or a
+  path to a `.aa` file;
+- `instantiate_script(source, options, device, base_path, logger=)` builds
+  a Stark from AirScript source text / bytes or a path.
+
+A Stark proves with `prove` (the one-fetch path) or `prove_staged` (stage
+by stage, host transcript).  The layer-level API: `ntt.ntt` / `intt` /
+`low_degree_extend`, `merkle.MerkleTree.create` / `prove_batch`, the
+`DeviceField` ops (`field.create_prime_field(p).device_field(device)`).
 
 Both put the Stark's tensors on `device`, the CUDA card unless the caller
 asks for another (the tests pass "cpu").  `air.convert.schema_from_reference`
@@ -46,28 +51,30 @@ def _load_source(source: Union[str, bytes]) -> tuple:
 
 
 def instantiate(schema: Union[AirSchema, str, bytes], options: Optional[dict] = None,
-                device="cuda", component: str = "default") -> Stark:
+                device="cuda", component: str = "default", *, logger=None) -> Stark:
     """A Stark for `schema` (an AirSchema, or AirAssembly source text,
     bytes or a path, whose export `component` is compiled) with its tensors
-    on `device` (a torch.device or its name)."""
+    on `device` (a torch.device or its name); `logger` (a utils.Logger)
+    prints the proving steps."""
     options = options or {}
     if isinstance(schema, (str, bytes)):
         from .air.assembly import compile_assembly
         source, _ = _load_source(schema)
         schema = compile_assembly(source, component)
     air = AirModule(schema, extension_factor=options.get("extension_factor"))
-    return Stark(air, torch.device(device), options)
+    return Stark(air, torch.device(device), options, logger)
 
 
 def instantiate_script(source: Union[str, bytes], options: Optional[dict] = None,
-                       device="cuda", base_path: Optional[str] = None) -> Stark:
+                       device="cuda", base_path: Optional[str] = None, *,
+                       logger=None) -> Stark:
     """A Stark from AirScript source text / bytes or a path.  `base_path`
     resolves relative AirAssembly import paths; when the source is a path it
     defaults to the file's directory."""
     from .air.script import compile_script
     text, file_dir = _load_source(source)
     schema = compile_script(text, base_path or file_dir)
-    return instantiate(schema, options, device)
+    return instantiate(schema, options, device, logger=logger)
 
 
 __all__ = ["AirSchema", "Assertion", "Stark", "StarkError", "StarkProof",

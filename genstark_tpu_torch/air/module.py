@@ -5,10 +5,14 @@ Counterpart of ``genstark_tpu/air/module.py`` (`AirModule`,
 is generated on the host by the native C++ generator (native/tracegen.py,
 built with g++) and, only where no C++ compiler exists, by the Python
 interpreter; each context records which one ran in `trace_source`.  The
-device trace scan is not ported.  The trace ships as standard-form u32
-limbs [R, L, T]; `evaluate_transition_constraints` evaluates the
-constraint DAG over a domain with the torch DeviceField, and the
-verification context evaluates it at one point with host ints.
+device trace scan (`_generate_execution_trace_device`) is not ported:
+nothing in the JAX package calls it.  The trace ships as standard-form u32
+limbs [R, L, T] (`generate_execution_trace_std`, the one-fetch prover's
+input) or, for the staged prover, as a Montgomery tensor on the context's
+device (`generate_execution_trace`); `evaluate_transition_constraints`
+evaluates the constraint DAG over the composition domain with the torch
+DeviceField, and the verification context evaluates it at one point with
+host ints.
 
 Domain conventions (identical to the JAX package):
   execution domain   size T            root w_t = w^ext
@@ -67,8 +71,12 @@ class AirModule:
         return self.schema.secret_input_count
 
     def init_proving_context(self, inputs: Optional[Sequence] = None,
-                             seed: Optional[Sequence[int]] = None) -> "ProvingContext":
-        return ProvingContext(self, inputs or [], list(seed or []))
+                             seed: Optional[Sequence[int]] = None,
+                             dev=None) -> "ProvingContext":
+        """`dev`: the DeviceField of the context's device tensors (the
+        Stark's), for `generate_execution_trace`, `static_device` and
+        `secret_register_traces`."""
+        return ProvingContext(self, inputs or [], list(seed or []), dev)
 
     def init_verification_context(self, input_shapes: Sequence[Sequence[int]],
                                   public_inputs: Optional[Sequence] = None
@@ -200,8 +208,9 @@ class _ContextBase:
 
 
 class ProvingContext(_ContextBase):
-    def __init__(self, module: AirModule, inputs: Sequence, seed: List[int]):
+    def __init__(self, module: AirModule, inputs: Sequence, seed: List[int], dev=None):
         schema = module.schema
+        self.dev = dev
         self.field = module.field
         input_regs = schema.input_registers
         if len(inputs) != len(input_regs):
@@ -221,6 +230,7 @@ class ProvingContext(_ContextBase):
         super().__init__(module, trace_length)
         self.seed = [int(s) % self.field.modulus for s in seed]
         self._trace_std = None
+        self._trace = None
         # "native" or "python": which generator made this context's trace,
         # and its host seconds (the g++ build of a new schema included)
         self.trace_source = None
@@ -352,12 +362,71 @@ class ProvingContext(_ContextBase):
         col = self.generate_execution_trace_std()[register, :, step:step + 1]
         return limbs_to_ints(col)[0]
 
+    # ----- the device trace of the staged prover ---------------------------------
+    def _device(self):
+        if self.dev is None:
+            raise ValueError("this proving context has no device: pass the Stark's "
+                             "DeviceField to init_proving_context")
+        return self.dev
+
+    def _to_mont_device(self, std: np.ndarray) -> torch.Tensor:
+        """Standard-form u32 limbs [B, L, T] -> Montgomery [B, L, T] on the
+        context's device, in one upload."""
+        dev = self._device()
+        x = dev.from_numpy(std)
+        return dev.to_mont(x.permute(1, 0, 2)).permute(1, 0, 2).contiguous()
+
+    def generate_execution_trace(self) -> torch.Tensor:
+        """The trace as Montgomery [R, L, T] on the context's device (JAX
+        `ProvingContext.generate_execution_trace`, air/module.py:300), from
+        the host trace (`generate_execution_trace_std`) in one upload."""
+        if self._trace is None:
+            self._trace = self._to_mont_device(self.generate_execution_trace_std())
+        return self._trace
+
+    @cached_property
+    def static_device(self) -> torch.Tensor:
+        """[K, L, T] Montgomery static columns on the context's device (K
+        may be 0; JAX air/module.py:291)."""
+        statics = self.statics_std()
+        if statics.shape[0] == 0:
+            dev = self._device()
+            return torch.zeros(statics.shape, dtype=torch.int32, device=dev.device)
+        return self._to_mont_device(statics)
+
+    @cached_property
+    def secret_register_traces(self) -> List[torch.Tensor]:
+        """Per secret input register, its evaluations over the evaluation
+        domain, [L, Ne] Montgomery (JAX air/module.py:472)."""
+        from .. import ntt
+        statics = self.static_device
+        return [ntt.low_degree_extend(self.field, ntt.intt(self.field, statics[k]),
+                                      self.evaluation_domain_size)
+                for k in self.schema.secret_input_registers]
+
     # ----- transition constraints over a domain ------------------------------
-    def evaluate_transition_constraints(self, dev, p_evals: torch.Tensor,
-                                        n_evals: torch.Tensor,
-                                        static_evals) -> torch.Tensor:
-        """Constraint-DAG evaluation over any domain: p_evals / n_evals
-        [R, L, N], static_evals list of [L, N], all Montgomery -> [C, L, N]."""
+    def evaluate_transition_constraints(self, p_polys: torch.Tensor) -> torch.Tensor:
+        """p_polys [R, L, T] coefficients (Montgomery) -> [C, L, Nc]
+        constraint evaluations over the composition domain (JAX
+        air/module.py:485): the LDE to Nc, the next-step roll, the static
+        registers interpolated and extended, then the DAG."""
+        from .. import ntt
+        Nc = self.composition_domain_size
+        p_evals = ntt.low_degree_extend(self.field, p_polys, Nc)
+        n_evals = torch.roll(p_evals, -(Nc // self.trace_length), dims=-1)
+        statics = self.static_device
+        static_evals = [ntt.low_degree_extend(self.field, ntt.intt(self.field, statics[k]), Nc)
+                        for k in range(statics.shape[0])]
+        dev = self.field.device_field(p_polys.device)
+        return self.evaluate_transition_constraints_over(dev, p_evals, n_evals, static_evals)
+
+    def evaluate_transition_constraints_over(self, dev, p_evals: torch.Tensor,
+                                             n_evals: torch.Tensor,
+                                             static_evals) -> torch.Tensor:
+        """Constraint-DAG evaluation over any domain (JAX
+        `evaluate_transition_constraints_traced`, air/module.py:505):
+        p_evals / n_evals [R, L, N], static_evals list of [L, N], all
+        Montgomery -> [C, L, N]."""
         schema = self.schema
         env = {"dev": dev, "ndim": 1,
                "trace": [p_evals[r] for r in range(schema.trace_width)],

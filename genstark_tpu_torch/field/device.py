@@ -15,7 +15,9 @@ Two layers, as in the JAX package (`DeviceField` over `field/pallas_ops.py`):
   are the arithmetic of kernels 5 (`field_ew`) and 6 (`outer_table`), and the
   plain versions that other kernels' plain versions are built from;
 - the public ops `mont_mul`, `_add`, `_sub` and `outer_table` (and every op
-  derived from them): a CPU tensor runs the plain version; any other tensor
+  derived from them, among them the JAX package's public names `add`,
+  `sub`, `neg`, `mul`, `sqr`, `to_mont`, `from_mont`, `power_series` and
+  `combine_many`): a CPU tensor runs the plain version; any other tensor
   launches kernel 5 or 6 (csrc/field_ops.cu) or raises.  The kernels take
   any L, any broadcast and any strides, so none of the JAX package's TPU
   dispatch rules (2^16-element minimum, 2048-lane tiles, L >= 8) applies.
@@ -58,6 +60,7 @@ class DeviceField:
         self._p64 = torch.as_tensor(params.p_limbs.astype(np.int64),
                                     device=self.device)
         self._consts = {}
+        self.plans = {}      # the public NTT's plans (ntt._plan), per (n, inverse)
 
     # ----- host <-> device conversion ---------------------------------------
     def from_numpy(self, arr: np.ndarray) -> torch.Tensor:
@@ -230,6 +233,54 @@ class DeviceField:
 
     def _from_mont(self, a: torch.Tensor) -> torch.Tensor:
         return self.mont_mul(a, self.const(1, a.shape[1:], to_mont=False))
+
+    # ----- the JAX DeviceField's public names (device.py:44-56) ----------------
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self._add(a, b)
+
+    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self._sub(a, b)
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        return self._neg(a)
+
+    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.mont_mul(a, b)
+
+    def sqr(self, a: torch.Tensor) -> torch.Tensor:
+        return self._sqr(a)
+
+    def to_mont(self, a: torch.Tensor) -> torch.Tensor:
+        return self._to_mont(a)
+
+    def from_mont(self, a: torch.Tensor) -> torch.Tensor:
+        return self._from_mont(a)
+
+    def power_series(self, seed: int, length: int) -> torch.Tensor:
+        """[1, s, s^2, ..., s^(length-1)] in Montgomery form [L, length] by
+        doubling (the JAX `_power_series`, device.py:359-372): one product
+        a doubling, by the multiplier s^cur built on the host; the
+        multipliers go up in one upload (`from_ints`)."""
+        if length < 1:
+            raise ValueError("power_series takes a length of at least 1")
+        steps = []
+        cur = 1
+        while cur < length:
+            steps.append(pow(seed, cur, self.p))
+            cur *= 2
+        out = self.one((1,))
+        if steps:
+            mults = self.from_ints(steps)
+            for k in range(len(steps)):
+                out = torch.cat([out, self.mont_mul(out, mults[:, k:k + 1])], dim=1)
+        return out[:, :length]
+
+    def combine_many(self, vectors, coeffs: Sequence[int]) -> torch.Tensor:
+        """sum_k coeffs[k] * vectors[k] (the JAX `_combine_many`,
+        device.py:386-398); vectors: list of [L, N] Montgomery (or a [K, L,
+        N] tensor), coeffs: python ints, uploaded at once (`from_ints`, not
+        the memoized `const`: transcript coefficients change every prove)."""
+        return self.combine_many_mont(vectors, self.from_ints(coeffs))
 
     # ----- derived ops (through the public ops) ------------------------------
     def _exp_static(self, a: torch.Tensor, e: int) -> torch.Tensor:

@@ -70,10 +70,12 @@ class Hash:
         return kernels.hash_words(self.algorithm, words.to(torch.int32).contiguous(),
                                   msg_bytes)
 
-    def merge_element_rows(self, vectors_std: torch.Tensor,
-                           element_size: int) -> torch.Tensor:
+    def merge_element_rows(self, vectors_std, element_size: int) -> torch.Tensor:
         """Leaf hashing across vectors: leaf_i = H(v0[i] || v1[i] || ...).
-        vectors_std: standard-form limbs [V, L, N]; returns [8, N]."""
+        vectors_std: standard-form limbs [V, L, N], or a list of V [L, N]
+        vectors as the JAX one takes (hash/__init__.py:101); returns [8, N]."""
+        if isinstance(vectors_std, (list, tuple)):
+            vectors_std = torch.stack(vectors_std)
         V, L, N = vectors_std.shape
         if 2 * L != element_size:
             raise ValueError("element size does not match the limb count")

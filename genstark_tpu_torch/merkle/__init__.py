@@ -6,15 +6,17 @@ into one word-major [8, 2n - 1] buffer in the port's own layout: exact
 levels, leaves first, root last (level k starts at row `level_offset(n,
 k)`).  Proof scheduling (`plan_batch`) and assembly (`assemble_batch`) are
 host index bookkeeping, copied from the JAX package so the proofs carry the
-same sibling schedule; `MerkleTree` is the host-side tree used for small
-trees and the pinned-root check, and `MerkleTree.verify_batch` (JAX :264)
-replays the schedule for the verifier.
+same sibling schedule.  `MerkleTree` (JAX :187-305) is the device tree of
+the staged prover (`create`, `_fetch_nodes`, `prove_batch`: the root and
+each batch proof's digests are one fetch each) or a host tree over bytes
+(`create_from_bytes`, for small trees and the pinned-root check), and
+`MerkleTree.verify_batch` replays the schedule for the verifier.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -84,16 +86,34 @@ def assemble_batch(positions: Sequence[int], depth: int, emissions,
 
 
 class MerkleTree:
-    """Host-side tree over 32-byte leaves."""
+    """A tree on the device (`create`: its flat buffer stays there, only the
+    root comes to the host) or on the host (`create_from_bytes`, for small
+    trees such as the FRI remainder's re-commit)."""
 
-    def __init__(self, hash_, levels: List[List[bytes]]):
+    def __init__(self, hash_, depth: int, levels: Optional[List[List[bytes]]] = None,
+                 flat: Optional[torch.Tensor] = None, root: Optional[bytes] = None):
         self.hash = hash_
-        self.depth = len(levels) - 1
-        self._levels = levels
+        self.depth = depth
+        self._levels = levels            # host mode: levels[0] = leaves ... [root]
+        self._flat = flat                # device mode: build_tree_flat's buffer
+        self.root = root if root is not None else levels[-1][0]
 
     @property
-    def root(self) -> bytes:
-        return self._levels[-1][0]
+    def leaf_count(self) -> int:
+        return 1 << self.depth
+
+    @classmethod
+    def create(cls, leaves: torch.Tensor, hash_) -> "MerkleTree":
+        """leaves: int32 [8, N] word-major digests on the device (N a power
+        of 2), hashed level by level with `build_tree_flat` (kernel 2 on a
+        CUDA tensor).  The tree stays on the device; the root, its last row,
+        is the one fetch (JAX `MerkleTree.create`, merkle/__init__.py:211)."""
+        n = int(leaves.shape[1])
+        if n < 1 or n & (n - 1):
+            raise ValueError("leaf count must be a power of 2")
+        flat = build_tree_flat(hash_, leaves, n)
+        root = flat[:, -1].cpu().numpy().astype("<u4").tobytes()
+        return cls(hash_, n.bit_length() - 1, flat=flat, root=root)
 
     @classmethod
     def create_from_bytes(cls, leaves: Sequence[bytes], hash_) -> "MerkleTree":
@@ -105,12 +125,27 @@ class MerkleTree:
         while len(cur) > 1:
             cur = [hash_.digest(cur[2 * i] + cur[2 * i + 1]) for i in range(len(cur) // 2)]
             levels.append(cur)
-        return cls(hash_, levels)
+        return cls(hash_, n.bit_length() - 1, levels=levels)
+
+    def _fetch_nodes(self, coords: Sequence[tuple]) -> List[bytes]:
+        """Digests at [(level, idx), ...]: on the device one `index_select`
+        over the flat buffer and one fetch."""
+        if not coords:
+            return []
+        if self._flat is None:
+            return [self._levels[level][idx] for level, idx in coords]
+        n = self.leaf_count
+        offsets = torch.as_tensor([level_offset(n, level) + idx for level, idx in coords],
+                                  dtype=torch.int64, device=self._flat.device)
+        rows = self._flat.index_select(1, offsets).T.contiguous().cpu().numpy()
+        raw = rows.astype("<u4").tobytes()
+        return [raw[32 * i:32 * (i + 1)] for i in range(len(coords))]
 
     def prove_batch(self, positions: Sequence[int]) -> BatchMerkleProof:
+        """Batched authentication paths (plan_batch's schedule), every
+        digest fetched at once."""
         emissions, coords = plan_batch(positions, self.depth)
-        fetched = [self._levels[level][idx] for level, idx in coords]
-        return assemble_batch(positions, self.depth, emissions, fetched)
+        return assemble_batch(positions, self.depth, emissions, self._fetch_nodes(coords))
 
     @staticmethod
     def verify_batch(root: bytes, positions: Sequence[int],

@@ -4,7 +4,11 @@ path (every other field).
 `make_plan` picks the route per field, as the JAX package's
 `ntt_core_table` (:493) does: the digit DFT for the solinas fields with a
 ported DFT kernel, the radix-2 plan of ``ntt/radix2.py`` (kernel 8, the
-four-step split) for the others.  `transform` runs either plan.
+four-step split) for the others.  `transform` runs either plan.  The
+layer-level API of the JAX package, `ntt`, `intt` and `low_degree_extend`
+(genstark_tpu/ntt/__init__.py:583-607), runs `transform` on canonical plans
+kept by the values' DeviceField (one per modulus and device), per size and
+direction.
 
 The digit route is the counterpart of the multi-level transform in
 ``genstark_tpu/ntt/__init__.py`` (`mxu_table_specs` :255, `MxuPlan` :291,
@@ -127,6 +131,57 @@ def make_plan(field, dev: DeviceField, n: int, root: int, scale: int = 1):
     if digit_dft_field(field):
         return DftPlan(field, dev, n, root, scale)
     return Radix2Plan(field, dev, n, root, scale)
+
+
+def _plan(field, dev: DeviceField, n: int, inverse: bool):
+    """The canonical n-point plan of `field` on dev's device, forward or
+    inverse (n^-1 folded), made once and kept by the DeviceField (one per
+    modulus and device): a repeated call builds and uploads no table."""
+    plan = dev.plans.get((n, inverse))
+    if plan is None:
+        f = field.host
+        root = f.get_root_of_unity(n)
+        if inverse:
+            plan = make_plan(field, dev, n, f.inv(root), f.inv(n % field.modulus))
+        else:
+            plan = make_plan(field, dev, n, root)
+        dev.plans[(n, inverse)] = plan
+    return plan
+
+
+def _canonical(field, values: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
+    if values.shape[-1] != n:
+        raise ValueError(f"values hold {values.shape[-1]} points, not {n}")
+    if n == 1:
+        return values.clone()
+    dev = field.device_field(values.device)
+    return transform(dev, values, _plan(field, dev, n, inverse))
+
+
+def ntt(field, values: torch.Tensor, n: int = None) -> torch.Tensor:
+    """Forward NTT (the JAX `ntt.ntt`, genstark_tpu/ntt/__init__.py:583):
+    evaluations of the polynomial with coefficients `values` [..., L, n]
+    (Montgomery int32 limbs, on any device) at the powers of the canonical
+    n-th root of unity.  The digit route (kernel 1) for p32 and p128, the
+    radix-2 route (kernels 8, 7/9, 5) for every other field."""
+    return _canonical(field, values, n or values.shape[-1], False)
+
+
+def intt(field, values: torch.Tensor) -> torch.Tensor:
+    """Inverse NTT (`ntt.intt`, :590): interpolation over the canonical
+    domain, scaled by n^-1 (folded into the plan)."""
+    return _canonical(field, values, values.shape[-1], True)
+
+
+def low_degree_extend(field, coeffs: torch.Tensor, target_n: int) -> torch.Tensor:
+    """Evaluations of the polynomials coeffs [..., L, n] over the canonical
+    domain of size target_n >= n (`ntt.low_degree_extend`, :597)."""
+    src_n = coeffs.shape[-1]
+    if target_n < src_n:
+        raise ValueError("target domain smaller than coefficient count")
+    if target_n > src_n:
+        coeffs = torch.nn.functional.pad(coeffs, (0, target_n - src_n))
+    return ntt(field, coeffs, target_n)
 
 
 def transform(dev: DeviceField, a: torch.Tensor, plan) -> torch.Tensor:

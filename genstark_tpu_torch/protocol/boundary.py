@@ -1,8 +1,9 @@
 """Boundary constraints B(x) = (P(x) - I(x)) / Z(x) per asserted register.
 
 Counterpart of ``genstark_tpu/protocol/boundary.py``: the constructor
-(:20-44), the verifier's `evaluate_at` (:46) and `z_dens_at` (:62), and the
-prover's tables path of `evaluate_all` with `_synthetic_divide` (:84-159).  I interpolates the asserted (x_step, value)
+(:20-44), the verifier's `evaluate_at` (:46) and `z_dens_at` (:62), the
+staged prover's `evaluate_all` and the one-fetch prover's tables path of it
+(`evaluate_all_tables`), with `_synthetic_divide` (:84-159).  I interpolates the asserted (x_step, value)
 points, Z = prod (x - x_step); register order is first-appearance order of
 the assertions.
 """
@@ -68,8 +69,31 @@ class BoundaryConstraints:
             out[b, :, :len(ints)] = ints_to_limbs(ints, L)
         return out
 
-    def evaluate_all(self, dev, p_polys: torch.Tensor, i_polys_mont: torch.Tensor,
-                     bdiv, lde) -> List[torch.Tensor]:
+    def evaluate_all(self, p_polys: torch.Tensor, domain_size: int) -> List[torch.Tensor]:
+        """The staged prover's form (JAX :84-126): p_polys [R, L, T] trace
+        polynomials (Montgomery) -> the B(x) evaluation vectors [L,
+        domain_size] (Montgomery) in register insertion order.  The
+        interpolants are uploaded from the host, each quotient's power
+        tables made by `power_series`, and each quotient extended by the
+        public `ntt.low_degree_extend`."""
+        from .. import ntt
+        field = self.field
+        f = field.host
+        dev = field.device_field(p_polys.device)
+        out = []
+        for register, c in self.polys.items():
+            coeffs = p_polys[register]                         # [L, T]
+            T = coeffs.shape[-1]
+            i_ints = [v % field.modulus for v in c["i_poly"]]
+            n_coeffs = dev.sub(coeffs, dev.from_ints(i_ints + [0] * (T - len(i_ints))))
+            for root in c["xs"]:
+                powers = (dev.power_series(root, T), dev.power_series(f.inv(root), T))
+                n_coeffs = _synthetic_divide(dev, f, n_coeffs, root, powers)
+            out.append(ntt.low_degree_extend(field, n_coeffs, domain_size))
+        return out
+
+    def evaluate_all_tables(self, dev, p_polys: torch.Tensor, i_polys_mont: torch.Tensor,
+                            bdiv, lde) -> List[torch.Tensor]:
         """p_polys [R, L, T] trace polynomials (Montgomery); i_polys_mont
         [B, L, T_pad]; bdiv[b][j] = (powers of x_j, powers of x_j^-1) [L, T]
         Montgomery tables; lde(coeffs [L, T]) -> evaluations [L, Ne].

@@ -2,9 +2,10 @@
 
 Counterpart of ``genstark_tpu/protocol/composition.py``: the constructor
 (:49-84; `seed=None` builds the structure only: degrees, constraint groups,
-coefficient counts), the grouping helpers and the verifier's point
-evaluation `evaluate_at` (:199).  The prover evaluates C(x) on the device
-(protocol/prover.py and the tail kernel).  Both draw their coefficients
+coefficient counts), the grouping helpers, the staged prover's
+`evaluate_all` (:89-197) and the verifier's point evaluation `evaluate_at`
+(:199).  The one-fetch prover evaluates C(x) on the device by its own
+stages (protocol/prover.py and the tail kernel).  Both draw their coefficients
 from one prng(e_root) stream: the verifier through
 `transcript_coefficients` on the host, the prover through
 `transcript_coefficients_dev` on the device (`fused.py:713-725`).
@@ -13,6 +14,8 @@ from one prng(e_root) stream: the verifier through
 from __future__ import annotations
 
 from typing import List, Sequence
+
+import torch
 
 from .boundary import BoundaryConstraints
 from .fiat_shamir import prng_elements_dev
@@ -58,8 +61,9 @@ def transcript_coefficients_dev(dev, seed_words, counts: Sequence[int]):
 
 
 class CompositionPolynomial:
-    def __init__(self, assertions, seed, context):
+    def __init__(self, assertions, seed, context, logger=None):
         self.field = context.field
+        self.log = logger or (lambda msg: None)
         self.b_poly = BoundaryConstraints(assertions, context)
         self.z_poly = ZeroPolynomial(context)
 
@@ -88,6 +92,61 @@ class CompositionPolynomial:
     @property
     def coefficient_count(self) -> int:
         return self.d_coefficient_count + self.b_coefficient_count
+
+    def evaluate_all(self, p_polys: torch.Tensor, p_evaluations: torch.Tensor,
+                     context) -> torch.Tensor:
+        """The staged prover's C(x) (JAX :89-197, its host-coefficient path):
+        p_polys [R, L, T] trace polynomials (Montgomery); p_evaluations is
+        not read (the JAX signature).  Returns C(x) evaluations [L, Ne],
+        Montgomery.  Every table is a `power_series`, every transform the
+        public `ntt`; each step logs the JAX message."""
+        from .. import ntt
+        field = self.field
+        f = field.host
+        dev = field.device_field(p_polys.device)
+        Ne = context.evaluation_domain_size
+        Nc = context.composition_domain_size
+
+        q_evals = context.evaluate_transition_constraints(p_polys)      # [C, L, Nc]
+        self.log("Computed transition constraint polynomials Q(x)")
+
+        composition_rou = f.exp(context.root_of_unity, Ne // Nc)
+        qa = [q_evals[i] for i in range(q_evals.shape[0])]
+        for group in self.constraint_groups:
+            if group["degree"] == self.combination_degree:
+                continue
+            powers = dev.power_series(
+                f.exp(composition_rou, self.combination_degree - group["degree"]), Nc)
+            for i in group["indexes"]:
+                qa.append(dev.mul(qa[i], powers))
+        self.log("Adjusted degrees of Q(x) polynomials")
+
+        qc = dev.combine_many(qa, self.d_coefficients)                    # [L, Nc]
+        self.log("Computed linear combination of Q(x) polynomials")
+
+        qe = ntt.low_degree_extend(field, ntt.intt(field, qc), Ne)         # [L, Ne]
+        self.log("Performed low degree extensions of Q(x) polynomial")
+
+        domain = dev.power_series(context.root_of_unity, Ne)
+        self.log("Computed Z(x) polynomial")
+        z_inverses = self.z_poly.evaluate_all_inverse(domain)
+        self.log("Computed Z(x) inverses")
+        d_evals = dev.mul(qe, z_inverses)
+        self.log("Computed D(x) polynomial")
+
+        ba = list(self.b_poly.evaluate_all(p_polys, Ne))
+        self.log("Computed boundary constraint polynomials B(x)")
+
+        b_incremental = self.composition_degree - context.trace_length
+        if b_incremental > 0:
+            psb_powers = dev.power_series(f.exp(context.root_of_unity, b_incremental), Ne)
+            for i in range(self.b_poly.count):
+                ba.append(dev.mul(ba[i], psb_powers))
+        self.log("Adjusted degrees of B(x) polynomials")
+
+        bc = dev.combine_many(ba, self.b_coefficients) if ba else dev.zeros((Ne,))
+        self.log("Computed linear combination of B(x) polynomials")
+        return dev.add(d_evals, bc)
 
     def evaluate_at(self, x: int, p_values: List[int], n_values: List[int],
                     s_values: List[int], context, invs) -> int:

@@ -1,8 +1,11 @@
-"""Fold-by-4 FRI: the prover's device fold and host checks.
+"""Fold-by-4 FRI: the prover's device fold, the staged prover and host
+checks.
 
 Counterpart of ``genstark_tpu/protocol/fri.py``: `fold_traced` (:326-378)
-on torch, `get_augmented_positions` (:50), the remainder degree check of
-`LowDegreeProver.verify_remainder` (:275) and the host verifier of
+on torch, `get_augmented_positions` (:50), the staged prover's
+`LowDegreeProver` (`prove`, `_fri`, `_fold`, `_rows_bytes`, :60-150), the
+remainder degree check of `LowDegreeProver.verify_remainder` (:275), which
+both provers and the verifier share, and the host verifier of
 `LowDegreeProver` (`verify` :152-231, `_check_quartics` :232 and the value
 parsers :295-315) as `LowDegreeVerifier`.  The proof dataclasses are in
 protocol/proof.py.
@@ -19,9 +22,12 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
+from ..field.limbs import limbs_to_ints
 from ..merkle import BatchMerkleProof, MerkleTree
+from .proof import FriComponent, LowDegreeProof
 
 MAX_REMAINDER_LENGTH = 256
 
@@ -71,6 +77,102 @@ def fold(dev, field, root_of_unity: int, domain_size: int, depth: int,
     ix3 = dev.mont_mul(dev.mont_mul(ix, ix), ix)
     acc = dev._add(dev.mont_mul(t02, c4), dev.mont_mul(t13, c4q))
     return dev.mont_mul(acc, ix3)
+
+
+class LowDegreeProver:
+    """The staged prover's FRI (JAX `LowDegreeProver`, fri.py:60-150): a
+    tree a layer on the device (`MerkleTree.create`, its root fetched),
+    specialX = prng(root) on the host, the fold on the device with
+    per-depth power tables, the query positions drawn on the host from the
+    fetched roots and each batch proof's digests and values fetched at
+    once."""
+
+    def __init__(self, idx_generator, hash_, context, logger=None):
+        self.field = context.field
+        self.context = context
+        self.hash = hash_
+        self.idx_generator = idx_generator
+        self.log = logger or (lambda msg: None)
+
+    def prove(self, l_evaluations: torch.Tensor, max_degree_plus1: int) -> LowDegreeProof:
+        """l_evaluations: [L, Ne] Montgomery."""
+        field = self.field
+        dev = field.device_field(l_evaluations.device)
+        Ne = l_evaluations.shape[-1]
+        v_std = dev.from_mont(l_evaluations)
+        p_tree = MerkleTree.create(self.hash.digest_stride_rows(v_std, field.element_size),
+                                   self.hash)
+        self.log("Built liner combination merkle tree")
+
+        exe_positions = self.idx_generator.get_exe_indexes(p_tree.root, Ne)
+        lc_positions = get_augmented_positions(exe_positions, Ne)
+        lc_proof = p_tree.prove_batch(lc_positions)
+        lc_proof.values = self._rows_bytes(v_std, lc_positions, Ne // 4)
+        self.log(f"Computed {len(lc_positions)} linear combination spot checks")
+
+        proof = LowDegreeProof(lc_root=p_tree.root, lc_proof=lc_proof, components=[],
+                               remainder=[])
+        self._fri(p_tree, l_evaluations, v_std, max_degree_plus1, 0, proof)
+        return proof
+
+    def _fri(self, p_tree: MerkleTree, values: torch.Tensor, v_std: torch.Tensor,
+             max_degree_plus1: int, depth: int, proof: LowDegreeProof) -> None:
+        field = self.field
+        dev = field.device_field(values.device)
+        N = values.shape[-1]
+        if N <= MAX_REMAINDER_LENGTH:
+            remainder = limbs_to_ints(v_std.cpu().numpy().astype(np.uint32))
+            verify_remainder(field, self.idx_generator.extension_factor, remainder,
+                             max_degree_plus1,
+                             field.exp(self.context.root_of_unity, 4 ** depth))
+            proof.remainder = remainder
+            self.log(f"Computed FRI remainder of {len(remainder)} values")
+            return
+
+        column = self._fold(values, depth, field.prng(p_tree.root))       # [L, N/4]
+        c_std = dev.from_mont(column)
+        c_tree = MerkleTree.create(self.hash.digest_stride_rows(c_std, field.element_size),
+                                   self.hash)
+        self.log(f"Computed FRI layer at depth {depth}")
+
+        self._fri(c_tree, column, c_std, max_degree_plus1 // 4, depth + 1, proof)
+
+        column_length = N // 4
+        positions = self.idx_generator.get_fri_indexes(c_tree.root, column_length)
+        augmented = get_augmented_positions(positions, column_length)
+        column_proof = c_tree.prove_batch(augmented)
+        column_proof.values = self._rows_bytes(c_std, augmented, column_length // 4)
+        poly_proof = p_tree.prove_batch(positions)
+        poly_proof.values = self._rows_bytes(v_std, positions, N // 4)
+        proof.components.insert(0, FriComponent(column_root=c_tree.root,
+                                                column_proof=column_proof,
+                                                poly_proof=poly_proof))
+
+    def _fold(self, values: torch.Tensor, depth: int, special_x: int) -> torch.Tensor:
+        """`fold` at `depth` with specialX from the host and the layer's
+        tables (w^(4^depth))^i and their inverses as power series: the JAX
+        staged fold's values (fri.py:318-323 gathers them from full-domain
+        series), with no full-domain table."""
+        field = self.field
+        f = field.host
+        dev = field.device_field(values.device)
+        rou = self.context.root_of_unity
+        Ne = self.context.evaluation_domain_size
+        g = f.exp(rou, 4 ** depth)
+        m = values.shape[-1] // 4
+        c_s, c_s2 = (dev.from_ints([v]) for v in (special_x, f.mul(special_x, special_x)))
+        return fold(dev, field, rou, Ne, depth, values, c_s, c_s2,
+                    (dev.power_series(g, m), dev.power_series(f.inv(g), m)))
+
+    def _rows_bytes(self, v_std: torch.Tensor, rows: List[int], row_count: int) -> List[bytes]:
+        """Bytes of stride rows r: elements r, r+M, r+2M, r+3M (LE), all
+        rows gathered and fetched at once."""
+        elem = self.field.element_size
+        idx = torch.as_tensor([r + j * row_count for r in rows for j in range(4)],
+                              dtype=torch.int64, device=v_std.device)
+        ints = limbs_to_ints(v_std.index_select(1, idx).cpu().numpy().astype(np.uint32))
+        return [b"".join(v.to_bytes(elem, "little") for v in ints[4 * i:4 * i + 4])
+                for i in range(len(rows))]
 
 
 def verify_remainder(field, extension_factor: int, remainder: List[int],

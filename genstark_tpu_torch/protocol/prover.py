@@ -278,7 +278,7 @@ class Prover:
                         if static_polys is not None else [])
         p_evals = self._lde(p_polys, Nc, "w_Nc")
         n_evals = torch.roll(p_evals, -(Nc // T), dims=-1)
-        q_evals = context.evaluate_transition_constraints(
+        q_evals = context.evaluate_transition_constraints_over(
             dev, p_evals, n_evals, [static_evals[k] for k in range(len(static_evals))])
         qa = [q_evals[i] for i in range(q_evals.shape[0])]
         for gi, group in enumerate(c_poly.constraint_groups):
@@ -300,7 +300,7 @@ class Prover:
         bdiv = [[(self._table(f"bc{b}_{j}"), self._table(f"bci{b}_{j}"))
                  for j in range(len(c["xs"]))]
                 for b, c in enumerate(c_poly.b_poly.polys.values())]
-        b_stack = torch.stack(c_poly.b_poly.evaluate_all(
+        b_stack = torch.stack(c_poly.b_poly.evaluate_all_tables(
             dev, p_polys, i_polys_mont, bdiv, lambda x: self._lde(x, Ne, "w_Ne")))
 
         # the pointwise tail (kernel 4)

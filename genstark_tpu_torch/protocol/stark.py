@@ -1,9 +1,12 @@
 """The Stark orchestrator of the port: option checks, security level,
-prove, serialize, parse, verify and size.
+prove, prove_staged, serialize, parse, verify and size.
 
-Counterpart of ``genstark_tpu/protocol/stark.py`` (:34-129, `verify`
-:270-362, `parse` :364, `_parse_values` :399).  `prove` runs the host trace
-and the device prover (protocol/prover.py) on the Stark's torch device.
+Counterpart of ``genstark_tpu/protocol/stark.py`` (:34-129, `prove_staged`
+:187-268, `verify` :270-362, `generate_execution_trace` :352, `parse` :364,
+`_merge_values` :379, `_parse_values` :399, `_validate_assertions` :412).
+`prove` runs the host trace and the one-fetch device prover
+(protocol/prover.py) on the Stark's torch device; `prove_staged` runs the
+stage classes one by one there, with the transcript on the host.
 `verify` runs on the host alone, as the JAX package's does: it needs no
 device tensor.
 """
@@ -14,11 +17,16 @@ import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
+import torch
+
+from .. import ntt
+from ..field.limbs import limbs_to_ints
 from ..hash import HASH_ALGORITHMS, create_hash
 from ..merkle import MerkleTree
-from ..utils import pow_log2
+from ..utils import Logger, noop_logger, pow_log2
 from .composition import CompositionPolynomial
-from .fri import LowDegreeVerifier, StarkError, rehashed
+from .fri import LowDegreeProver, LowDegreeVerifier, StarkError, rehashed
 from .lincomb import LinearCombination
 from .proof import StarkProof
 from .prover import Prover
@@ -42,10 +50,12 @@ class Assertion:
 
 
 class Stark:
-    def __init__(self, air, device, options: Optional[dict] = None):
+    def __init__(self, air, device, options: Optional[dict] = None,
+                 logger: Optional[Logger] = None):
         options = options or {}
         self.air = air
         self.dev = air.field.device_field(device)
+        self.logger = logger or noop_logger
 
         exe_query_count = options.get("exe_query_count") or DEFAULT_EXE_QUERY_COUNT
         if not (1 <= exe_query_count <= MAX_EXE_QUERY_COUNT):
@@ -78,10 +88,14 @@ class Stark:
 
     def prove(self, assertions: Sequence[Assertion], inputs: Optional[Sequence] = None,
               seed: Optional[Sequence[int]] = None) -> StarkProof:
+        """The one-fetch prover (protocol/prover.py); logs the JAX `prove`'s
+        lines (stark.py:108-128)."""
+        log = self.logger.start("Starting STARK computation")
         if not assertions:
             raise TypeError("At least one assertion must be provided")
-        context = self.air.init_proving_context(inputs, seed)
+        context = self.air.init_proving_context(inputs, seed, self.dev)
         self.last_context = context      # its trace_source and trace_seconds
+        log("Set up evaluation context")
         try:
             trace_std = context.generate_execution_trace_std()
             self._validate_assertions(context, trace_std, assertions)
@@ -89,7 +103,103 @@ class Stark:
             raise
         except Exception as error:
             raise StarkError("Failed to generate the execution trace") from error
-        return self._prover(context, assertions).prove(trace_std)
+        log("Generated execution trace")
+        proof = self._prover(context, assertions).prove(trace_std)
+        log("Computed STARK proof (fused single-program pipeline)")
+        self.logger.done(log, "STARK computed")
+        return proof
+
+    def prove_staged(self, assertions: Sequence[Assertion],
+                     inputs: Optional[Sequence] = None,
+                     seed: Optional[Sequence[int]] = None) -> StarkProof:
+        """The stage-by-stage prover (JAX `prove_staged`, stark.py:187-268):
+        each stage through its own class on the Stark's device, Montgomery
+        form from the trace to `LowDegreeProver.prove`, the transcript on
+        the host (every tree's root is fetched), a log line a step.  Its
+        bytes are the one-fetch prove's."""
+        log = self.logger.start("Starting STARK computation")
+        if not assertions:
+            raise TypeError("At least one assertion must be provided")
+        field = self.air.field
+        dev = self.dev
+
+        # 1 ----- evaluation context
+        context = self.air.init_proving_context(inputs, seed, dev)
+        self.last_context = context
+        evaluation_domain_size = context.evaluation_domain_size
+        log("Set up evaluation context")
+
+        # 2 ----- execution trace
+        try:
+            execution_trace = context.generate_execution_trace()     # [R, L, T]
+            self._validate_assertions_device(execution_trace, assertions)
+        except StarkError:
+            raise
+        except Exception as error:
+            raise StarkError("Failed to generate the execution trace") from error
+        log("Generated execution trace")
+
+        # 3 ----- P(x) polynomials + low-degree extension
+        p_polys = ntt.intt(field, execution_trace)                   # [R, L, T]
+        log("Computed execution trace polynomials P(x)")
+        p_evaluations = ntt.low_degree_extend(field, p_polys, evaluation_domain_size)
+        log("Low-degree extended P(x) polynomials over evaluation domain")
+
+        # 4 ----- evaluation merkle tree over P and S rows
+        s_evaluations = context.secret_register_traces               # list [L, Ne]
+        e_std = torch.stack([dev.from_mont(p_evaluations[r])
+                             for r in range(p_evaluations.shape[0])]
+                            + [dev.from_mont(s) for s in s_evaluations])   # [V, L, Ne]
+        hashed_evaluations = self.hash.merge_element_rows(e_std, field.element_size)
+        log("Serialized evaluations of P(x) and S(x) polynomials")
+        e_tree = MerkleTree.create(hashed_evaluations, self.hash)
+        log("Built evaluation merkle tree")
+
+        # 5 ----- composition polynomial C(x)
+        c_logger = self.logger.sub("Computing composition polynomial")
+        c_poly = CompositionPolynomial(assertions, e_tree.root, context, c_logger)
+        c_evaluations = c_poly.evaluate_all(p_polys, p_evaluations, context)
+        self.logger.done(c_logger)
+        log("Computed composition polynomial C(x)")
+
+        # 6 ----- random linear combination
+        l_combination = LinearCombination(c_poly.composition_degree, context,
+                                          seed=e_tree.root,
+                                          coefficient_offset=c_poly.coefficient_count)
+        l_evaluations = l_combination.compute_many(c_evaluations, p_evaluations,
+                                                   s_evaluations)
+        log("Combined P(x) and S(x) evaluations with C(x) evaluations")
+
+        # 7 ----- low-degree proof
+        try:
+            ld_logger = self.logger.sub("Computing low degree proof")
+            ld_prover = LowDegreeProver(self.index_generator, self.hash, context, ld_logger)
+            ld_proof = ld_prover.prove(l_evaluations, c_poly.composition_degree)
+            self.logger.done(ld_logger)
+            log("Computed low-degree proof")
+        except StarkError:
+            raise
+        except Exception as error:
+            raise StarkError("Low degree proof failed") from error
+
+        # 8 ----- evaluation tree spot checks
+        positions = self.index_generator.get_exe_indexes(ld_proof.lc_root,
+                                                         evaluation_domain_size)
+        augmented_positions = self.index_generator.get_augmented_positions(
+            positions, evaluation_domain_size)
+        e_values = self._merge_values(e_std, augmented_positions)
+        e_proof = e_tree.prove_batch(augmented_positions)
+        e_proof.values = e_values
+        log(f"Computed {len(positions)} evaluation spot checks")
+        self.logger.done(log, "STARK computed")
+        return StarkProof(ev_root=e_tree.root, ev_proof=e_proof, ld_proof=ld_proof,
+                          i_shapes=context.input_shapes)
+
+    def generate_execution_trace(self, inputs=None, seed=None):
+        """(the Montgomery [R, L, T] trace on the Stark's device, its
+        proving context)."""
+        context = self.air.init_proving_context(inputs, seed, self.dev)
+        return context.generate_execution_trace(), context
 
     def verify(self, assertions: Sequence[Assertion], proof: StarkProof,
                public_inputs: Optional[Sequence] = None) -> bool:
@@ -181,16 +291,49 @@ class Stark:
     def _validate_assertions(self, context, trace_std, assertions) -> None:
         registers, _, steps = trace_std.shape
         for a in assertions:
+            self._check_assertion_ranges(registers, steps, [a])
+            if context.trace_value_host(a.register, a.step) != a.value % self.air.field.modulus:
+                raise StarkError(
+                    f"Assertion at step {a.step}, register {a.register} "
+                    f"conflicts with execution trace")
+
+    def _check_assertion_ranges(self, registers: int, steps: int, assertions) -> None:
+        for a in assertions:
             if a.register < 0 or a.register >= registers:
                 raise ValueError(
                     f"Invalid assertion: register {a.register} is outside of register bank")
             if a.step < 0 or a.step >= steps:
                 raise ValueError(
                     f"Invalid assertion: step {a.step} is outside of execution trace")
-            if context.trace_value_host(a.register, a.step) != a.value % self.air.field.modulus:
+
+    def _validate_assertions_device(self, trace: torch.Tensor, assertions) -> None:
+        """The JAX `_validate_assertions` (stark.py:412-431) on a Montgomery
+        [R, L, T] device trace: the asserted points in one gather and one
+        fetch."""
+        registers, _, steps = trace.shape
+        self._check_assertion_ranges(registers, steps, assertions)
+        idx = torch.as_tensor([[a.register, a.step] for a in assertions], dtype=torch.int64,
+                              device=trace.device)
+        cols = trace[idx[:, 0], :, idx[:, 1]].T                      # [L, A]
+        values = self.dev.to_ints(cols.contiguous())
+        for a, v in zip(assertions, values):
+            if v != a.value % self.air.field.modulus:
                 raise StarkError(
                     f"Assertion at step {a.step}, register {a.register} "
                     f"conflicts with execution trace")
+
+    def _merge_values(self, vectors_std: torch.Tensor, positions: List[int]) -> List[bytes]:
+        """Leaf bytes at positions, each the concatenation of every vector's
+        element (JAX stark.py:379-396): vectors_std [V, L, Ne] standard
+        form, all positions in one gather and one fetch."""
+        elem = self.air.field.element_size
+        V, L, _ = vectors_std.shape
+        idx = torch.as_tensor(positions, dtype=torch.int64, device=vectors_std.device)
+        picked = vectors_std.index_select(2, idx).cpu().numpy().astype(np.uint32)
+        ints = limbs_to_ints(np.moveaxis(picked, 1, 0).reshape(L, -1))   # v-major
+        n = len(positions)
+        return [b"".join(ints[v * n + i].to_bytes(elem, "little") for v in range(V))
+                for i in range(n)]
 
     def size_of(self, proof: StarkProof) -> int:
         return size_of(proof, self.air.field.element_size, self.hash.digest_size)["total"]

@@ -31,7 +31,7 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATHS = ("bench", "mimc256", "rescue-merkle-16", "poseidon-merkle-16", "lib224-merkle-8",
-         "pointmul", "mimc256-2^18", "mimc256-2^20")
+         "pointmul", "fibonacci", "demo-static", "mimc256-2^18", "mimc256-2^20")
 
 
 def load_instrument():
@@ -62,6 +62,12 @@ def make_path(label: str, device, smoke):
         return merkle_import_torch.merkle_proof_case(8, 42, None, device)[:3]
     if label == "pointmul":
         return elliptic_torch.pointmul_case(None, device)[:3]
+    if label == "fibonacci":
+        from examples import fibonacci_torch
+        return fibonacci_torch.fib_case(smoke.FIB_STEPS, device=device)
+    if label == "demo-static":
+        from examples import demo_static_torch
+        return demo_static_torch.demo_case(smoke.DEMO_STEPS, device=device)
     raise ValueError(f"unknown path {label}")
 
 
