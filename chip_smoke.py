@@ -13,6 +13,13 @@ with its trace from the native generator; proves five of these again with
 the staged prover (`prove_staged`), whose bytes must equal the one-fetch
 prove's, with no plain version called; runs the public ntt / intt /
 low_degree_extend at the staged paths' sizes against the plain path;
+proves the bench and MiMC-256 at 2^18 steps with the sharded prover
+(protocol/sharded.py) over four ranks that share the card over gloo,
+spawned by parallel/launch.run_ranks (every rank's bytes equal to the
+pin, every kernel of the sharded path held against its plain version at
+the shard shapes, distributed_ntt / distributed_intt at 2^17 and 2^22
+points against the single-device ntt), and the bench over one nccl rank
+(a one-rank mesh calls every collective, so NCCL runs each on the card);
 parses, re-serializes and verifies every proof it makes with the port's
 verifier; counts the synchronizing
 calls of one warm prove on every path (one, the proof's fetch, after the
@@ -71,6 +78,29 @@ LARGE_PIN = (197428, "77ac03bf41603b6dc55ee72ec00680901a5d0d8929cf792f2b7a61268c
 LARGEST_STEPS = 2 ** 20
 # The direct route's transform size on the 2^18-step path (Ne).
 LARGE_N = 2 ** 22
+# The sharded prover (protocol/sharded.py) over ranks spawned by
+# parallel/launch.py: SHARDED_RANKS ranks sharing the one card over gloo
+# prove the bench and MiMC-256 at 2^18 steps, each against its pin; one rank
+# over nccl proves the bench.  (label, steps, modulus name, pin, kernels the
+# path must launch on every rank: its transforms are local ones of at most
+# 2048 points, kernel 1's levels or kernel 8.)
+SHARDED_RANKS = 4
+SHARDED_TIMEOUT_S = 600.0
+SHARDED_PATHS = (("bench", 2 ** 13, "P128", BENCH_PIN,
+                  ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
+                   "outer_table", "sample_queries")),
+                 ("mimc256-2^18", LARGE_STEPS, "P256", LARGE_PIN,
+                  ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
+                   "outer_table", "sample_queries")))
+# distributed_ntt / distributed_intt against the single-device ntt
+DIST_NTT_SIZES = (("P128", 2 ** 17), ("P256", LARGE_N))
+# The collectives every sharded prove must call on every rank (Mesh.traffic's
+# names: all_to_all_single with equal blocks and with the FRI transpose's
+# splits), on either backend.
+COLLECTIVES = {"all_to_all_single", "all_to_all_single splits", "all_gather", "all_reduce"}
+# H100 SXM NVLink 4, GB/s a direction (data sheet): only the analytic
+# split's projection for four cards reads it.
+NVLINK_GBPS = 450.0
 # The reference's Merkle-proof benchmark rows (its README; examples/rescue.py
 # and examples/poseidon.py options), depth 16, index 42, compiled from their
 # AirScript sources: Rescue (8 registers, 2^9 steps, p128, ext 16, 60/24
@@ -1661,6 +1691,258 @@ def median(values):
     return sorted(values)[len(values) // 2]
 
 
+def check_dist_ntt(mesh, modulus_name: str, n: int) -> dict:
+    """distributed_ntt and distributed_intt over the mesh against the
+    single-device ntt of the same values (made on the card from n), bit
+    for bit: the rank's block of each."""
+    import torch
+    from genstark_tpu_torch import field as fields
+    from genstark_tpu_torch import ntt
+    from genstark_tpu_torch.parallel import distributed_intt, distributed_ntt
+    f = fields.create_prime_field(getattr(fields, modulus_name))
+    dev = f.device_field(mesh.device)
+    x = device_elements(mesh.device, n, f.modulus, dev.L, n)
+    off, b = mesh.block(n)
+    got = distributed_ntt(f, x[:, off:off + b].contiguous(), mesh)
+    back = distributed_intt(f, got, mesh)
+    want = ntt.ntt(f, x)[:, off:off + b]
+    torch.cuda.synchronize()
+    return {"ntt_err": max_abs_err(got, want), "intt_err": max_abs_err(back, x[:, off:off + b])}
+
+
+def check_shard_kernels(prover, mesh) -> dict:
+    """Every kernel of the sharded path against its plain version at the
+    rank's shard shapes (random operands made on the card): each
+    distributed plan's local n1- and n2-point transforms at their column
+    batches (kernel 1 or 8) and its twiddle product (kernel 5), the rank's
+    slice of a factored table (kernel 6), the evaluation leaves of its block
+    and the stride-4 rows of its first FRI layer (kernel 3), the first
+    level of its subtree (kernel 2), kernel 4 at its block, and kernel B at
+    the path's sets.  Returns {kernel: max_abs_err}."""
+    import numpy as np
+    import torch
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.hash import digest_rows_ref, elements_to_words
+    from genstark_tpu_torch.ntt import radix2, transform
+    from genstark_tpu_torch.protocol import device_queries as dq
+    dev, field, D = prover.dev, prover.field, mesh.size
+    p, L, elem, h = field.modulus, dev.L, field.element_size, prover.hash
+    seed = 1000 * (mesh.rank + 1)
+    errs = {}
+
+    def note(name, e):
+        errs[name] = max(errs.get(name, 0), e)
+
+    for plan in prover._get_plans().values():
+        if not plan.distributed:
+            continue
+        c, a = plan.n2 // D, plan.n1 // D
+        for local, n_loc, batch in ((plan.p1, plan.n1, c), (plan.p2, plan.n2, a)):
+            x = device_elements(dev.device, seed, p, L, batch, n_loc).transpose(0, 1).contiguous()
+            name = "butterfly" if isinstance(local, radix2.Radix2Plan) else "dft_level"
+            note(name, max_abs_err(transform(dev, x, local), plain_transform(dev, x, local)))
+        # the path's operand: a [L, 1, c, n1] view of the [1, c, L, n1] transform output
+        y = device_elements(dev.device, seed + 1, p, L, 1, c, plan.n1)
+        y = y.permute(1, 2, 0, 3).contiguous().permute(2, 0, 1, 3)
+        note("field_ew", max_abs_err(dev.mont_mul(y, plan.tw), dev.mont_mul_ref(y, plan.tw)))
+    for key, t in prover._get_tables().items():
+        if t[0] == "factored" and prover._blocked(key):
+            outer, inner = prover._parts(key)
+            note("outer_table", max_abs_err(dev.outer_table(outer, inner),
+                                            dev.outer_table_ref(outer, inner)))
+    V = prover.context.schema.trace_width + len(prover.secret_idx)
+    blk = prover.Ne // D
+    vecs = device_elements(dev.device, seed + 2, p, L, V, blk).transpose(0, 1).contiguous()
+    want = digest_rows_ref(h.algorithm, torch.cat([elements_to_words(vecs[v]) for v in range(V)]),
+                           V * elem)
+    note("hash_limbs", max_abs_err(h.merge_element_rows(vecs, elem), want))
+    if prover._fri_sharded[0]:
+        rows = prover.Ne // 4 // D
+        vals = device_elements(dev.device, seed + 3, p, L, 4 * rows)
+        note("hash_limbs", max_abs_err(h.digest_stride_rows(vals, elem),
+                                       limbs_plain(h.algorithm, vals, "rows", elem, 0, rows)))
+    g = torch.Generator(device=dev.device)
+    g.manual_seed(seed + 4)
+    leaves = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, blk), generator=g, device=dev.device,
+                           dtype=torch.int32)
+    pairs = torch.cat([leaves[:, 0::2], leaves[:, 1::2]], dim=0).contiguous()
+    note("hash_words", max_abs_err(h.hash_pairs(leaves), digest_rows_ref(h.algorithm, pairs, 64)))
+    B = prover.c_poly.b_poly.count
+    tail = {"lcomb_tail": {"max_abs_err": 0}}
+    check_tail(dev, field, np.random.default_rng(seed), tail,
+               record_times=False, shape=(blk, prover.context.extension_factor, B, V))
+    note("lcomb_tail", tail["lcomb_tail"]["max_abs_err"])
+    specs = prover._sample_specs()
+    g.manual_seed(seed + 5)
+    roots = torch.randint(-2 ** 31, 2 ** 31 - 1, (len(specs), 8), generator=g,
+                          device=dev.device, dtype=torch.int32)
+    got, want = kernels.sample_queries(roots, specs), dq.sample_sets_ref(roots, specs)
+    note("sample_queries", max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1])))
+    torch.cuda.synchronize()
+    return errs
+
+
+def sharded_rank(mesh, paths, ntt_sizes, reps: int, scaling: bool) -> dict:
+    """One rank of a sharded phase (run by parallel/launch.run_ranks): per
+    path a warm-up prove, then one prove with the launch counts set to 0
+    before it and read after it (and every plain version's calls counted:
+    none may run), its peak memory and the mesh's exchanges, `reps` timed
+    proves, and `check_shard_kernels`; then the distributed_ntt checks at
+    ntt_sizes (after the proves, so their plans are not in the proves'
+    peaks) and, with `scaling`, measure_ntt_scaling at 2^17 points."""
+    import torch
+    from mimc_torch import make_mimc_stark
+    from genstark_tpu_torch import field as fields
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.parallel.scaling import measure_ntt_scaling
+    out = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend, "paths": {}}
+    for label, steps, modulus_name, _, _ in paths:
+        stark, constants = make_mimc_stark(steps, mesh.device,
+                                           modulus=getattr(fields, modulus_name))
+        stark.set_mesh(mesh)
+        assertions = mimc_assertions(stark, constants, steps)
+        t0 = time.monotonic()
+        stark.prove(assertions, [[3]])
+        torch.cuda.synchronize()
+        warmup = time.monotonic() - t0
+        mesh.traffic.clear()
+        torch.cuda.reset_peak_memory_stats()
+        with plain_calls() as plain:
+            kernels.reset_launch_counts()
+            data = stark.serialize(stark.prove(assertions, [[3]]))
+            launches = dict(kernels.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        traffic = dict(mesh.traffic)
+        trace_s = require_native(stark, f"sharded {label}")
+        times = []
+        for _ in range(reps):
+            t0 = time.monotonic()
+            stark.prove(assertions, [[3]])
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        prover = next(iter(stark._provers.values()))
+        out["paths"][label] = {
+            "bytes": data, "launches": launches, "plain_calls": plain, "peak_bytes": peak,
+            "traffic": traffic, "warmup_s": warmup, "prove_s": times, "trace_s": trace_s,
+            "host_fallbacks": host_fallbacks(stark), "fri_sharded": prover._fri_sharded,
+            "kernel_errs": check_shard_kernels(prover, mesh)}
+        del stark, prover
+        torch.cuda.empty_cache()
+    out["ntt"] = {f"{m}-{n}": check_dist_ntt(mesh, m, n) for m, n in ntt_sizes}
+    if scaling:
+        out["scaling"] = measure_ntt_scaling(mesh, n=2 ** 17)
+    return out
+
+
+def run_sharded(device, results, smi_line: str) -> dict:
+    """The sharded phases: SHARDED_RANKS ranks sharing the card over gloo,
+    then one rank over nccl (the bench).  Every rank's proof must equal
+    its pin, the port's verifier must accept it, every kernel of the path
+    must have launched on every rank with no plain version called, every
+    collective of COLLECTIVES must have run on every rank (NCCL's one rank
+    included), no prove may fall back to the host sampler, and every kernel must equal
+    its plain version at the shard shapes (merged into `results`).  Prints
+    per-rank launches, peaks and exchanges and the best of 3 sharded
+    prove_s beside this call's single-device prove_s; returns the launches
+    of the counted proves, summed over the ranks, and the phase's record."""
+    import torch
+    from mimc_torch import make_mimc_stark
+    from genstark_tpu_torch import field as fields
+    from genstark_tpu_torch import ntt
+    from genstark_tpu_torch.parallel.launch import run_ranks
+    from genstark_tpu_torch.parallel.scaling import comm_compute_split
+    single, starks = {}, {}
+    for label, steps, modulus_name, _, _ in SHARDED_PATHS:
+        stark, constants = make_mimc_stark(steps, device, modulus=getattr(fields, modulus_name))
+        assertions = mimc_assertions(stark, constants, steps)
+        stark.prove(assertions, [[3]])
+        times = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            stark.prove(assertions, [[3]])
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        single[label] = min(times)
+        starks[label] = (stark, assertions)
+    f128 = fields.create_prime_field(fields.P128)
+    x = device_elements(device, 7, f128.modulus, 8, 2 ** 17)
+    single_ntt_s = cuda_ms(lambda: ntt.ntt(f128, x)) / 1e3
+    torch.cuda.empty_cache()
+
+    launches = {}
+    record = {"label": f"{SHARDED_RANKS} ranks sharing one card, gloo", "device": smi_line,
+              "single_prove_s": single}
+    for world, backend, paths, ntt_sizes, reps in (
+            (SHARDED_RANKS, "gloo", SHARDED_PATHS, DIST_NTT_SIZES, 3),
+            (1, "nccl", SHARDED_PATHS[:1], (), 3)):
+        label = f"{world} rank{'s' if world > 1 else ''} {backend}"
+        t0 = time.monotonic()
+        ranks = run_ranks(sharded_rank, world, backend, "cuda",
+                          args=(paths, ntt_sizes, reps, world > 1), timeout_s=SHARDED_TIMEOUT_S)
+        group_s = time.monotonic() - t0
+        print(f"sharded {label}: the group took {group_s:.1f} s (spawn, setup, checks and "
+              f"proves)", flush=True)
+        for r in ranks:
+            for size, errs in r["ntt"].items():
+                print(f"sharded {label} rank {r['rank']} distributed ntt/intt {size}: {errs}",
+                      flush=True)
+                require(errs["ntt_err"] == 0 and errs["intt_err"] == 0,
+                        f"sharded {label} rank {r['rank']}: distributed transform {size} differs")
+        per_path = {}
+        for path_label, _, _, pin, required in paths:
+            rows = [r["paths"][path_label] for r in ranks]
+            for r, row in zip(ranks, rows):
+                got = proof_digest(row["bytes"])
+                print(f"sharded {label} {path_label} rank {r['rank']} ({r['device']}): proof "
+                      f"{got[0]} bytes sha256 {got[1]}; launches {row['launches']}; peak "
+                      f"device memory {row['peak_bytes']} bytes; exchanges {row['traffic']}; "
+                      f"prove_s {[round(t, 6) for t in row['prove_s']]}; FRI layers sharded "
+                      f"{row['fri_sharded']}; kernels vs plain {row['kernel_errs']}",
+                      flush=True)
+                require(got == pin, f"sharded {label} {path_label} rank {r['rank']}: proof "
+                        f"differs from its pin {pin}")
+                missing = [k for k in required if row["launches"][k] == 0]
+                require(not missing, f"sharded {label} {path_label} rank {r['rank']}: kernels "
+                        f"of the path never launched: {missing}")
+                require(not any(row["plain_calls"].values()),
+                        f"sharded {label} {path_label}: plain versions called {row['plain_calls']}")
+                require(row["host_fallbacks"] == 0,
+                        f"sharded {label} {path_label}: {row['host_fallbacks']} host fallbacks")
+                ran = {op for op, (calls, _, _) in row["traffic"].items() if calls}
+                require(ran == COLLECTIVES, f"sharded {label} {path_label} rank {r['rank']}: "
+                        f"collectives called {sorted(ran)}, not {sorted(COLLECTIVES)}")
+                for name, e in row["kernel_errs"].items():
+                    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+                    require(e == 0, f"sharded {label} {path_label}: {name} != plain version "
+                            f"at the shard shapes")
+                for k, n in row["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+            stark, assertions = starks[path_label]
+            verify_proof(stark, assertions, rows[0]["bytes"], None, f"sharded {label} {path_label}")
+            best = max(min(row["prove_s"]) for row in rows)
+            print(f"sharded {label} {path_label}: prove best-of-{len(rows[0]['prove_s'])} "
+                  f"{best:.6f} s (the slowest rank's best) against {single[path_label]:.6f} s "
+                  f"on one device in this call ({label}{', sharing one card' if world > 1 else ''}: "
+                  f"no scaling number)", flush=True)
+            per_path[path_label] = {
+                "prove_s_best": best, "single_prove_s": single[path_label],
+                "per_rank": [{"rank": r["rank"], "launches": row["launches"],
+                              "peak_bytes": row["peak_bytes"], "prove_s": row["prove_s"],
+                              "warmup_s": row["warmup_s"], "exchanges": row["traffic"]}
+                             for r, row in zip(ranks, rows)]}
+        entry = {"group_s": group_s, "paths": per_path}
+        if world > 1:
+            entry["ntt_scaling"] = ranks[0]["scaling"]
+            bf = (2 ** 16) * 17 / single_ntt_s
+            entry["comm_compute_split"] = comm_compute_split(2 ** 17, world, NVLINK_GBPS, bf)
+            entry["comm_compute_split"]["inputs"] = (
+                f"single-card p128 2^17 ntt {single_ntt_s:.6f} s in this call; NVLink "
+                f"{NVLINK_GBPS} GB/s from the H100 SXM data sheet")
+        record[label] = entry
+    print(json.dumps({"sharded": record}), flush=True)
+    return launches
+
+
 def run_staged(kernels, stark, assertions, inputs, pin, required, label: str,
                sync_log: dict, smi_line: str, public=None, reps: int = 5):
     """One configuration through both provers: a warm-up of each; the
@@ -2028,6 +2310,13 @@ def main() -> int:
     del four, large_data
     torch.cuda.empty_cache()
 
+    phase(f"sharded prover: {SHARDED_RANKS} ranks sharing one card over gloo (the bench and "
+          f"MiMC-256 at {LARGE_STEPS} steps, distributed NTT at {DIST_NTT_SIZES}), then one "
+          f"rank over nccl (the bench)")
+    t0 = time.monotonic()
+    sharded_launches = run_sharded(device, results, smi_line)
+    print(f"sharded phases {time.monotonic() - t0:.1f} s", flush=True)
+
     phase(f"MiMC-256: P256, {LARGEST_STEPS} steps (Ne = {16 * LARGEST_STEPS})")
     largest_launches = run_largest(kernels, device, LARGEST_STEPS, "mimc256-2^20", sync_log)
     print(json.dumps({"syncs": sync_log}), flush=True)
@@ -2040,7 +2329,8 @@ def main() -> int:
                 + largest_launches[k] + sum(m[k] for m in merkle_launches)
                 + sum(m[k] for m in demo_launches)
                 + sum(st["launches"][k] for st in staged.values())
-                + div_launches[k] + rates["launches"].get(k, 0) for k in meta}
+                + div_launches[k] + rates["launches"].get(k, 0)
+                + sharded_launches.get(k, 0) for k in meta}
     line = []
     for name in meta:
         r = results[name]

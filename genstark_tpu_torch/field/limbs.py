@@ -46,15 +46,18 @@ def ints_to_limbs(values, L: int) -> np.ndarray:
     return np.frombuffer(raw, dtype="<u2").reshape(len(values), L).T.astype(np.uint32)
 
 
-def power_series_mont_np(params: "MontParams", seed: int, length: int) -> np.ndarray:
-    """[1, s, s^2, ...] in Montgomery form as np.uint32[L, length], computed
-    with host big-int arithmetic (one multiply per element — much cheaper
-    than a compiled log-doubling chain, and keeps large power tables OUT of
-    compiled programs where they would be baked in as multi-MB literals)."""
+def power_series_mont_np(params: "MontParams", seed: int, length: int,
+                         start: int = 0) -> np.ndarray:
+    """[s^start, s^(start+1), ...] (length entries; [1, s, s^2, ...] by
+    default) in Montgomery form as np.uint32[L, length], computed with host
+    big-int arithmetic (one multiply per element — much cheaper than a
+    compiled log-doubling chain, and keeps large power tables OUT of
+    compiled programs where they would be baked in as multi-MB literals).
+    `start` gives a rank of a sharded prover its block of a table."""
     p = params.modulus
     step = seed % p
     vals = []
-    v = params.R_mod                       # Montgomery form of 1
+    v = params.R_mod * pow(step, start, p) % p     # Montgomery form of s^start
     for _ in range(length):
         vals.append(v)
         v = v * step % p

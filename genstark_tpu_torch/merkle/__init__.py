@@ -4,7 +4,9 @@ Counterpart of ``genstark_tpu/merkle/__init__.py``.  `build_tree_flat`
 builds every level on the device with `Hash.hash_pairs` (kernel 2 on CUDA)
 into one word-major [8, 2n - 1] buffer in the port's own layout: exact
 levels, leaves first, root last (level k starts at row `level_offset(n,
-k)`).  Proof scheduling (`plan_batch`) and assembly (`assemble_batch`) are
+k)`); `build_tree_sharded` builds a rank's part of a tree whose leaves are
+sharded over a mesh (its subtree, then the replicated top), and
+`sharded_tree_rows` maps a row of the whole tree into that layout.  Proof scheduling (`plan_batch`) and assembly (`assemble_batch`) are
 host index bookkeeping, copied from the JAX package so the proofs carry the
 same sibling schedule.  `MerkleTree` (JAX :187-305) is the device tree of
 the staged prover (`create`, `_fetch_nodes`, `prove_batch`: the root and
@@ -38,6 +40,48 @@ def build_tree_flat(h, leaves: torch.Tensor, n: int) -> torch.Tensor:
         cur = h.hash_pairs(cur)
         levels.append(cur)
     return torch.cat(levels, dim=1)
+
+
+def build_tree_sharded(h, leaves: torch.Tensor, n: int, mesh) -> torch.Tensor:
+    """A rank's part of the flat tree over n leaves sharded over a mesh of
+    D ranks (the JAX package's per-shard Merkle hashing): leaves [8, n/D]
+    is the rank's block; its subtree (`build_tree_flat`, 2n/D - 1 rows),
+    one list-form `all_gather` of the D subtree roots, then the tree over
+    them (2D - 1 rows), the same on every rank.  Returns
+    [8, sharded_row_count(n, D)], the root last, as `build_tree_flat`'s."""
+    sub = build_tree_flat(h, leaves, n // mesh.size)
+    tops = torch.stack(mesh.all_gather(sub[:, -1]), dim=1)          # [8, D]
+    return torch.cat([sub, build_tree_flat(h, tops, mesh.size)], dim=1)
+
+
+def sharded_row_count(n: int, D: int) -> int:
+    """Rows of a rank's part of a sharded tree (`build_tree_sharded`)."""
+    return tree_row_count(n // D) + tree_row_count(D)
+
+
+def _bit_length(x: torch.Tensor) -> torch.Tensor:
+    """Bit lengths of int64 values below 2^53 (0 for 0), exactly."""
+    return torch.frexp(x.to(torch.float64))[1].to(torch.int64)
+
+
+def sharded_tree_rows(g: torch.Tensor, n, D: int):
+    """Where the rows g (int64, `level_offset(n, level) + idx` of the flat
+    tree over n leaves; n an int or an int64 tensor broadcast with g) lie
+    in `build_tree_sharded`'s layout over D ranks: (owner rank, row in the
+    owner's part).  A row of a level wider than D belongs to the rank whose
+    block holds it; the levels of the top tree are on every rank and are
+    given to rank 0, so every row has exactly one owner."""
+    n = torch.as_tensor(n, dtype=torch.int64, device=g.device)
+    d = _bit_length(n) - 1
+    level = d + 1 - _bit_length(2 * n - g - 1)
+    width = torch.bitwise_right_shift(n, level)
+    idx = g - (2 * n - 2 * width)
+    sub = width > D
+    bw = torch.clamp(width // D, min=1)
+    nb = n // D
+    owner = torch.where(sub, idx // bw, torch.zeros_like(idx))
+    local = torch.where(sub, 2 * nb - 2 * bw + idx % bw, 2 * nb - 1 + 2 * D - 2 * width + idx)
+    return owner, local
 
 
 @dataclass

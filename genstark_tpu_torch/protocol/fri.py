@@ -49,12 +49,15 @@ def fold(dev, field, root_of_unity: int, domain_size: int, depth: int,
          values: torch.Tensor, c_s: torch.Tensor, c_s2: torch.Tensor,
          xtabs) -> torch.Tensor:
     """Quartic fold at `depth`: values [L, N] -> [L, N/4] with
-    N = domain_size / 4^depth.  c_s / c_s2: specialX and specialX^2 as
+    N = domain_size / 4^depth, row i of the output from the values at i,
+    i + N/4, i + N/2, i + 3N/4.  c_s / c_s2: specialX and specialX^2 as
     [L, 1] Montgomery; xtabs: (x_tab, ix_tab) [L, N/4] tables of
-    (w^(4^depth))^i and their inverses.  Representation-preserving: every
-    value multiply carries a Montgomery coefficient."""
+    (w^(4^depth))^i and their inverses.  A rank of a mesh passes its rows'
+    values as [L, 4 * rows] (protocol/sharded.py's stride transpose) and
+    its rows of the tables.  Representation-preserving: every value
+    multiply carries a Montgomery coefficient."""
     f = field.host
-    M = (domain_size // 4 ** depth) // 4
+    M = values.shape[-1] // 4
     x, ix = xtabs
     q = f.exp(root_of_unity, domain_size // 4)       # primitive 4th root
     inv4 = f.inv(4)

@@ -203,20 +203,23 @@ class Prover:
         standard-form LDE."""
         return self._keep("plans", self._make_plans)
 
-    def _make_plans(self) -> Dict[str, object]:
+    def _plan_specs(self) -> Dict[str, tuple]:
+        """key -> (n, root, scale) of every transform the pipeline runs."""
         field, f = self.field, self.field.host
         p = field.modulus
         T = self.context.trace_length
         Ne, Nc = self.Ne, self.context.composition_domain_size
-        specs = {
+        return {
             "w_T_inv": (T, f.inv(f.get_root_of_unity(T)), f.inv(T % p)),
             "w_Ne": (Ne, f.get_root_of_unity(Ne), 1),
             "w_Ne_std": (Ne, f.get_root_of_unity(Ne), f.inv(field.params.R_mod % p)),
             "w_Nc": (Nc, f.get_root_of_unity(Nc), 1),
             "w_Nc_inv": (Nc, f.inv(f.get_root_of_unity(Nc)), f.inv(Nc % p)),
         }
-        return {k: make_plan(field, self.dev, n, root, scale)
-                for k, (n, root, scale) in specs.items()}
+
+    def _make_plans(self) -> Dict[str, object]:
+        return {k: make_plan(self.field, self.dev, n, root, scale)
+                for k, (n, root, scale) in self._plan_specs().items()}
 
     def _transform(self, x: torch.Tensor, key: str) -> torch.Tensor:
         return transform(self.dev, x, self._get_plans()[key])
@@ -248,8 +251,23 @@ class Prover:
         e_std = torch.cat(e_vectors).contiguous()                    # [V, L, Ne]
         del e_vectors
         leaves = self.hash.merge_element_rows(e_std, self.field.element_size)
-        e_flat = build_tree_flat(self.hash, leaves, Ne)
+        e_flat = self._commit_tree(leaves, Ne)
         return p_polys, static_polys, e_std, e_flat, root_words(e_flat)
+
+    def _commit_tree(self, leaves: torch.Tensor, n: int) -> torch.Tensor:
+        """The flat tree over the leaves [8, n] (a mesh: its part)."""
+        return build_tree_flat(self.hash, leaves, n)
+
+    def _next_evals(self, p_evals: torch.Tensor, shift: int) -> torch.Tensor:
+        """P(x * g) over the composition domain: p_evals rolled by one trace
+        step, `shift` = Nc / T positions (a mesh: its halo exchange)."""
+        return torch.roll(p_evals, -shift, dims=-1)
+
+    def _inv_series(self) -> torch.Tensor:
+        """1 / (Z's numerators), [L, ext], periodic over the evaluation
+        domain (a mesh: from the rank's first position)."""
+        return self._keep("inv_series",
+                          lambda: self.dev.from_ints(self.c_poly.z_poly.inverse_numerators()))
 
     def _coefficients(self, e_root: torch.Tensor):
         """Transcript coefficients from prng(e_root) on the device
@@ -277,7 +295,7 @@ class Prover:
         static_evals = (self._lde(static_polys, Nc, "w_Nc")
                         if static_polys is not None else [])
         p_evals = self._lde(p_polys, Nc, "w_Nc")
-        n_evals = torch.roll(p_evals, -(Nc // T), dims=-1)
+        n_evals = self._next_evals(p_evals, Nc // T)
         q_evals = context.evaluate_transition_constraints_over(
             dev, p_evals, n_evals, [static_evals[k] for k in range(len(static_evals))])
         qa = [q_evals[i] for i in range(q_evals.shape[0])]
@@ -305,8 +323,7 @@ class Prover:
 
         # the pointwise tail (kernel 4)
         z = c_poly.z_poly
-        inv_series = self._keep("inv_series",
-                                lambda: dev.from_ints(z.inverse_numerators()))   # [L, ext]
+        inv_series = self._inv_series()                             # [L, ext]
         b_inc = c_poly.composition_degree - T > 0
         ps_inc = self.l_comb.ps_incremental_degree > 0
         incr_parts = self._parts("incr") if (b_inc or ps_inc) else None
@@ -470,8 +487,8 @@ class Prover:
         checks = []
         for s, (count, _, _, _) in enumerate(specs):
             checks += [idx[s, :count], found[s:s + 1]]
-        sections = [e_flat[:, rows_e].T.reshape(-1), fri_cat[:, rows_f].T.reshape(-1),
-                    vals_cat[:, cols].reshape(-1), e_std[:, :, e_idx].reshape(-1)]
+        sections = [self._gather_sections(e_flat, rows_e, fri_cat, rows_f, vals_cat, cols,
+                                          e_std, e_idx)]
         sections += [c.to(torch.int32) for c in checks]
         sections += [e_root, roots.reshape(-1)]
         return torch.cat(sections)
@@ -592,12 +609,19 @@ class Prover:
             return torch.as_tensor(out, device=dev_)
 
         capRe, capRf, capC, capE = self._caps
-        packed = torch.cat([
-            e_flat[:, idx(hp["rows_e"], capRe)].T.reshape(-1),
-            fri_cat[:, idx(hp["rows_f"], capRf)].T.reshape(-1),
-            vals_cat[:, idx(hp["val_idx"], capC)].reshape(-1),
-            e_std[:, :, idx(hp["e_idx"], capE)].reshape(-1)])
+        packed = self._gather_sections(e_flat, idx(hp["rows_e"], capRe), fri_cat,
+                                       idx(hp["rows_f"], capRf), vals_cat,
+                                       idx(hp["val_idx"], capC), e_std, idx(hp["e_idx"], capE))
         return np.ascontiguousarray(packed.cpu().numpy()).view(np.uint32)
+
+    def _gather_sections(self, e_flat, rows_e, fri_cat, rows_f, vals_cat, cols, e_std,
+                         e_idx) -> torch.Tensor:
+        """[rows_e x 8 | rows_f x 8 | L x cols | V x L x evals] from the
+        trees, the FRI layers and the committed evaluations, by the rows,
+        columns and positions of the whole domain (a mesh: each rank takes
+        what it holds and one all_reduce combines them)."""
+        return torch.cat([e_flat[:, rows_e].T.reshape(-1), fri_cat[:, rows_f].T.reshape(-1),
+                          vals_cat[:, cols].reshape(-1), e_std[:, :, e_idx].reshape(-1)])
 
     def _assemble(self, packed: np.ndarray, hp) -> StarkProof:
         """Unpack a gathered buffer (`_packed_tail`'s or `_gather`'s: the

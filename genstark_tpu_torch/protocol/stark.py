@@ -8,7 +8,8 @@ Counterpart of ``genstark_tpu/protocol/stark.py`` (:34-129, `prove_staged`
 (protocol/prover.py) on the Stark's torch device; `prove_staged` runs the
 stage classes one by one there, with the transcript on the host.
 `verify` runs on the host alone, as the JAX package's does: it needs no
-device tensor.
+device tensor.  With a mesh (option "mesh" or `set_mesh`, :75-87) `prove`
+runs the sharded prover (protocol/sharded.py) on every rank of it.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from .proof import StarkProof
 from .prover import Prover
 from .queries import QueryIndexGenerator
 from .serializer import Serializer
+from .sharded import ShardedProver
 from .sizeof import size_of
 
 DEFAULT_EXE_QUERY_COUNT = 80
@@ -76,6 +78,19 @@ class Stark:
                                      air.secret_input_count, self.hash.digest_size)
         self._provers = {}
         self.last_context = None
+        self.mesh = None
+        self.set_mesh(options.get("mesh"))
+
+    def set_mesh(self, mesh) -> None:
+        """Shard `prove` over a parallel.mesh.Mesh (every rank of it calls
+        prove with the same inputs and gets the same proof), or go back to
+        one device with None (the JAX `set_mesh`, stark.py:83-87).  The
+        Stark's tensors move to the mesh's device."""
+        if mesh is not self.mesh:
+            self.mesh = mesh
+            self._provers = {}
+            if mesh is not None:
+                self.dev = self.air.field.device_field(mesh.device)
 
     @property
     def security_level(self) -> int:
@@ -282,7 +297,8 @@ class Stark:
                tuple((a.step, a.register, a.value) for a in assertions))
         prover = self._provers.get(key)
         if prover is None:
-            prover = Prover(self, context, assertions, self.dev)
+            prover = (Prover(self, context, assertions, self.dev) if self.mesh is None else
+                      ShardedProver(self, context, assertions, self.dev, self.mesh))
             self._provers[key] = prover
         else:
             prover.context = context
