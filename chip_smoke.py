@@ -148,7 +148,7 @@ P224_KERNELS = ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew
                 "sample_queries")
 # the division AIR's constraint divides by a register: its proves run inv,
 # whose total is inverted by kernel A
-DIV_KERNELS = ("dft_level", "hash_words", "field_ew", "sample_queries", "mont_pow")
+DIV_KERNELS = ("dft_level", "hash_words", "field_ew", "sample_queries", "mont_inv")
 FIB_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
                "outer_table", "sample_queries")
 DEMO_KERNELS = ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
@@ -188,6 +188,17 @@ BLAKE2S_BLOCK_OPS = 10 * 8 * 14
 # adds, Sigma0 5, Maj 5, 2 adds), 48 schedule words of 13 (sigma0 5, sigma1
 # 5, 3 adds), 8 final adds.
 SHA256_BLOCK_OPS = 64 * 24 + 48 * 13 + 8
+# Dependent ops on the critical path of one SHA-256 round (kernel B's chain:
+# Sigma1's rotations then their xor, the two adds into T1, the add into e).
+SHA256_ROUND_CHAIN = 5
+# Kernel A's binary GCD: u32 ops of one step (on the 64-bit a, b: both
+# subtractions 4, the compare 2, the odd and swap tests 2, the selects 6,
+# the shift 2; on the 32-bit factors: differences 2, negations 2, selects 6,
+# doublings 2) and dependent ops on its chain (a subtraction 2, two selects,
+# the shift); a batch's update of a, b, u, v on k words: u32 ops 24k + 16
+# for the four, and on the chain the products' carries k + 1, the sum's k +
+# 1, the shift or reduction k and the two shuffles: 3k + 4.
+GCD_STEP_OPS, GCD_STEP_CHAIN = 28, 5
 
 
 class SmokeFailure(Exception):
@@ -902,8 +913,8 @@ def sass_report(lib_path: str, mangled_part: str):
 def check_probes(device, fields, rng, results):
     """Kernels 10 and 11 against their plain versions at the probes' shapes
     (mont_chain at depth 16 over [L, 2^21] at every L, both chains;
-    u32_chain over 2^26 words); the reported times are the squaring chain
-    at L = 16 and the u32 chain."""
+    u32_chain over 2^26 words, and over one word for three rounds); the
+    reported times are the squaring chain at L = 16 and the u32 chain."""
     import numpy as np
     import torch
     from genstark_tpu_torch import kernels, roofline
@@ -930,6 +941,8 @@ def check_probes(device, fields, rng, results):
     w = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, size=n, dtype=np.int64)
                         .astype(np.int32), device=device)
     e = max_abs_err(kernels.u32_chain(w), roofline.u32_chain_ref(w))
+    # the one-thread latency form: one element, three rounds
+    e = max(e, max_abs_err(kernels.u32_chain(w[:1], 3), roofline.u32_chain_ref(w[:1], 3)))
     require(e == 0, "u32_chain kernel != plain version")
     km = cuda_ms(lambda: kernels.u32_chain(w))
     pm = cuda_ms(lambda: roofline.u32_chain_ref(w), reps=1)
@@ -939,45 +952,44 @@ def check_probes(device, fields, rng, results):
     print(f"u32_chain n={n}: max_abs_err={e} kernel {km:.4f} ms plain {pm:.4f} ms", flush=True)
 
 
-def check_mont_pow(kernels, device, fields, rng, results):
-    """Kernel A against mont_pow_ref, bit for bit, at every L, e = p - 2:
+def check_mont_inv(kernels, device, fields, rng, results):
+    """Kernel A against mont_pow_ref(x, p - 2), bit for bit, at every L:
     1000 elements with zero among them in one launch, and inv's [L, 1]
-    total alone (against the first column of the same plain result); at L
-    = 16 also a 256-bit exponent.  The reported time is one P256 element
-    (inv's launch)."""
+    total alone (against the first column of the same plain result).  The
+    reported time is one P256 element (inv's launch); its latency floor is
+    the binary GCD's dependent chain (T batches of GCD_STEPS steps and an
+    update) at the measured latency of a dependent u32 op."""
     import torch
-    r = results["mont_pow"]
+    r = results["mont_inv"]
     for field in fields:
         dev = field.device_field(device)
         p, L = field.modulus, dev.L
         x = dev.from_numpy(random_elements(rng, p, L, 1000))
         x[:, 500] = 0
         want = dev.mont_pow_ref(x, p - 2)
-        err = max(max_abs_err(kernels.mont_pow(dev, x, p - 2), want),
-                  max_abs_err(kernels.mont_pow(dev, x[:, :1], p - 2), want[:, :1]))
+        err = max(max_abs_err(kernels.mont_inv(dev, x), want),
+                  max_abs_err(kernels.mont_inv(dev, x[:, :1]), want[:, :1]))
         require(not want[:, 500].any(), "mont_pow_ref: 0^(p-2) != 0")
         timing = ""
         if L == 16:
-            e = (1 << 256) - 1
-            err = max(err, max_abs_err(kernels.mont_pow(dev, x[:, :8], e),
-                                       dev.mont_pow_ref(x[:, :8], e)))
             one = x[:, :1].contiguous()
-            km = cuda_ms(lambda: kernels.mont_pow(dev, one, p - 2))
+            km = cuda_ms(lambda: kernels.mont_inv(dev, one))
             t0 = time.monotonic()
             dev.mont_pow_ref(one, p - 2)
             torch.cuda.synchronize()
             pm = (time.monotonic() - t0) * 1e3
-            # the ladder's products: a square a bit below the top, a multiply
-            # a set bit below it
-            products = (p - 2).bit_length() - 1 + bin(p - 2).count("1") - 1
-            r.update(ms=km, plain_ms=pm, bytes=2 * 4 * L, work=[(("mont_w", L), products)],
-                     device_ms=device_ms(lambda: kernels.mont_pow(dev, one, p - 2)))
-            timing = (f"; one element ({products} products): kernel {km:.4f} ms "
-                      f"(device {fmt_ms(r['device_ms'])}) plain {pm:.4f} ms (one call)")
-        print(f"mont_pow p{p.bit_length()} L={L} ([L, 1000] with a zero and [L, 1], e = p - 2"
-              f"{'; 8 elements, e = 2^256 - 1' if L == 16 else ''}): max_abs_err={err}{timing}",
-              flush=True)
-        require(err == 0, f"mont_pow kernel != plain version at L = {L}")
+            batches, k, steps = kernels.mont_inv_constant(p, L)[0], L // 2, kernels.GCD_STEPS
+            ops = batches * (steps * GCD_STEP_OPS + 24 * k + 16)
+            r.update(ms=km, plain_ms=pm, bytes=2 * 4 * L,
+                     work=[("u32", ops), (("mont_w", L), 1)],
+                     chain=batches * (steps * GCD_STEP_CHAIN + 3 * k + 4),
+                     device_ms=device_ms(lambda: kernels.mont_inv(dev, one)))
+            timing = (f"; one element ({batches} batches of {steps} steps, {r['chain']} "
+                      f"dependent ops): kernel {km:.4f} ms (device {fmt_ms(r['device_ms'])}) "
+                      f"plain {pm:.4f} ms (one call)")
+        print(f"mont_inv p{p.bit_length()} L={L} ([L, 1000] with a zero and [L, 1]): "
+              f"max_abs_err={err}{timing}", flush=True)
+        require(err == 0, f"mont_inv kernel != plain version at L = {L}")
         r["max_abs_err"] = max(r["max_abs_err"], err)
 
 
@@ -994,14 +1006,33 @@ def candidates_needed(seed: bytes, count: int, max_: int, excl: int) -> int:
     return i
 
 
+def odd_hex_roots(rng, n: int, count: int, max_: int, excl: int):
+    """n roots (int32 [n, 8] LE words) whose state sha256(root) has an odd
+    hex length (a zero top nibble), each needing more candidates than one
+    window of kernel B (256) for its set: found on the host with
+    candidates_needed."""
+    import hashlib
+    import numpy as np
+    out = []
+    while len(out) < n:
+        root = rng.integers(0, 256, size=32, dtype=np.uint8).tobytes()
+        if (hashlib.sha256(root).digest()[0] >> 4 == 0
+                and candidates_needed(root, count, max_, excl) > 256):
+            out.append(np.frombuffer(root, dtype="<u4").view(np.int32))
+    return np.stack(out)
+
+
 def check_sample_queries(kernels, device, rng, results):
     """Kernel B against sample_sets_ref, bit for bit: the bench's six sets
     (48 execution positions over 2^17 excluding multiples of 16, 24 a FRI
-    layer over 2^15 .. 2^7) and a set over 2^32 (indexes above 2^31: the
-    int64 case), from seeded roots; the positions also against the host
-    sampler.  The reported time is the bench's sets in one launch; its
-    bound counts the SHA-256 compressions these seeds need (the state and
-    each candidate up to the set's last), and the bytes in and out."""
+    layer over 2^15 .. 2^7), a set over 2^32 (indexes above 2^31: the
+    int64 case) and two odd-hex seeds whose sets need a second window, from
+    seeded roots; the positions also against the host sampler.  The
+    reported time is the bench's sets in one launch; its bound counts the
+    SHA-256 compressions these seeds need (the state and each candidate up
+    to the set's last), and the bytes in and out; its latency floor is two
+    dependent compressions (the state's, then a candidate's) at the
+    measured latency of a dependent u32 op."""
     import numpy as np
     import torch
     from genstark_tpu_torch.protocol import device_queries as dq
@@ -1010,9 +1041,13 @@ def check_sample_queries(kernels, device, rng, results):
     bench = [(48, 2 ** 17, 16, n_cand(48))] + [(24, 2 ** k, 16, n_cand(24))
                                                 for k in (15, 13, 11, 9, 7)]
     r = results["sample_queries"]
-    for label, specs in (("bench", bench), ("max 2^32", [(24, 2 ** 32, 16, n_cand(24))])):
-        roots_np = rng.integers(-2 ** 31, 2 ** 31, size=(len(specs), 8),
-                                dtype=np.int64).astype(np.int32)
+    odd = [(48, 2 ** 17, 16, n_cand(48)), (24, 2 ** 15, 16, n_cand(24))]
+    odd_roots = np.concatenate([odd_hex_roots(rng, 1, *spec[:3]) for spec in odd])
+    for label, specs in (("bench", bench), ("max 2^32", [(24, 2 ** 32, 16, n_cand(24))]),
+                         ("odd hex, two windows", odd)):
+        roots_np = (odd_roots if label.startswith("odd") else
+                    rng.integers(-2 ** 31, 2 ** 31, size=(len(specs), 8),
+                                 dtype=np.int64).astype(np.int32))
         roots = torch.as_tensor(roots_np, device=device)
         idx, found = kernels.sample_queries(roots, specs)
         want_idx, want_found = dq.sample_sets_ref(roots, specs)
@@ -1028,10 +1063,21 @@ def check_sample_queries(kernels, device, rng, results):
                          for k, (c, m, x, _) in enumerate(specs))
             r.update(ms=km, plain_ms=pm, bytes=len(specs) * (32 + 4) + idx.numel() * 8,
                      work=[("u32", needed * SHA256_BLOCK_OPS)],
+                     chain=2 * 64 * SHA256_ROUND_CHAIN,
                      device_ms=device_ms(lambda: kernels.sample_queries(roots, specs)))
+            # the window (the block's threads) against its two other sizes
+            auto, windows = kernels.sample_window, {}
+            try:
+                for w in (64, 128, 256):
+                    kernels.sample_window = lambda c, w=w: w
+                    windows[w] = device_ms(lambda: kernels.sample_queries(roots, specs))
+            finally:
+                kernels.sample_window = auto
             timing = (f" ({needed} compressions needed): kernel {km:.4f} ms (device "
-                      f"{fmt_ms(r['device_ms'])}) plain {pm:.4f} ms")
-        else:
+                      f"{fmt_ms(r['device_ms'])}, window {auto(max(c for c, *_ in specs))}; "
+                      f"device by window {[(w, fmt_ms(t)) for w, t in windows.items()]}) "
+                      f"plain {pm:.4f} ms")
+        elif label == "max 2^32":
             require(bool((idx >= 2 ** 31).any()), "no index above 2^31 over max_ = 2^32")
         print(f"sample_queries {label} sets {[(c, m) for c, m, _, _ in specs]}: "
               f"max_abs_err={err}, host sampler {'equal' if host else 'DIFFERS'}{timing}",
@@ -1128,6 +1174,11 @@ def measure_rates(kernels, device, fields) -> dict:
     from genstark_tpu_torch import roofline
     kernels.reset_launch_counts()
     rates = {"u32": roofline.u32_rate(device)["u32_ops_per_s"]}
+    lat = roofline.u32_latency(device)
+    rates["u32_latency_s"] = lat["s_per_op"]
+    print(f"probe u32_chain on one thread: {1e9 * lat['s_per_op']:.4f} ns a dependent u32 op "
+          f"(rounds {lat['rounds']}: {lat['ms'][0]:.4f} / {lat['ms'][1]:.4f} ms, "
+          f"{roofline.U32_DEPENDENT_PER_ROUND} dependent ops a round)", flush=True)
     for field in fields:
         for general, kind, what in ((False, "mont", "16-bit-limb product, squares"),
                                     (True, "mont_w", "word product, v <- v*w")):
@@ -2123,7 +2174,7 @@ def main() -> int:
         "u32_chain": (src + "probes.cu", "scripts/vpu_bound.py:24"),
         # the port's kernels without a Pallas row: the JAX functions they
         # replace run in XLA
-        "mont_pow": (src + "field_ops.cu", tpu + "field/device.py:329"),
+        "mont_inv": (src + "field_ops.cu", tpu + "field/device.py:325"),
         "sample_queries": (src + "queries.cu", tpu + "protocol/device_queries.py:53"),
     }
     results = {k: {"max_abs_err": 0, "ms": None, "plain_ms": None} for k in meta}
@@ -2150,7 +2201,7 @@ def main() -> int:
     check_hash_limbs_forms(device, all_fields, results)
     check_merkle_shapes(device, rng, results)
     check_probes(device, all_fields, rng, results)
-    check_mont_pow(kernels, device, all_fields, rng, results)
+    check_mont_inv(kernels, device, all_fields, rng, results)
     check_sample_queries(kernels, device, rng, results)
     torch.cuda.synchronize()
 
@@ -2335,14 +2386,18 @@ def main() -> int:
     for name in meta:
         r = results[name]
         bound_ms, bound_by, own_ms = bound(r, rates)
+        floor_ms = 1e3 * r["chain"] * rates["u32_latency_s"] if "chain" in r else None
         line.append({"name": name, "route": "cuda", "source": meta[name][0],
                      "replaces": meta[name][1], "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "device_ms": r.get("device_ms"), "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None})
+                     "library_ms": None, "latency_floor_ms": floor_ms})
         own = "" if own_ms is None else f"; its Montgomery products at this code's rate {own_ms:.4f} ms"
         dms = r.get("device_ms")
         reached = "" if dms is None else f", device {dms:.4f} ms: {100 * bound_ms / dms:.1f}%"
+        if floor_ms is not None:
+            reached += (f"; latency floor {floor_ms:.6f} ms ({r['chain']} dependent ops)"
+                        + ("" if dms is None else f": {100 * floor_ms / dms:.1f}% of device"))
         print(f"{name}: {r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms "
               f"({bound_by}; {100 * bound_ms / r['ms']:.1f}% of it by events{reached}{own}), plain "
               f"{r['plain_ms']:.4f} ms, {launches[name]} launches on the paths", flush=True)

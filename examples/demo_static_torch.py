@@ -36,7 +36,7 @@ def make_demo_stark(steps: int = 64, options: dict = None, logger=None, device="
         base_steps=steps,
         name="demo",
     )
-    return instantiate(schema, options, device, logger=logger)
+    return instantiate(schema, "default", options, logger, device=device)
 
 
 def run_demo(field, steps: int, start: int):

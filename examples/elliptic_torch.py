@@ -75,7 +75,8 @@ def to_bits(value: int, length: int = 256) -> List[int]:
 
 
 def make_pointmul_stark(options: Optional[dict] = None, device="cuda"):
-    return instantiate(pointmul_source(), options or dict(DEFAULT_OPTIONS), device)
+    return instantiate(pointmul_source(), "default", options or dict(DEFAULT_OPTIONS),
+                       device=device)
 
 
 def pointmul_case(options: Optional[dict] = None, device="cuda"):

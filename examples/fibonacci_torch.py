@@ -36,7 +36,7 @@ def make_fib_stark(steps: int, options: dict = None, logger=None, device="cuda")
         base_steps=steps,
         name="fibonacci",
     )
-    return instantiate(schema, options, device, logger=logger)
+    return instantiate(schema, "default", options, logger, device=device)
 
 
 def run_fibonacci(field, steps: int, start: int):

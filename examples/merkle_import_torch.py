@@ -108,7 +108,7 @@ def merkle_proof_case(tree_depth: int = 8, index: int = 42,
     """(stark, assertions, inputs, public inputs) of a membership proof of
     `index` in a random tree (merkleProof.ts:80-108)."""
     field, oracle = poseidon_oracle("224")
-    stark = instantiate_script(MERKLE_PROOF_SRC, options or dict(OPTIONS), device)
+    stark = instantiate_script(MERKLE_PROOF_SRC, options or dict(OPTIONS), device=device)
     tree = MerkleTree2(field.prng(b"\x2a", 2 ** tree_depth), oracle)
     branch = tree.prove(index)
     bits = [0] + to_binary_array(index, tree_depth)[:-1]
@@ -129,7 +129,7 @@ def merkle_update_case(tree_depth: int = 8, index: int = 42, old_value: int = 9,
     """(stark, assertions, inputs) of a proof that a leaf update links the
     two roots (merkleUpdate.ts:60-101)."""
     field, oracle = poseidon_oracle("224")
-    stark = instantiate_script(MERKLE_UPDATE_SRC, options or dict(OPTIONS), device)
+    stark = instantiate_script(MERKLE_UPDATE_SRC, options or dict(OPTIONS), device=device)
     leaves1 = field.prng(b"\x51", 2 ** tree_depth)
     leaves1[index] = old_value
     tree1 = MerkleTree2(leaves1, oracle)

@@ -60,7 +60,7 @@ def make_mimc_stark(steps: int, device, modulus: int = P128, use_input: bool = T
     default_options = {"hash_algorithm": "blake2s256", "extension_factor": 16,
                        "exe_query_count": 48, "fri_query_count": 24}
     default_options.update(options or {})
-    return instantiate(schema, default_options, device), constants
+    return instantiate(schema, "default", default_options, device=device), constants
 
 
 def prove_mimc(steps: int, device, seed_value: int = 3, **kwargs):
@@ -104,7 +104,7 @@ def make_div_stark(steps: int, device, modulus: int = P128, options: dict = None
     default_options = {"hash_algorithm": "blake2s256", "extension_factor": 4,
                        "exe_query_count": 8, "fri_query_count": 6}
     default_options.update(options or {})
-    return instantiate(schema, default_options, device), constants
+    return instantiate(schema, "default", default_options, device=device), constants
 
 
 def prove_div(steps: int, device, seed_value: int = 3, **kwargs):

@@ -98,7 +98,7 @@ define Poseidon{width}x128 over prime field (2^128 - 9 * 2^32 + 1) {{
 def make_hash_stark(width: int = 3, options: Optional[dict] = None, device="cuda"):
     field, mds, rc = poseidon_params(width)
     stark = instantiate_script(hash_source(width, mds, rc),
-                               options or dict(HASH_OPTIONS), device)
+                               options or dict(HASH_OPTIONS), device=device)
     return stark, field, create_hash(field.host, SBOX, F_ROUNDS, P_ROUNDS, width)
 
 
@@ -174,7 +174,7 @@ define PoseidonMP over prime field (2^128 - 9 * 2^32 + 1) {{
 def make_merkle_stark(options: Optional[dict] = None, device="cuda"):
     field, mds, rc = poseidon_params(6)
     stark = instantiate_script(merkle_source(mds, rc),
-                               options or dict(MERKLE_OPTIONS), device)
+                               options or dict(MERKLE_OPTIONS), device=device)
     return stark, field, create_hash(field.host, SBOX, F_ROUNDS, P_ROUNDS, 6)
 
 

@@ -153,7 +153,7 @@ def make_hash_stark(width: int = 2, options: Optional[dict] = None, device="cuda
     inv_mds = invert_matrix(field.host, mds)
     modulus_expr = "2^64 - 21 * 2^30 + 1" if width == 2 else "2^128 - 9 * 2^32 + 1"
     src = hash_source(width, modulus_expr, rescue.alpha, -rescue.inv_alpha, mds, inv_mds, rc)
-    stark = instantiate_script(src, options or dict(DEFAULT_OPTIONS), device)
+    stark = instantiate_script(src, options or dict(DEFAULT_OPTIONS), device=device)
     return stark, field, rescue, key_states, ic
 
 
@@ -243,7 +243,7 @@ def make_merkle_stark(options: Optional[dict] = None, device="cuda"):
     field, rescue, key_states, ic, rc = make_rescue(4)
     inv_mds = invert_matrix(field.host, rescue.mds)
     src = merkle_source(rescue.alpha, -rescue.inv_alpha, rescue.mds, inv_mds, rc)
-    stark = instantiate_script(src, options or dict(MERKLE_OPTIONS), device)
+    stark = instantiate_script(src, options or dict(MERKLE_OPTIONS), device=device)
     return stark, field, make_hash_function(rescue, key_states)
 
 

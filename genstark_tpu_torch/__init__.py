@@ -9,20 +9,24 @@ the execution trace is generated C++ built with g++ (native/).
 
 Public API, the counterparts of the JAX package's `__init__.py:24-59`:
 
-- `instantiate(schema_or_source, options, device, component, logger=)`
+- `instantiate(schema_or_source, component, options, logger, *, device)`
   builds a Stark from an AirSchema, AirAssembly source text / bytes or a
   path to a `.aa` file;
-- `instantiate_script(source, options, device, base_path, logger=)` builds
-  a Stark from AirScript source text / bytes or a path.
+- `instantiate_script(source, options, logger, base_path, *, device)`
+  builds a Stark from AirScript source text / bytes or a path.
+
+The positional arguments are the JAX package's, so a call written for it
+runs here unchanged.
 
 A Stark proves with `prove` (the one-fetch path) or `prove_staged` (stage
 by stage, host transcript).  The layer-level API: `ntt.ntt` / `intt` /
 `low_degree_extend`, `merkle.MerkleTree.create` / `prove_batch`, the
 `DeviceField` ops (`field.create_prime_field(p).device_field(device)`).
 
-Both put the Stark's tensors on `device`, the CUDA card unless the caller
-asks for another (the tests pass "cpu").  `air.convert.schema_from_reference`
-rebuilds a schema made with the JAX package.
+Both put the Stark's tensors on the keyword-only `device`, the CUDA card
+unless the caller asks for another: a CPU run passes `device="cpu"`.
+`air.convert.schema_from_reference` rebuilds a schema made with the JAX
+package.
 """
 
 from __future__ import annotations
@@ -30,11 +34,10 @@ from __future__ import annotations
 import os
 from typing import Optional, Union
 
-import torch
-
 from .air import AirModule, AirSchema
 from .field import create_prime_field
 from .protocol import Assertion, Stark, StarkError, StarkProof
+from .utils import Logger, noop_logger
 
 __version__ = "0.1.0"
 
@@ -50,8 +53,9 @@ def _load_source(source: Union[str, bytes]) -> tuple:
     return source, None
 
 
-def instantiate(schema: Union[AirSchema, str, bytes], options: Optional[dict] = None,
-                device="cuda", component: str = "default", *, logger=None) -> Stark:
+def instantiate(schema: Union[AirSchema, str, bytes], component: str = "default",
+                options: Optional[dict] = None, logger: Optional[Logger] = None, *,
+                device="cuda") -> Stark:
     """A Stark for `schema` (an AirSchema, or AirAssembly source text,
     bytes or a path, whose export `component` is compiled) with its tensors
     on `device` (a torch.device or its name); `logger` (a utils.Logger)
@@ -62,20 +66,20 @@ def instantiate(schema: Union[AirSchema, str, bytes], options: Optional[dict] = 
         source, _ = _load_source(schema)
         schema = compile_assembly(source, component)
     air = AirModule(schema, extension_factor=options.get("extension_factor"))
-    return Stark(air, torch.device(device), options, logger)
+    return Stark(air, options, logger, device=device)
 
 
 def instantiate_script(source: Union[str, bytes], options: Optional[dict] = None,
-                       device="cuda", base_path: Optional[str] = None, *,
-                       logger=None) -> Stark:
+                       logger: Optional[Logger] = None, base_path: Optional[str] = None, *,
+                       device="cuda") -> Stark:
     """A Stark from AirScript source text / bytes or a path.  `base_path`
     resolves relative AirAssembly import paths; when the source is a path it
     defaults to the file's directory."""
     from .air.script import compile_script
     text, file_dir = _load_source(source)
     schema = compile_script(text, base_path or file_dir)
-    return instantiate(schema, options, device, logger=logger)
+    return instantiate(schema, "default", options, logger, device=device)
 
 
-__all__ = ["AirSchema", "Assertion", "Stark", "StarkError", "StarkProof",
-           "create_prime_field", "instantiate", "instantiate_script"]
+__all__ = ["AirSchema", "Assertion", "Logger", "Stark", "StarkError", "StarkProof",
+           "create_prime_field", "instantiate", "instantiate_script", "noop_logger"]

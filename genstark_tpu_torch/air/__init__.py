@@ -2,8 +2,10 @@
 contexts, the AirScript (script.py) and AirAssembly (assembly.py)
 compilers, schema converter."""
 
-from .ir import AirSchema, CyclicRegister, InputRegister, MaskRegister
+from .ir import (AirSchema, Const, CyclicRegister, Expr, InputRegister, MaskRegister, const,
+                 nxt, seed, static, trace)
 from .module import AirModule, ProvingContext, VerificationContext
 
-__all__ = ["AirSchema", "CyclicRegister", "InputRegister", "MaskRegister",
-           "AirModule", "ProvingContext", "VerificationContext"]
+__all__ = ["AirSchema", "Const", "CyclicRegister", "Expr", "InputRegister", "MaskRegister",
+           "AirModule", "ProvingContext", "VerificationContext", "const", "nxt", "seed",
+           "static", "trace"]

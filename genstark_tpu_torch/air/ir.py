@@ -139,6 +139,24 @@ def degree_of(expr: Expr) -> int:
     raise TypeError(f"unknown expr node {type(expr)}")
 
 
+def count_nodes(exprs: Sequence[Expr]) -> int:
+    """Number of distinct DAG nodes across expressions (shared nodes once)."""
+    seen = set()
+
+    def walk(e: Expr):
+        if id(e) in seen:
+            return
+        seen.add(id(e))
+        for attr in ("a", "b"):
+            child = getattr(e, attr, None)
+            if isinstance(child, Expr):
+                walk(child)
+
+    for e in exprs:
+        walk(e)
+    return len(seen)
+
+
 # ---------------------------------------------------------------------------
 # Interpreters
 # ---------------------------------------------------------------------------

@@ -70,13 +70,18 @@ class AirModule:
     def secret_input_count(self) -> int:
         return self.schema.secret_input_count
 
+    @property
+    def constraints(self):
+        return self.schema.constraints
+
     def init_proving_context(self, inputs: Optional[Sequence] = None,
-                             seed: Optional[Sequence[int]] = None,
+                             seed: Optional[Sequence[int]] = None, *,
                              dev=None) -> "ProvingContext":
         """`dev`: the DeviceField of the context's device tensors (the
         Stark's), for `generate_execution_trace`, `static_device` and
-        `secret_register_traces`."""
-        return ProvingContext(self, inputs or [], list(seed or []), dev)
+        `secret_register_traces`; without one, the field's CUDA card
+        (`PrimeField.device`), taken when the context first needs it."""
+        return ProvingContext(self, inputs or [], list(seed or []), dev=dev)
 
     def init_verification_context(self, input_shapes: Sequence[Sequence[int]],
                                   public_inputs: Optional[Sequence] = None
@@ -186,6 +191,10 @@ class _ContextBase:
         self.root_of_unity = self.field.get_root_of_unity(self.evaluation_domain_size)
 
     @property
+    def constraints(self):
+        return self.schema.constraints
+
+    @property
     def constraint_degrees(self) -> List[int]:
         return self.schema.constraint_degrees
 
@@ -208,7 +217,7 @@ class _ContextBase:
 
 
 class ProvingContext(_ContextBase):
-    def __init__(self, module: AirModule, inputs: Sequence, seed: List[int], dev=None):
+    def __init__(self, module: AirModule, inputs: Sequence, seed: List[int], *, dev=None):
         schema = module.schema
         self.dev = dev
         self.field = module.field
@@ -365,8 +374,7 @@ class ProvingContext(_ContextBase):
     # ----- the device trace of the staged prover ---------------------------------
     def _device(self):
         if self.dev is None:
-            raise ValueError("this proving context has no device: pass the Stark's "
-                             "DeviceField to init_proving_context")
+            self.dev = self.field.device      # the card's; raises where there is none
         return self.dev
 
     def _to_mont_device(self, std: np.ndarray) -> torch.Tensor:

@@ -1,5 +1,5 @@
 // Kernels 5 and 6: elementwise field ops and the factored power table;
-// kernel A: a power of each element (the Fermat inverse of `inv`'s total).
+// kernel A: the inverse of each element (`inv`'s total).
 //
 // Kernel 5 (`field_ew`) replaces the TPU kernel genstark_tpu/field/pallas_ops.py
 // `_ew_call` (:34, pallas_call :57): Montgomery mul, modular add and sub over
@@ -162,46 +162,228 @@ cudaError_t launch_outer(const int32_t* outer, int nj, const int32_t* inner, int
   return cudaGetLastError();
 }
 
-// Kernel A: out = a^e for each element of a Montgomery-form [L, n] array,
-// the Fermat ladder of the JAX package's `_fermat_inv_single`
-// (genstark_tpu/field/device.py:329, which XLA computes: no Pallas kernel),
-// on the word product.  Plain version: field/device.py mont_pow_ref.
-// DeviceField.inv raises its total product to p - 2 with one launch of one
-// element, so no inverse leaves the card.  What bounds it: nothing of the
-// card's rates; one thread runs ~1.5 log2(e) dependent products, so its time
-// is that chain's latency (a few microseconds at p256).  Design: one thread
-// an element, the exponent's words by value, from the top bit down: square,
-// then multiply where the bit is set.
-constexpr int kMaxExpWords = 8;
+// Kernel A: out = a^-1 for each element of a Montgomery-form [L, n] array
+// (0 -> 0), the inverse that the JAX package's `_fermat_inv_single`
+// (genstark_tpu/field/device.py:325, computed by XLA: no Pallas kernel)
+// takes as total^(p-2).  Plain version: field/device.py mont_pow_ref(a,
+// p - 2); the inverse is unique, so both give the same words.
+// DeviceField.inv inverts its total product with one launch of one element,
+// so no inverse leaves the card.
+//
+// What bounds it: nothing of the card's rates.  One element's dependent
+// chain, and its instructions issued one a cycle by one warp, are its time;
+// the Fermat ladder it replaces was ~1.5 log2(p) dependent word products
+// (503 at p256, 0.28 ms).  Design: Pornin's optimized binary GCD (IACR
+// ePrint 2020/972, Algorithm 2) on the K = L/2 words of FieldW, four lanes
+// an element (a quad of a warp).  a = x, b = p, u = 1, v = 0 keep
+// a = u x and b = v x (mod p).  Each of T = ceil((2 len(p) - 1) / 30)
+// batches (18 at p256) runs 30 binary-GCD steps on 64-bit approximations
+// of a and b (their low 31 bits and top 33 bits, exact once both fit 64
+// bits), collecting the steps as a 2x2 matrix of signed 32-bit factors (|f|
+// + |g| <= 2^30; the paper's 31 steps would need 2^31, one bit more than an
+// int holds).  Every lane of the quad runs the steps alike; then lane q
+// applies the matrix to one of the words: a, b <- (f a + g b) / 2^30,
+// negated to stay non-negative (lanes 0, 1), and u, v <- (f u + g v) / 2^32
+// mod p (one Montgomery word reduction, which is exact; lanes 2, 3, which
+// negate where lanes 0, 1 did), and four shuffles a word give every lane
+// the new a, b, u, v: the four updates run side by side.  After T
+// batches b = 1
+// and v = x^-1 2^-2T; the host folds 2^2T and the Montgomery adjustment
+// into one constant c = 2^2T R^3 mod p, and one word product v c R^-1 gives
+// x^-1 R^2, the Montgomery form of a^-1 for x = a R.  A step's chain is a
+// 64-bit subtraction both ways, a select and a shift; the factors' 32-bit
+// updates issue beside it.
+constexpr int kGcdSteps = 30;
 
-struct PowArgs {
-  uint32_t e[kMaxExpWords];   // exponent, little-endian words
-  int nbits;                  // bit length of e (>= 1)
+template <int K>
+__device__ __forceinline__ unsigned long long gcd_approx(const uint32_t (&x)[K], int s) {
+  // (x mod 2^31) + 2^31 floor(x / 2^s), floor(x / 2^s) < 2^33, s >= 31
+  const int q = s >> 5, r = s & 31;
+  uint32_t lo = 0u, hi = 0u;
+#pragma unroll
+  for (int w = 0; w < K; ++w) {
+    if (w == q) lo = x[w];
+    if (w == q + 1) hi = x[w];
+  }
+  const unsigned long long top = ((static_cast<unsigned long long>(hi) << 32) | lo) >> r;
+  return (static_cast<unsigned long long>(x[0]) & 0x7FFFFFFFull) | (top << 31);
+}
+
+// out = x * f as K + 1 two's complement words, |f| <= 2^30.
+template <int K>
+__device__ __forceinline__ void gcd_mul_signed(const uint32_t (&x)[K], int f,
+                                               uint32_t (&out)[K + 1]) {
+  const bool neg = f < 0;
+  const uint32_t m = static_cast<uint32_t>(neg ? -f : f);
+  unsigned long long c = 0ull;
+#pragma unroll
+  for (int w = 0; w < K; ++w) {
+    c += static_cast<unsigned long long>(x[w]) * m;
+    out[w] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+  out[K] = static_cast<uint32_t>(c);
+  if (neg) {
+    c = 1ull;
+#pragma unroll
+    for (int w = 0; w <= K; ++w) {
+      c += static_cast<uint32_t>(~out[w]);
+      out[w] = static_cast<uint32_t>(c);
+      c >>= 32;
+    }
+  }
+}
+
+// The update that lane q of an element's quad computes, every lane on the
+// same instructions but the last few: (x, y) = (a, b) for q = 0, 1 and (u,
+// v) for q = 2, 3, and t = x f + y g as K + 1 two's complement words.  q =
+// 0, 1: out = |t| / 2^30 (exact), the new a or b; q = 2, 3: out = t 2^-32
+// mod p (one Montgomery word on the signed t, |t| < p 2^30, so the quotient
+// lies in (-p/4, 5p/4)), the new u or v before the sign fix.  Returns
+// whether t < 0.
+template <int K>
+__device__ __forceinline__ bool gcd_lane_update(int q, const uint32_t (&a)[K],
+                                                const uint32_t (&b)[K], const uint32_t (&u)[K],
+                                                const uint32_t (&v)[K], int f, int g,
+                                                const FieldW& fw, uint32_t (&out)[K]) {
+  uint32_t x[K], y[K], px[K + 1], py[K + 1], t[K + 1];
+#pragma unroll
+  for (int w = 0; w < K; ++w) {
+    x[w] = q < 2 ? a[w] : u[w];
+    y[w] = q < 2 ? b[w] : v[w];
+  }
+  gcd_mul_signed<K>(x, f, px);
+  gcd_mul_signed<K>(y, g, py);
+  unsigned long long c = 0ull;
+#pragma unroll
+  for (int w = 0; w <= K; ++w) {
+    c += static_cast<unsigned long long>(px[w]) + py[w];
+    t[w] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+  const bool neg = (t[K] >> 31) != 0u;
+  if (q < 2) {
+    // |t| < 2^(32K + 30): its low K words after the shift, negated if negative
+#pragma unroll
+    for (int w = 0; w < K; ++w)
+      out[w] = (t[w] >> kGcdSteps) | (t[w + 1] << (32 - kGcdSteps));
+    if (neg) {
+      c = 1ull;
+#pragma unroll
+      for (int w = 0; w < K; ++w) {
+        c += static_cast<uint32_t>(~out[w]);
+        out[w] = static_cast<uint32_t>(c);
+        c >>= 32;
+      }
+    }
+  } else {
+    // s = (t + m p) / 2^32, t's sign word extended above word K
+    const uint32_t m = t[0] * fw.n0;
+    uint32_t r[K];
+    c = (static_cast<unsigned long long>(m) * fw.p[0] + t[0]) >> 32;
+#pragma unroll
+    for (int w = 1; w < K; ++w) {
+      c += static_cast<unsigned long long>(m) * fw.p[w] + t[w];
+      r[w - 1] = static_cast<uint32_t>(c);
+      c >>= 32;
+    }
+    c += t[K];
+    r[K - 1] = static_cast<uint32_t>(c);
+    const uint32_t hi = static_cast<uint32_t>(c >> 32) + (neg ? 0xFFFFFFFFu : 0u);
+    if (hi == 0xFFFFFFFFu) {   // s < 0: s + p
+      c = 0ull;
+#pragma unroll
+      for (int w = 0; w < K; ++w) {
+        c += static_cast<unsigned long long>(r[w]) + fw.p[w];
+        out[w] = static_cast<uint32_t>(c);
+        c >>= 32;
+      }
+    } else {                   // 0 <= s < 2p
+      cond_sub_p_w<K>(r, hi, fw, out);
+    }
+  }
+  return neg;
+}
+
+struct InvArgs {
+  uint32_t c[kMaxK];   // 2^2T R^3 mod p, little-endian words
+  int batches;         // T
 };
 
 template <int K>
 __global__ void __launch_bounds__(128)
-mont_pow_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, long long n,
-                PowArgs pa, FieldW f) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x[K], r[K];
-  load_elem_w<K>(a, n, i, x);
+mont_inv_kernel(const int32_t* __restrict__ x_in, int32_t* __restrict__ out, long long n,
+                InvArgs ia, FieldW f) {
+  // a quad of lanes an element; a quad past the end works on the last
+  // element (the shuffles take whole warps) and stores nothing
+  const long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 2;
+  const int lane = static_cast<int>(threadIdx.x & 3u);
+  uint32_t a[K], b[K], u[K], v[K];
+  load_elem_w<K>(x_in, n, i < n ? i : n - 1, a);
 #pragma unroll
-  for (int w = 0; w < K; ++w) r[w] = x[w];
-  for (int bit = pa.nbits - 2; bit >= 0; --bit) {
-    mont_mul_w<K>(r, r, f, r);
-    if ((pa.e[bit >> 5] >> (bit & 31)) & 1u) mont_mul_w<K>(r, x, f, r);
+  for (int w = 0; w < K; ++w) {
+    b[w] = f.p[w];
+    u[w] = w == 0 ? 1u : 0u;
+    v[w] = 0u;
   }
+  for (int it = 0; it < ia.batches; ++it) {
+    int len = 64;
+#pragma unroll
+    for (int w = 0; w < K; ++w) {
+      const uint32_t o = a[w] | b[w];
+      if (o != 0u && 32 * w + 32 - __clz(o) > len) len = 32 * w + 32 - __clz(o);
+    }
+    unsigned long long ab = gcd_approx<K>(a, len - 33), bb = gcd_approx<K>(b, len - 33);
+    int f0 = 1, g0 = 0, f1 = 0, g1 = 1;
+#pragma unroll
+    for (int j = 0; j < kGcdSteps; ++j) {
+      // odd a: a <- |a - b| / 2 and b <- min(a, b) (the swap where a < b);
+      // even a: a <- a / 2
+      const bool odd = (ab & 1ull) != 0ull;
+      const bool swap = odd && ab < bb;
+      const unsigned long long d = ab - bb, e = bb - ab;
+      const int df = f0 - f1, dg = g0 - g1;
+      bb = swap ? ab : bb;
+      ab = (odd ? (swap ? e : d) : ab) >> 1;
+      const int nf1 = swap ? f0 : f1, ng1 = swap ? g0 : g1;
+      f0 = odd ? (swap ? -df : df) : f0;
+      g0 = odd ? (swap ? -dg : dg) : g0;
+      f1 = nf1 * 2;
+      g1 = ng1 * 2;
+    }
+    // lanes 0-3: the new a, b, u, v; u and v change sign where a and b did
+    uint32_t r[K];
+    const bool neg = gcd_lane_update<K>(lane, a, b, u, v, (lane & 1) ? f1 : f0,
+                                        (lane & 1) ? g1 : g0, f, r);
+    const bool flip = __shfl_sync(0xFFFFFFFFu, static_cast<int>(neg), lane & 1, 4) != 0;
+    if (lane >= 2 && flip) {
+      uint32_t z[K];
+#pragma unroll
+      for (int w = 0; w < K; ++w) z[w] = 0u;
+      sub_mod_w<K>(z, r, f, r);
+    }
+#pragma unroll
+    for (int w = 0; w < K; ++w) {
+      a[w] = __shfl_sync(0xFFFFFFFFu, r[w], 0, 4);
+      b[w] = __shfl_sync(0xFFFFFFFFu, r[w], 1, 4);
+      u[w] = __shfl_sync(0xFFFFFFFFu, r[w], 2, 4);
+      v[w] = __shfl_sync(0xFFFFFFFFu, r[w], 3, 4);
+    }
+  }
+  if (lane != 0 || i >= n) return;
+  uint32_t c[K], r[K];
+#pragma unroll
+  for (int w = 0; w < K; ++w) c[w] = ia.c[w];
+  mont_mul_w<K>(v, c, f, r);
   store_elem_w<K>(out, n, i, r);
 }
 
 template <int K>
-cudaError_t launch_pow(const int32_t* a, int32_t* out, long long n, const PowArgs& pa,
+cudaError_t launch_inv(const int32_t* a, int32_t* out, long long n, const InvArgs& ia,
                        const FieldW& f, cudaStream_t st) {
-  const long long blocks = (n + 127) / 128;
+  const long long blocks = (4 * n + 127) / 128;     // four lanes an element
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  mont_pow_kernel<K><<<static_cast<unsigned>(blocks), 128, 0, st>>>(a, out, n, pa, f);
+  mont_inv_kernel<K><<<static_cast<unsigned>(blocks), 128, 0, st>>>(a, out, n, ia, f);
   return cudaGetLastError();
 }
 
@@ -260,30 +442,25 @@ extern "C" int gs_outer_table(int L, const void* outer, int nj, const void* inne
   }
 }
 
-// a, out: int32 [L, n] contiguous (Montgomery); e: n_words little-endian
-// words of the exponent, e >= 1.
-extern "C" int gs_mont_pow(int L, const void* a, void* out, long long n, const uint32_t* e,
-                           int n_words, const uint32_t* field_words, void* stream) {
+// a, out: int32 [L, n] contiguous (Montgomery); c: L/2 little-endian words
+// of 2^(2 batches) R^3 mod p; batches: ceil((2 len(p) - 1) / 30).
+extern "C" int gs_mont_inv(int L, const void* a, void* out, long long n, const uint32_t* c,
+                           int batches, const uint32_t* field_words, void* stream) {
   if (n <= 0) return 0;
-  if (n_words < 1 || n_words > gs::kMaxExpWords) return cudaErrorInvalidValue;
-  gs::PowArgs pa = {};
-  pa.nbits = 0;
-  for (int w = 0; w < n_words; ++w) {
-    pa.e[w] = e[w];
-    for (int b = 0; b < 32; ++b)
-      if ((e[w] >> b) & 1u) pa.nbits = 32 * w + b + 1;
-  }
-  if (pa.nbits == 0) return cudaErrorInvalidValue;
+  if (batches < 1 || batches > 64) return cudaErrorInvalidValue;
+  gs::InvArgs ia = {};
+  for (int w = 0; w < L / 2 && w < gs::kMaxK; ++w) ia.c[w] = c[w];
+  ia.batches = batches;
   const gs::FieldW f = gs::fieldw_from_words(field_words, L);
   auto st = static_cast<cudaStream_t>(stream);
   auto x = static_cast<const int32_t*>(a);
   auto o = static_cast<int32_t*>(out);
   switch (L) {
-    case 2: return gs::launch_pow<1>(x, o, n, pa, f, st);
-    case 4: return gs::launch_pow<2>(x, o, n, pa, f, st);
-    case 8: return gs::launch_pow<4>(x, o, n, pa, f, st);
-    case 14: return gs::launch_pow<7>(x, o, n, pa, f, st);
-    case 16: return gs::launch_pow<8>(x, o, n, pa, f, st);
+    case 2: return gs::launch_inv<1>(x, o, n, ia, f, st);
+    case 4: return gs::launch_inv<2>(x, o, n, ia, f, st);
+    case 8: return gs::launch_inv<4>(x, o, n, ia, f, st);
+    case 14: return gs::launch_inv<7>(x, o, n, ia, f, st);
+    case 16: return gs::launch_inv<8>(x, o, n, ia, f, st);
     default: return cudaErrorInvalidValue;
   }
 }

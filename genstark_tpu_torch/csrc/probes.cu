@@ -12,7 +12,11 @@
 // scripts/vpu_bound.py `_kernel` (:24, pallas_call :40): K = 512 chained u32
 // ops per element (128 iterations of add, xor with a shift, rotate by 16,
 // add; counted as 5 ops per iteration as the JAX script counts them), the
-// integer-op rate the hash kernels are held to.  Plain versions:
+// integer-op rate the hash kernels are held to; `rounds` repeats the chain,
+// and on one element (one thread) the slope between two round counts is
+// the latency of a dependent u32 op (4 of the 5 a round are on the chain:
+// the shift of w runs beside them), the latency floor of the one-thread
+// and one-block kernels A and B.  Plain versions:
 // genstark_tpu_torch/roofline.py (mont_chain_ref, u32_chain_ref).
 //
 // What bounds them: by design, the integer instruction rate.  At depth 16 a
@@ -58,17 +62,20 @@ mont_chain_w_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out, lo
 constexpr int kU32ChainK = 512;
 
 __global__ void __launch_bounds__(256)
-u32_chain_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, long long n) {
+u32_chain_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, long long n,
+                 int rounds) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint32_t v = x[i];
   uint32_t w = v ^ 0x9E3779B9u;
+  for (int r = 0; r < rounds; ++r) {
 #pragma unroll 16
-  for (int k = 0; k < kU32ChainK / 4; ++k) {
-    v = v + w;
-    v = v ^ (w >> 7);
-    v = (v >> 16) | (v << 16);
-    w = w + v;
+    for (int k = 0; k < kU32ChainK / 4; ++k) {
+      v = v + w;
+      v = v ^ (w >> 7);
+      v = (v >> 16) | (v << 16);
+      w = w + v;
+    }
   }
   out[i] = v;
 }
@@ -110,12 +117,12 @@ extern "C" int gs_mont_chain(int L, const void* x, void* out, long long n, int d
   }
 }
 
-// x, out: n u32 words (int32 storage), contiguous.
-extern "C" int gs_u32_chain(const void* x, void* out, long long n, void* stream) {
-  if (n < 0 || (n + 255) / 256 > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+// x, out: n u32 words (int32 storage), contiguous; rounds >= 1.
+extern "C" int gs_u32_chain(const void* x, void* out, long long n, int rounds, void* stream) {
+  if (n < 0 || (n + 255) / 256 > 0x7FFFFFFFLL || rounds < 1) return cudaErrorInvalidValue;
   if (n == 0) return 0;
   gs::u32_chain_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), n);
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), n, rounds);
   return cudaGetLastError();
 }

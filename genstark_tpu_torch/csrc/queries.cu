@@ -16,15 +16,25 @@
 // set per FRI layer, each seeded by its own root) is one block of one
 // launch.
 //
-// What bounds it on this card: the SHA-256 compressions (one for the state
-// and one a candidate, ~2,200 32-bit ops each) and the latency of an
-// ordered scan; its bytes are a few hundred.  Design: a block of 256
-// threads a set.  It hashes the candidates 256 at a time, one a thread, into
-// shared memory; then warp 0 takes them in order, 32 at a time:
-// `__match_any_sync` keeps the first of equal valid candidates among the
-// 32, each lane compares its candidate with the indexes already taken (at
-// most `count`), and a ballot appends the survivors in order.  The block
-// stops after the window of 256 in which its set is complete (the first,
+// What bounds it on this card: two dependent SHA-256 compressions (the
+// state's, then a candidate's, ~2,200 32-bit ops each) and one scan, the
+// latency of one block; its bytes are a few hundred and its operations fill
+// no SM.  Design: a block of 256 threads a set, one candidate a thread.  The
+// first window holds 64, 128 or 256 candidates, the fewest that hold a
+// quarter more than the largest set takes (`kernels.sample_window`): one
+// warp hashes a candidate in about the time a whole SM does, but 256 of them
+// are issue-bound, so a small first window finishes sooner; later windows
+// (an odd hex length) take all 256.  Warp 0 hashes the state; then every
+// thread of the window hashes its
+// candidate into shared memory and decides on its own whether it is the
+// window's first valid occurrence of its index, comparing it with every
+// earlier candidate of the window (all lanes of a warp read the same word:
+// a broadcast, no bank conflict; an excluded or out-of-range candidate
+// never equals a valid one that comes after it) and, in a later window
+// only, with the indexes already taken.  A block-wide exclusive scan of the
+// keep flags (a ballot and popc in each warp, then the 8 warp totals) gives
+// each survivor its place; the first `count` go to the taken list.  The
+// block stops after the window in which its set is complete (the first,
 // unless the state's hex length is odd: then runs of ~16 candidates hash
 // alike), or at n_cand candidates, where found < count tells the caller to
 // sample on the host.
@@ -123,23 +133,35 @@ __device__ __forceinline__ uint32_t candidate(const uint32_t (&st)[8], uint32_t 
     v[0] >>= 4;
   }
   // the message: v's ell = k / 2 low bytes, big-endian (byte b < ell is
-  // byte 36 - ell + b of v's 36), then the 0x80 terminator at byte ell
-  // (ell <= 32: one block), the bit length in word 15
-  const int ell = k >> 1;
+  // byte o + b of v's 36, o = 36 - ell), then the 0x80 terminator at byte
+  // ell (ell <= 32: one block), the bit length in word 15.  Word j is v's
+  // words q + j and q + j + 1 (q = o / 4) funnel-shifted by o mod 4 bytes;
+  // the words move down by q in four select stages, in registers (an index
+  // known only at run time would put v in local memory).
+  const int ell = k >> 1, o = 36 - ell, q = o >> 2, r8 = 8 * (o & 3);
+  uint32_t W[10];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) W[t] = v[t];
+  W[9] = 0u;
+#pragma unroll
+  for (int bit = 0; bit < 4; ++bit) {
+    const bool on = ((q >> bit) & 1) != 0;
+#pragma unroll
+    for (int t = 0; t < 10; ++t) {
+      const uint32_t next = t + (1 << bit) < 10 ? W[t + (1 << bit)] : 0u;
+      W[t] = on ? next : W[t];
+    }
+  }
   uint32_t m[16];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) m[j] = 0u;
-#pragma unroll
-  for (int b = 0; b < 33; ++b) {
-    uint32_t byte = 0u;
-    if (b < ell) {
-      const int x = 36 - ell + b;
-      byte = (v[x >> 2] >> (8 * (3 - (x & 3)))) & 0xFFu;
-    } else if (b == ell) {
-      byte = 0x80u;
-    }
-    m[b >> 2] |= byte << (8 * (3 - (b & 3)));
+  for (int j = 0; j < 9; ++j) {
+    const int keep = ell - 4 * j;   // message bytes in word j
+    const uint32_t w = __funnelshift_l(W[j + 1], W[j], r8);
+    m[j] = keep >= 4 ? w : (keep <= 0 ? 0u : w & (0xFFFFFFFFu << (32 - 8 * keep)));
+    if (keep >= 0 && keep < 4) m[j] |= 0x80u << (24 - 8 * keep);
   }
+#pragma unroll
+  for (int j = 9; j < 15; ++j) m[j] = 0u;
   m[15] = static_cast<uint32_t>(ell) * 8u;
   uint32_t d[8];
   sha256_block(m, d);
@@ -160,22 +182,26 @@ struct SampleSpec {
   uint32_t excl_mask[kSampleMaxSets];   // exclude_multiples_of - 1
 };
 
-// One block a set.  roots: [S, 8] LE words; idx: int64 [S, cap]; found: [S].
+// One block a set: a first window of `first` candidates (64, 128 or 256),
+// then windows of 256.  roots: [S, 8] LE words; idx: int64 [S, cap];
+// found: [S].
 __global__ void __launch_bounds__(kSampleThreads)
-sample_queries_kernel(const uint32_t* __restrict__ roots, SampleSpec spec, int cap,
+sample_queries_kernel(const uint32_t* __restrict__ roots, SampleSpec spec, int cap, int first,
                       long long* __restrict__ idx, int32_t* __restrict__ found_out) {
+  constexpr int kWarps = kSampleThreads / 32;
   __shared__ uint32_t st_s[8];
-  __shared__ uint32_t cand_s[kSampleThreads];
-  __shared__ uint32_t valid_s[kSampleThreads];
+  __shared__ __align__(16) uint32_t cand_s[kSampleThreads];
   __shared__ uint32_t taken[kSampleMaxCount];
-  __shared__ int found_s;
+  __shared__ int warp_s[kWarps];
   const int set = blockIdx.x;
   const int count = spec.count[set];
   const int n_cand = spec.n_cand[set];
   const uint32_t mask = spec.mask[set];
   const bool excl = spec.excl[set] != 0;
   const uint32_t excl_mask = spec.excl_mask[set];
-  if (threadIdx.x == 0) {
+  const int tid = static_cast<int>(threadIdx.x);
+  const int warp = tid >> 5, lane = tid & 31;
+  if (warp == 0) {
     // state = sha256(the 32-byte root): LE words in, one padded block
     uint32_t m[16];
 #pragma unroll
@@ -186,62 +212,77 @@ sample_queries_kernel(const uint32_t* __restrict__ roots, SampleSpec spec, int c
     m[15] = 256u;
     uint32_t d[8];
     sha256_block(m, d);
+    if (lane == 0) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) st_s[j] = d[j];
-    found_s = 0;
+      for (int j = 0; j < 8; ++j) st_s[j] = d[j];
+    }
   }
   __syncthreads();
   uint32_t st[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) st[j] = st_s[j];
-  const int lane = threadIdx.x & 31;
-  for (int base = 0; base < n_cand; base += kSampleThreads) {
-    if (found_s >= count) break;          // read after a barrier: uniform
-    const int i = base + static_cast<int>(threadIdx.x);
-    uint32_t c = 0u, ok = 0u;
-    if (i < n_cand) {
+  // every thread keeps `found` itself, from the same warp totals: uniform
+  int found = 0;
+  for (int base = 0, win = first; base < n_cand && found < count;
+       base += win, win = kSampleThreads) {
+    const int i = base + tid;
+    uint32_t c = 0u;
+    bool keep = false;
+    if (tid < win && i < n_cand) {
       c = candidate(st, static_cast<uint32_t>(i), mask);
-      ok = !excl || (c & excl_mask) != 0u;
+      keep = !excl || (c & excl_mask) != 0u;
     }
-    cand_s[threadIdx.x] = c;
-    valid_s[threadIdx.x] = ok;
+    cand_s[tid] = c;
     __syncthreads();
-    if (threadIdx.x < 32) {
-      int found = found_s;
-      for (int g = 0; g < kSampleThreads / 32 && found < count; ++g) {
-        const uint32_t cg = cand_s[g * 32 + lane];
-        const bool valid = valid_s[g * 32 + lane] != 0u;
-        const unsigned vmask = __ballot_sync(0xFFFFFFFFu, valid);
-        const unsigned peers = __match_any_sync(0xFFFFFFFFu, cg) & vmask;
-        bool keep = valid && __ffs(peers) - 1 == lane;
-        for (int t = 0; keep && t < found; ++t) keep = taken[t] != cg;
-        const unsigned kmask = __ballot_sync(0xFFFFFFFFu, keep);
-        const int pos = found + __popc(kmask & ((1u << lane) - 1u));
-        if (keep && pos < count) taken[pos] = cg;
-        found = min(count, found + __popc(kmask));
-        __syncwarp();
-      }
-      if (lane == 0) found_s = found;
+    // the window's first occurrence: no earlier candidate j < tid equals c
+    // (an excluded one has an excluded value; one past n_cand comes after
+    // every candidate in range)
+    const uint4* c4 = reinterpret_cast<const uint4*>(cand_s);
+    bool dup = false;
+#pragma unroll 4
+    for (int q = 0; keep && q < (warp + 1) * 8; ++q) {
+      const uint4 e = c4[q];
+      const int j = 4 * q;
+      dup |= (j < tid) & (e.x == c);
+      dup |= (j + 1 < tid) & (e.y == c);
+      dup |= (j + 2 < tid) & (e.z == c);
+      dup |= (j + 3 < tid) & (e.w == c);
     }
+    keep = keep && !dup;
+    for (int t = 0; base > 0 && keep && t < found; ++t) keep = taken[t] != c;
+    const unsigned kmask = __ballot_sync(0xFFFFFFFFu, keep);
+    if (lane == 0) warp_s[warp] = __popc(kmask);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? warp_s[w] : 0;
+      total += warp_s[w];
+    }
+    const int pos = found + before + __popc(kmask & ((1u << lane) - 1u));
+    if (keep && pos < count) taken[pos] = c;
+    found = min(count, found + total);
     __syncthreads();
   }
-  const int found = found_s;
-  for (int t = threadIdx.x; t < cap; t += kSampleThreads)
+  for (int t = tid; t < cap; t += kSampleThreads)
     idx[static_cast<long long>(set) * cap + t] =
         t < found ? static_cast<long long>(taken[t]) : 0LL;
-  if (threadIdx.x == 0) found_out[set] = found;
+  if (tid == 0) found_out[set] = found;
 }
 
 }  // namespace gs
 
 // roots: int32 [S, 8] on the card; counts, masks (max_ - 1), excls
 // (exclude_multiples_of, 0 for none) and n_cands: S host values each; idx:
-// int64 [S, cap]; found: int32 [S].
+// int64 [S, cap]; found: int32 [S]; window: the first window's candidates,
+// 64, 128 or 256.
 extern "C" int gs_sample_queries(const void* roots, int S, const long long* counts,
                                  const long long* masks, const long long* excls,
-                                 const long long* n_cands, int cap, void* idx, void* found,
-                                 void* stream) {
+                                 const long long* n_cands, int cap, int window, void* idx,
+                                 void* found, void* stream) {
   if (S < 1 || S > gs::kSampleMaxSets || cap < 1) return cudaErrorInvalidValue;
+  if (window != 64 && window != 128 && window != gs::kSampleThreads)
+    return cudaErrorInvalidValue;
   gs::SampleSpec spec = {};
   for (int s = 0; s < S; ++s) {
     if (counts[s] < 1 || counts[s] > gs::kSampleMaxCount || counts[s] > cap)
@@ -256,7 +297,7 @@ extern "C" int gs_sample_queries(const void* roots, int S, const long long* coun
     spec.excl_mask[s] = static_cast<uint32_t>(excls[s] - 1);
   }
   gs::sample_queries_kernel<<<S, gs::kSampleThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(roots), spec, cap, static_cast<long long*>(idx),
+      static_cast<const uint32_t*>(roots), spec, cap, window, static_cast<long long*>(idx),
       static_cast<int32_t*>(found));
   return cudaGetLastError();
 }

@@ -5,7 +5,9 @@ Counterpart of ``genstark_tpu/field/__init__.py`` (`PrimeField` :26-90).
 coefficient-form ops run on the host (`HostField`, python ints).  Batch ops
 run on a torch device through `DeviceField`, one per explicit
 `torch.device` (`device_field`, memoized, so a tensor's device names its
-DeviceField) — the port never picks a device by itself.
+DeviceField).  `PrimeField.device`, the JAX package's one DeviceField, is
+the CUDA card's: where there is no card it raises, and a CPU caller asks
+for `device_field("cpu")`.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from .device import DeviceField
 from .host import HostField
-from .limbs import MontParams
+from .limbs import MontParams, element_size_for, limb_count_for  # noqa: F401  (re-exported)
 
 # Fields used by the reference's examples (the JAX package's constants)
 P32 = 2**32 - 3 * 2**25 + 1        # README "Foo" demo, fibonacci
@@ -41,6 +43,20 @@ class PrimeField:
     @property
     def element_size(self) -> int:
         return self.params.element_size
+
+    @property
+    def characteristic(self) -> int:
+        return self.modulus
+
+    @property
+    def is_optimized(self) -> bool:
+        return True  # the kernels take every modulus of the repo
+
+    @property
+    def device(self) -> DeviceField:
+        """The JAX package's `PrimeField.device` (field/__init__.py:37): the
+        DeviceField of the CUDA card, `device_field("cuda")`."""
+        return self.device_field("cuda")
 
     @property
     def one(self) -> int:
@@ -90,7 +106,7 @@ class PrimeField:
             device = torch.device("cuda", torch.cuda.current_device())
         dev = self._device_fields.get(device)
         if dev is None:
-            dev = self._device_fields[device] = DeviceField(self.params, device)
+            dev = self._device_fields[device] = DeviceField(self.params, device=device)
         return dev
 
 

@@ -23,9 +23,10 @@ Two layers, as in the JAX package (`DeviceField` over `field/pallas_ops.py`):
   dispatch rules (2^16-element minimum, 2048-lane tiles, L >= 8) applies.
 
 The batched inverse `inv` (plain version `inv_ref`) is Montgomery's trick
-over the products above, as in the JAX package; its one total is raised to
-p - 2 by `mont_pow` (kernel A, csrc/field_ops.cu; plain version
-`mont_pow_ref`), so an inverse stays on the device.
+over the products above, as in the JAX package; its one total is inverted
+by `mont_inv` (kernel A, csrc/field_ops.cu: a binary GCD; plain version
+`mont_pow_ref(a, p - 2)`, the JAX package's Fermat ladder), so an inverse
+stays on the device.
 
 `from_numpy` uploads from pinned memory, asynchronously (a pageable
 host-to-device copy synchronizes the stream as a fetch does), and `const`
@@ -51,7 +52,7 @@ _I32 = torch.int32
 class DeviceField:
     """Vectorized Montgomery arithmetic for one prime modulus on one device."""
 
-    def __init__(self, params: MontParams, device):
+    def __init__(self, params: MontParams, *, device="cuda"):
         self.params = params
         self.L = params.L
         self.p = params.modulus
@@ -83,10 +84,10 @@ class DeviceField:
         arr = self.from_numpy(ints_to_limbs(values, self.L))
         return self._to_mont(arr) if to_mont else arr
 
-    def to_ints(self, t: torch.Tensor, from_mont: bool = True) -> List[int]:
+    def to_ints(self, arr: torch.Tensor, from_mont: bool = True) -> List[int]:
         if from_mont:
-            t = self._from_mont(t)
-        return limbs_to_ints(self.to_numpy(t).reshape(self.L, -1))
+            arr = self._from_mont(arr)
+        return limbs_to_ints(self.to_numpy(arr).reshape(self.L, -1))
 
     def const(self, value: int, shape=(), to_mont: bool = True) -> torch.Tensor:
         """Broadcastable constant: [L] + [1]*len(shape), uploaded once per
@@ -301,21 +302,21 @@ class DeviceField:
         return result
 
     # ----- powers and the batched inverse ---------------------------------
-    def mont_pow(self, a: torch.Tensor, e: int) -> torch.Tensor:
-        """a^e for Montgomery-form [L, n] and a python int e >= 1.  A CPU
-        tensor runs `mont_pow_ref`; any other launches kernel A (one thread
-        an element runs the whole ladder) or raises."""
+    def mont_inv(self, a: torch.Tensor) -> torch.Tensor:
+        """a^-1 (0 for 0) for Montgomery-form [L, n].  A CPU tensor runs
+        `mont_pow_ref(a, p - 2)`; any other launches kernel A (a binary GCD,
+        four lanes an element) or raises."""
         if a.device.type == "cpu":
-            return self.mont_pow_ref(a, e)
-        return kernels.mont_pow(self, a, e)
+            return self.mont_pow_ref(a, self.p - 2)
+        return kernels.mont_inv(self, a)
 
     def mont_pow_ref(self, a: torch.Tensor, e: int) -> torch.Tensor:
-        """Plain version of kernel A: the JAX package's `_fermat_inv_single`
-        ladder (genstark_tpu/field/device.py:329) for any exponent e >= 1:
-        from the top bit down, square, and multiply by a where the bit is
-        set, on `mont_mul_ref`."""
+        """Plain version of kernel A at e = p - 2: the JAX package's
+        `_fermat_inv_single` ladder (genstark_tpu/field/device.py:329) for
+        any exponent e >= 1: from the top bit down, square, and multiply by
+        a where the bit is set, on `mont_mul_ref`."""
         if e < 1:
-            raise ValueError("mont_pow takes an exponent e >= 1")
+            raise ValueError("mont_pow_ref takes an exponent e >= 1")
         result = a
         for bit in bin(e)[3:]:
             result = self.mont_mul_ref(result, result)
@@ -330,20 +331,20 @@ class DeviceField:
         inverse one kernel-A launch: nothing leaves the device."""
         if a.device.type == "cpu":
             return self.inv_ref(a)
-        return self._inv_with(self.mont_mul, self.mont_pow, a)
+        return self._inv_with(self.mont_mul, self.mont_inv, a)
 
     def inv_ref(self, a: torch.Tensor) -> torch.Tensor:
         """Plain version of `inv`: the same steps on `mont_mul_ref` and
-        `mont_pow_ref`."""
-        return self._inv_with(self.mont_mul_ref, self.mont_pow_ref, a)
+        `mont_pow_ref(., p - 2)`."""
+        return self._inv_with(self.mont_mul_ref, lambda t: self.mont_pow_ref(t, self.p - 2), a)
 
-    def _inv_with(self, mul, power, a: torch.Tensor) -> torch.Tensor:
+    def _inv_with(self, mul, inverse, a: torch.Tensor) -> torch.Tensor:
         """The JAX package's `DeviceField.inv` (genstark_tpu/field/device.py
-        :294-357) over the product `mul` and the power `power`: zeros masked
-        to one, inclusive prefix and suffix products by Hillis-Steele
-        doubling, the total inverted by the Fermat ladder total^(p-2) on the
-        device, each element's inverse as prod_{k<i} * prod_{k>i} *
-        total^-1, zeros put back."""
+        :294-357) over the product `mul` and the single inverse `inverse`:
+        zeros masked to one, inclusive prefix and suffix products by
+        Hillis-Steele doubling, the total inverted on the device, each
+        element's inverse as prod_{k<i} * prod_{k>i} * total^-1, zeros put
+        back."""
         L = self.L
         flat = a.reshape(L, -1)
         n = flat.shape[1]
@@ -359,7 +360,7 @@ class DeviceField:
             prefix = mul(prefix, torch.cat([ident, prefix[:, :-k]], dim=1))
             suffix = mul(suffix, torch.cat([suffix[:, k:], ident], dim=1))
             k *= 2
-        total_inv = power(prefix[:, -1:].contiguous(), self.p - 2)
+        total_inv = inverse(prefix[:, -1:].contiguous())
         pre_excl = torch.cat([one, prefix[:, :-1]], dim=1)
         suf_excl = torch.cat([suffix[:, 1:], one], dim=1)
         out = mul(mul(pre_excl, suf_excl), total_inv)

@@ -112,6 +112,11 @@ class HostField:
         return out
 
     # ----- polynomial ops (coefficient form, lowest degree first) -----------
+    def add_polys(self, a: Sequence[int], b: Sequence[int]) -> List[int]:
+        n = max(len(a), len(b))
+        return [((a[i] if i < len(a) else 0) + (b[i] if i < len(b) else 0)) % self.p
+                for i in range(n)]
+
     def mul_polys(self, a: Sequence[int], b: Sequence[int]) -> List[int]:
         out = [0] * (len(a) + len(b) - 1)
         for i, ai in enumerate(a):
@@ -160,6 +165,19 @@ class HostField:
         return [(c * n_inv) % self.p for c in coeffs]
 
     # ----- PRNG -------------------------------------------------------------
+    def eval_poly_at_roots(self, poly: Sequence[int], n: int) -> List[int]:
+        w = self.get_root_of_unity(n)
+        padded = list(poly) + [0] * (n - len(poly))
+        return _ntt_host(padded, w, self.p)
+
+    # ----- quartic batch (JAX host.py:172-180) ------------------------------
+    def interpolate_quartic_batch(self, xs: Sequence[Sequence[int]],
+                                  ys: Sequence[Sequence[int]]) -> List[List[int]]:
+        return [self.interpolate(x4, y4) for x4, y4 in zip(xs, ys)]
+
+    def eval_quartic_batch(self, polys: Sequence[Sequence[int]], x: int) -> List[int]:
+        return [self.eval_poly_at(poly, x) for poly in polys]
+
     def prng(self, seed: bytes, count: int = None):
         """sha256-counter PRNG producing field elements.
 

@@ -38,6 +38,14 @@ def int_to_limbs(value: int, L: int) -> np.ndarray:
     return out
 
 
+def limbs_to_int(limbs) -> int:
+    """np array [L] of 16-bit limbs -> python int (JAX limbs.py:48)."""
+    value = 0
+    for i in reversed(range(len(limbs))):
+        value = (value << LIMB_BITS) | int(limbs[i])
+    return value
+
+
 def ints_to_limbs(values, L: int) -> np.ndarray:
     """Iterable of ints -> np.uint32[L, N] (values must be in [0, 2^(16L)))."""
     values = list(values)
@@ -46,7 +54,7 @@ def ints_to_limbs(values, L: int) -> np.ndarray:
     return np.frombuffer(raw, dtype="<u2").reshape(len(values), L).T.astype(np.uint32)
 
 
-def power_series_mont_np(params: "MontParams", seed: int, length: int,
+def power_series_mont_np(params: "MontParams", seed: int, length: int, *,
                          start: int = 0) -> np.ndarray:
     """[s^start, s^(start+1), ...] (length entries; [1, s, s^2, ...] by
     default) in Montgomery form as np.uint32[L, length], computed with host

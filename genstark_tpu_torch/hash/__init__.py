@@ -15,7 +15,6 @@ hash/blake2s.py and hash/sha256.py.
 
 from __future__ import annotations
 
-import hashlib
 from typing import List
 
 import numpy as np
@@ -33,6 +32,12 @@ def digests_to_bytes(digests: np.ndarray) -> List[bytes]:
     arr = np.ascontiguousarray(np.asarray(digests).astype("<u4").T)
     raw = arr.tobytes()
     return [raw[i * 32:(i + 1) * 32] for i in range(arr.shape[0])]
+
+
+def bytes_to_words_le(data: bytes) -> np.ndarray:
+    """bytes -> uint32 LE-byte words (zero-padded to word boundary)."""
+    pad = (-len(data)) % 4
+    return np.frombuffer(data + b"\x00" * pad, dtype="<u4").astype(np.uint32)
 
 
 def elements_to_words(limbs: torch.Tensor) -> torch.Tensor:
@@ -54,20 +59,20 @@ class Hash:
         if algorithm not in HASH_ALGORITHMS:
             raise ValueError(f"Hash algorithm {algorithm} is not supported")
         self.algorithm = algorithm
+        self._mod = _sha256 if algorithm == "sha256" else _blake2s
         self.digest_size = 32
+        self.is_optimized = True
 
     # ----- host path --------------------------------------------------------
     def digest(self, data: bytes) -> bytes:
-        if self.algorithm == "sha256":
-            return hashlib.sha256(data).digest()
-        return hashlib.blake2s(data).digest()
+        return self._mod.digest_host(data)
 
     # ----- device batch paths ----------------------------------------------
-    def digest_rows(self, words: torch.Tensor, msg_bytes: int) -> torch.Tensor:
+    def digest_rows(self, words_le: torch.Tensor, msg_bytes: int) -> torch.Tensor:
         """Hash B equal-size messages: [W, B] LE words -> int32 [8, B]."""
-        if words.device.type == "cpu":
-            return digest_rows_ref(self.algorithm, words, msg_bytes)
-        return kernels.hash_words(self.algorithm, words.to(torch.int32).contiguous(),
+        if words_le.device.type == "cpu":
+            return digest_rows_ref(self.algorithm, words_le, msg_bytes)
+        return kernels.hash_words(self.algorithm, words_le.to(torch.int32).contiguous(),
                                   msg_bytes)
 
     def merge_element_rows(self, vectors_std, element_size: int) -> torch.Tensor:

@@ -8,6 +8,7 @@ holding 32-bit values; every sum is masked back to 32 bits.
 
 from __future__ import annotations
 
+import hashlib
 from typing import List
 
 import torch
@@ -60,15 +61,15 @@ def _compress(h: List[torch.Tensor], m: List[torch.Tensor], t: int,
     return [h[i] ^ v[i] ^ v[i + 8] for i in range(8)]
 
 
-def digest_rows_le(words: torch.Tensor, msg_bytes: int) -> torch.Tensor:
+def digest_rows_le(words_le: torch.Tensor, msg_bytes: int) -> torch.Tensor:
     """BLAKE2s-256 of B equal-length messages: int64 [ceil(msg/4), B] LE
     words -> int64 [8, B] LE digest words."""
-    n_words, B = words.shape
+    n_words, B = words_le.shape
     if n_words != (msg_bytes + 3) // 4:
         raise ValueError("word count does not match the message length")
     n_blocks = max(1, (msg_bytes + 63) // 64)
-    zero = torch.zeros((B,), dtype=torch.int64, device=words.device)
-    rows = [words[i] for i in range(n_words)] + [zero] * (n_blocks * 16 - n_words)
+    zero = torch.zeros((B,), dtype=torch.int64, device=words_le.device)
+    rows = [words_le[i] for i in range(n_words)] + [zero] * (n_blocks * 16 - n_words)
     h = [torch.full_like(zero, x) for x in IV]
     h[0] = h[0] ^ 0x01010020             # digest_length=32, fanout=1, depth=1
     for blk in range(n_blocks):
@@ -76,3 +77,7 @@ def digest_rows_le(words: torch.Tensor, msg_bytes: int) -> torch.Tensor:
         t = msg_bytes if last else (blk + 1) * 64
         h = _compress(h, rows[blk * 16:(blk + 1) * 16], t, last)
     return torch.stack(h)
+
+
+def digest_host(data: bytes) -> bytes:
+    return hashlib.blake2s(data).digest()

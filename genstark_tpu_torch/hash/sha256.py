@@ -9,6 +9,7 @@ in and the state is byte-swapped out).  Words are int64 tensors holding
 
 from __future__ import annotations
 
+import hashlib
 import torch
 
 M32 = 0xFFFFFFFF
@@ -34,31 +35,31 @@ def rotr(x: torch.Tensor, n: int) -> torch.Tensor:
     return ((x >> n) | (x << (32 - n))) & M32
 
 
-def bswap(x: torch.Tensor) -> torch.Tensor:
+def byteswap32(x: torch.Tensor) -> torch.Tensor:
     return (((x >> 24) & 0xFF) | ((x >> 8) & 0xFF00) |
             ((x << 8) & 0xFF0000) | ((x << 24) & 0xFF000000))
 
 
-def digest_rows_le(words: torch.Tensor, msg_bytes: int) -> torch.Tensor:
+def digest_rows_le(words_le: torch.Tensor, msg_bytes: int) -> torch.Tensor:
     """SHA-256 of B equal-length messages: int64 [ceil(msg/4), B] LE words
     (partial last word zero-padded) -> int64 [8, B] LE digest words."""
-    n_words, B = words.shape
+    n_words, B = words_le.shape
     if n_words != (msg_bytes + 3) // 4:
         raise ValueError("word count does not match the message length")
     n_blocks = (msg_bytes + 9 + 63) // 64
     total = n_blocks * 16
-    zero = torch.zeros((B,), dtype=torch.int64, device=words.device)
-    rows = [words[i] for i in range(n_words)] + [zero] * (total - n_words)
+    zero = torch.zeros((B,), dtype=torch.int64, device=words_le.device)
+    rows = [words_le[i] for i in range(n_words)] + [zero] * (total - n_words)
     term_word, term_shift = msg_bytes // 4, (msg_bytes % 4) * 8
     rows[term_word] = rows[term_word] | (0x80 << term_shift)
-    be = [bswap(w) for w in rows]
+    be = [byteswap32(w) for w in rows]
     bitlen = msg_bytes * 8
     be[total - 2] = torch.full_like(zero, bitlen >> 32)
     be[total - 1] = torch.full_like(zero, bitlen & M32)
     state = [torch.full_like(zero, x) for x in H0]
     for blk in range(n_blocks):
         state = compress(state, be[blk * 16:(blk + 1) * 16])
-    return torch.stack([bswap(x) for x in state])
+    return torch.stack([byteswap32(x) for x in state])
 
 
 def compress(state, block):
@@ -84,3 +85,7 @@ def compress(state, block):
         maj = (a & (b | c)) | (b & c)
         a, b, c, d, e, f, g, h = (t1 + S0 + maj) & M32, a, b, c, (d + t1) & M32, e, f, g
     return [(x + y) & M32 for x, y in zip(state, (a, b, c, d, e, f, g, h))]
+
+
+def digest_host(data: bytes) -> bytes:
+    return hashlib.sha256(data).digest()

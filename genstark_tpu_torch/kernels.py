@@ -47,11 +47,11 @@ SMEM_BYTES = 232448
 # Launch counts per kernel (kernel 1: dft_level; 2: hash_words; 3:
 # hash_limbs; 4: lcomb_tail; 5: field_ew; 6: outer_table; 7: bfly_stage; 8:
 # butterfly; 9: bfly_stage_split; 10: mont_chain; 11: u32_chain; and the
-# port's kernels without a Pallas row, A: mont_pow; B: sample_queries).  A
+# port's kernels without a Pallas row, A: mont_inv; B: sample_queries).  A
 # wrapper adds one where it launches.
 launch_counts = {"dft_level": 0, "hash_words": 0, "hash_limbs": 0, "lcomb_tail": 0,
                  "field_ew": 0, "outer_table": 0, "bfly_stage": 0, "butterfly": 0,
-                 "bfly_stage_split": 0, "mont_chain": 0, "u32_chain": 0, "mont_pow": 0,
+                 "bfly_stage_split": 0, "mont_chain": 0, "u32_chain": 0, "mont_inv": 0,
                  "sample_queries": 0}
 # The JAX package's rule between rows 7 and 9 (pallas_kernels.py:378, _BLK):
 # a pass whose lowest stage has half-size m <= STAGE_SPLIT_ABOVE counts as
@@ -152,11 +152,11 @@ def _load():
         lib.gs_butterfly_stages.restype = I
         lib.gs_mont_chain.argtypes = [I, P, P, LL, I, I, P, P]
         lib.gs_mont_chain.restype = I
-        lib.gs_u32_chain.argtypes = [P, P, LL, P]
+        lib.gs_u32_chain.argtypes = [P, P, LL, I, P]
         lib.gs_u32_chain.restype = I
-        lib.gs_mont_pow.argtypes = [I, P, P, LL, P, I, P, P]
-        lib.gs_mont_pow.restype = I
-        lib.gs_sample_queries.argtypes = [P, I, P, P, P, P, I, P, P, P]
+        lib.gs_mont_inv.argtypes = [I, P, P, LL, P, I, P, P]
+        lib.gs_mont_inv.restype = I
+        lib.gs_sample_queries.argtypes = [P, I, P, P, P, P, I, I, P, P, P]
         lib.gs_sample_queries.restype = I
         _lib = lib
     return _lib
@@ -444,27 +444,40 @@ def outer_table(dev, outer: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def mont_pow(dev, a: torch.Tensor, e: int) -> torch.Tensor:
-    """Kernel A (csrc/field_ops.cu gs_mont_pow): contract of
-    DeviceField.mont_pow_ref.  a int32 [L, n] Montgomery (any layout; made
-    contiguous), e a python int in [1, 2^256) -> a new [L, n] tensor of
-    a^e."""
+# Kernel A: binary-GCD steps a batch (csrc/field_ops.cu kGcdSteps).
+GCD_STEPS = 30
+
+
+def mont_inv_constant(p: int, L: int):
+    """Kernel A's host constant: (T, the L/2 little-endian words of
+    2^((32 - GCD_STEPS) T) R^3 mod p), T = ceil((2 len(p) - 1) / GCD_STEPS)
+    the binary GCD's batches, R = 2^(16 L).  Each batch divides u and v by
+    2^GCD_STEPS and its Montgomery word by 2^32, so the GCD ends with v =
+    x^-1 2^((GCD_STEPS - 32) T); the last word product v c R^-1 turns that
+    into x^-1 R^2, the Montgomery form of a^-1 for x = a R."""
+    T = -(-(2 * p.bit_length() - 1) // GCD_STEPS)
+    c = pow(2, (32 - GCD_STEPS) * T, p) * pow(1 << (16 * L), 3, p) % p
+    return T, np.asarray([(c >> (32 * w)) & 0xFFFFFFFF for w in range(L // 2)], dtype=np.uint32)
+
+
+def mont_inv(dev, a: torch.Tensor) -> torch.Tensor:
+    """Kernel A (csrc/field_ops.cu gs_mont_inv): the contract of
+    DeviceField.mont_pow_ref(a, p - 2).  a int32 [L, n] Montgomery (any
+    layout; made contiguous) -> a new [L, n] tensor of a^-1 (0 for 0)."""
     L = _field_l(dev)
     _require(a, "a", torch.int32, contiguous=False)
     if a.dim() != 2 or a.shape[0] != L:
-        raise ValueError(f"mont_pow takes a [{L}, n], got {tuple(a.shape)}")
-    if not 1 <= e < 1 << 256:
-        raise ValueError("mont_pow takes an exponent in [1, 2^256)")
+        raise ValueError(f"mont_inv takes a [{L}, n], got {tuple(a.shape)}")
     a = a.contiguous()
     out = torch.empty_like(a)
     if a.shape[1] == 0:
         return out
-    words = np.asarray([(e >> (32 * w)) & 0xFFFFFFFF for w in range(8)], dtype=np.uint32)
+    batches, c = mont_inv_constant(dev.p, L)
     fw = np.ascontiguousarray(_field_words(dev))
-    rc = _load().gs_mont_pow(L, a.data_ptr(), out.data_ptr(), a.shape[1], _u32p(words), 8,
+    rc = _load().gs_mont_inv(L, a.data_ptr(), out.data_ptr(), a.shape[1], _u32p(c), batches,
                              _u32p(fw), _stream(a))
-    _check(rc, "mont_pow")
-    launch_counts["mont_pow"] += 1
+    _check(rc, "mont_inv")
+    launch_counts["mont_inv"] += 1
     return out
 
 
@@ -563,13 +576,15 @@ def mont_chain(dev, x: torch.Tensor, depth: int, general: bool = False) -> torch
     return out
 
 
-def u32_chain(x: torch.Tensor) -> torch.Tensor:
+def u32_chain(x: torch.Tensor, rounds: int = 1) -> torch.Tensor:
     """Kernel 11 (csrc/probes.cu gs_u32_chain): contract of
     roofline.u32_chain_ref.  x int32 (u32 bits, any shape, contiguous) ->
-    a new tensor of the same shape."""
+    a new tensor of the same shape; the chain runs `rounds` times."""
     _require(x, "x", torch.int32)
+    if rounds < 1:
+        raise ValueError(f"u32_chain takes rounds >= 1, got {rounds}")
     out = torch.empty_like(x)
-    rc = _load().gs_u32_chain(x.data_ptr(), out.data_ptr(), x.numel(), _stream(x))
+    rc = _load().gs_u32_chain(x.data_ptr(), out.data_ptr(), x.numel(), rounds, _stream(x))
     _check(rc, "u32_chain")
     launch_counts["u32_chain"] += 1
     return out
@@ -581,6 +596,14 @@ def u32_chain(x: torch.Tensor) -> torch.Tensor:
 SAMPLE_MAX_SETS = 32
 SAMPLE_MAX_COUNT = 1024
 SAMPLE_MAX_CAND = 1 << 24
+
+
+def sample_window(max_count: int) -> int:
+    """Kernel B's first window (a candidate a thread; later windows take
+    all 256): the smallest of 64, 128, 256 that holds a quarter more
+    candidates than the largest set takes, so a set is almost always
+    complete in it, and fewer candidates an SM hash sooner."""
+    return next(w for w in (64, 128, 256) if 4 * w >= 5 * max_count or w == 256)
 
 
 def sample_queries(roots: torch.Tensor, specs) -> tuple:
@@ -608,8 +631,8 @@ def sample_queries(roots: torch.Tensor, specs) -> tuple:
     rc = _load().gs_sample_queries(
         roots.data_ptr(), S, ints([c for c, _, _, _ in specs]),
         ints([m - 1 for _, m, _, _ in specs]), ints([x for _, _, x, _ in specs]),
-        ints([n for _, _, _, n in specs]), cap, idx.data_ptr(), found.data_ptr(),
-        _stream(roots))
+        ints([n for _, _, _, n in specs]), cap, sample_window(cap), idx.data_ptr(),
+        found.data_ptr(), _stream(roots))
     _check(rc, "sample_queries")
     launch_counts["sample_queries"] += 1
     return idx, found

@@ -22,6 +22,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..hash import Hash, digests_to_bytes  # noqa: F401  (re-exported, as in the JAX package)
+
 
 def level_offset(n: int, level: int) -> int:
     """Row offset of `level` (0 = leaves) in a flat tree over n leaves."""
@@ -135,12 +137,18 @@ class MerkleTree:
     trees such as the FRI remainder's re-commit)."""
 
     def __init__(self, hash_, depth: int, levels: Optional[List[List[bytes]]] = None,
-                 flat: Optional[torch.Tensor] = None, root: Optional[bytes] = None):
+                 flat_dev: Optional[torch.Tensor] = None, root: Optional[bytes] = None):
         self.hash = hash_
         self.depth = depth
         self._levels = levels            # host mode: levels[0] = leaves ... [root]
-        self._flat = flat                # device mode: build_tree_flat's buffer
-        self.root = root if root is not None else levels[-1][0]
+        self._flat = flat_dev            # device mode: build_tree_flat's buffer
+        self._root = root
+
+    @property
+    def root(self) -> bytes:
+        if self._root is None:
+            self._root = self._levels[-1][0]
+        return self._root
 
     @property
     def leaf_count(self) -> int:
@@ -157,7 +165,7 @@ class MerkleTree:
             raise ValueError("leaf count must be a power of 2")
         flat = build_tree_flat(hash_, leaves, n)
         root = flat[:, -1].cpu().numpy().astype("<u4").tobytes()
-        return cls(hash_, n.bit_length() - 1, flat=flat, root=root)
+        return cls(hash_, n.bit_length() - 1, flat_dev=flat, root=root)
 
     @classmethod
     def create_from_bytes(cls, leaves: Sequence[bytes], hash_) -> "MerkleTree":

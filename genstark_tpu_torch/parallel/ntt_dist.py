@@ -30,6 +30,9 @@ replicated coefficients costs two exchanges, a block-to-block transform
 (`distributed_ntt`) three, and an interpolation from a block to
 replicated coefficients two exchanges and a gather.  Sizes where
 `can_distribute` is false run whole on every rank, which keeps its block.
+With `natural_output=False`, `distributed_ntt` / `distributed_intt` skip
+the last exchange and give the rank's rows of the block layout D[k1, k2]
+= X[k1 + n1*k2], the JAX functions' layout without their transpose.
 """
 
 from __future__ import annotations
@@ -97,11 +100,16 @@ def dist_transform(dev, x: torch.Tensor, plan: DistPlan, mesh: Mesh,
     in and out.  inp "replicated": x holds the first m <= n values of the
     input (zeros above, an LDE's padding) on every rank; "block": x is the
     rank's natural block (m = n/D).  out "block": the rank's natural block
-    [..., L, n/D] of the result; "replicated": the whole [..., L, n]."""
+    [..., L, n/D] of the result; "replicated": the whole [..., L, n];
+    "rows": the rank's rows k1 in [r n1/D, (r + 1) n1/D) of the four-step's
+    output D[k1, k2] = X[k1 + n1 k2], [..., L, n1/D, n2] (no exchange after
+    the second transform)."""
     n, D, r = plan.n, mesh.size, mesh.rank
     batch, L = tuple(x.shape[:-2]), x.shape[-2]
     x = x.reshape((-1, L, x.shape[-1]))
     B = x.shape[0]
+    if out == "rows" and not plan.distributed:
+        raise ValueError(f"domain {n} too small for {D} devices")
     if not plan.distributed:
         if inp == "block":
             x = torch.cat(mesh.all_gather(x), dim=-1)
@@ -130,6 +138,8 @@ def dist_transform(dev, x: torch.Tensor, plan: DistPlan, mesh: Mesh,
     got = mesh.all_to_all(send)                                          # [src, B, a, L, c]
     z = transform(dev, got.permute(1, 2, 3, 0, 4).reshape(B, a, L, n2), plan.p2)
     # z[b, k1 - r a, :, k2] = X[k1 + n1 k2]
+    if out == "rows":
+        return z.permute(0, 2, 1, 3).reshape(batch + (L, a, n2))
     if out == "block":
         send = z.reshape(B, a, L, D, c).permute(3, 0, 1, 2, 4)          # [dest, B, a, L, c]
         got = mesh.all_to_all(send)                                      # [src, B, a, L, c]
@@ -157,18 +167,27 @@ def _plan(field, dev, n: int, mesh: Mesh, inverse: bool) -> DistPlan:
     return plan
 
 
-def distributed_ntt(field, values: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def distributed_ntt(field, values: torch.Tensor, mesh: Mesh,
+                    natural_output: bool = True) -> torch.Tensor:
     """Forward NTT over the mesh: values [..., L, n/D] is this rank's
     natural block of the n-point input (Montgomery limbs on the mesh's
     device); returns its block of the output, which `distributed.fetch(...,
-    sharded=True)` gathers into the JAX `distributed_ntt`'s global array."""
-    n = values.shape[-1] * mesh.size
-    dev = field.device_field(values.device)
-    return dist_transform(dev, values, _plan(field, dev, n, mesh, False), mesh, "block", "block")
+    sharded=True)` gathers into the JAX `distributed_ntt`'s global array.
+    natural_output=False: the rank's rows [..., L, n1/D, n2] of the block
+    layout D[k1, k2] = X[k1 + n1*k2] (gathered along axis -2, the JAX
+    function's [L, n1, n2] output); it raises where the mesh cannot split n."""
+    return _distributed(field, values, mesh, False, natural_output)
 
 
-def distributed_intt(field, values: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Inverse NTT over the mesh (n^-1 folded), block in and block out."""
+def distributed_intt(field, values: torch.Tensor, mesh: Mesh,
+                     natural_output: bool = True) -> torch.Tensor:
+    """Inverse NTT over the mesh (n^-1 folded), block in; out as
+    `distributed_ntt`'s."""
+    return _distributed(field, values, mesh, True, natural_output)
+
+
+def _distributed(field, values, mesh: Mesh, inverse: bool, natural_output: bool):
     n = values.shape[-1] * mesh.size
     dev = field.device_field(values.device)
-    return dist_transform(dev, values, _plan(field, dev, n, mesh, True), mesh, "block", "block")
+    return dist_transform(dev, values, _plan(field, dev, n, mesh, inverse), mesh, "block",
+                          "block" if natural_output else "rows")

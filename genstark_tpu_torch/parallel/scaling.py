@@ -111,9 +111,9 @@ def _scaling_rank(mesh: Mesh, n: int) -> List[dict]:
     return measure_ntt_scaling(mesh, n=n)
 
 
-def main(argv=None) -> None:
+def main() -> None:
     from .launch import run_ranks
-    argv = sys.argv[1:] if argv is None else argv
+    argv = sys.argv[1:]
     n = int(argv[0]) if argv else 2 ** 18
     ranks = int(argv[1]) if len(argv) > 1 else 4
     device = argv[2] if len(argv) > 2 else "cuda"

@@ -10,7 +10,7 @@ the assertions.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -45,12 +45,20 @@ class BoundaryConstraints:
     def count(self) -> int:
         return len(self.polys)
 
-    def evaluate_at(self, p_values: List[int], x: int, z_invs: List[int]) -> List[int]:
+    def evaluate_at(self, p_values: List[int], x: int,
+                    z_invs: Optional[List[int]] = None) -> List[int]:
         """z_invs: Z_b(x)^-1 per register (insertion order), which the
-        verifier batches across query positions (`z_dens_at`)."""
+        verifier batches across query positions (`z_dens_at`); without
+        them each Z_b(x) is divided by on the host, as in the JAX package."""
         f = self.field.host
-        return [f.mul(f.sub(p_values[register], f.eval_poly_at(c["i_poly"], x)), z_invs[b])
-                for b, (register, c) in enumerate(self.polys.items())]
+        out = []
+        for b, (register, c) in enumerate(self.polys.items()):
+            num = f.sub(p_values[register], f.eval_poly_at(c["i_poly"], x))
+            if z_invs is not None:
+                out.append(f.mul(num, z_invs[b]))
+            else:
+                out.append(f.div(num, f.eval_poly_at(c["z_poly"], x)))
+        return out
 
     def z_dens_at(self, x: int) -> List[int]:
         """Z_b(x) denominators per register (insertion order), for batched

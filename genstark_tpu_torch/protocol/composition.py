@@ -149,9 +149,10 @@ class CompositionPolynomial:
         return dev.add(d_evals, bc)
 
     def evaluate_at(self, x: int, p_values: List[int], n_values: List[int],
-                    s_values: List[int], context, invs) -> int:
+                    s_values: List[int], context, invs=None) -> int:
         """invs: (1/Z(x), the boundary 1/Z_b(x)) for this x, which the
-        verifier batches across query positions."""
+        verifier batches across query positions; without them both are
+        divided by on the host, as in the JAX package."""
         f = self.field.host
         q_values = context.evaluate_constraints_at(x, p_values, n_values, s_values)
 
@@ -166,8 +167,12 @@ class CompositionPolynomial:
         for v, c in zip(q_values, self.d_coefficients):
             qc = f.add(qc, f.mul(v, c))
 
-        z_inv, b_z_invs = invs
-        d_value = f.mul(qc, z_inv)
+        if invs is not None:
+            z_inv, b_z_invs = invs
+            d_value = f.mul(qc, z_inv)
+        else:
+            b_z_invs = None
+            d_value = f.div(qc, self.z_poly.evaluate_at(x))
 
         b_values = self.b_poly.evaluate_at(p_values, x, b_z_invs)
         b_incremental = self.composition_degree - context.trace_length

@@ -73,7 +73,7 @@ def sample_sets_ref(roots: torch.Tensor, specs) -> Tuple[torch.Tensor, torch.Ten
     n = max(spec[3] for spec in specs)
     cap = max(spec[0] for spec in specs)
     # state = sha256(seed) as 8 BE words [S, 1] each
-    st = _sha256.bswap(_sha256.digest_rows_le((roots.to(_I64) & M32).T, 32))[:, :, None]
+    st = _sha256.byteswap32(_sha256.digest_rows_le((roots.to(_I64) & M32).T, 32))[:, :, None]
 
     # v_i = state + i as 9 BE words [S, n], v[0] the carry out of 2^256
     i = torch.arange(n, dtype=_I64, device=dev)[None]

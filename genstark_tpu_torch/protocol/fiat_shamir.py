@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..hash import create_hash
-from ..hash.sha256 import bswap
+from ..hash.sha256 import byteswap32
 
 _SHA256 = create_hash("sha256")
 
@@ -34,7 +34,7 @@ def digest_words_to_field_mont(dev, digests: torch.Tensor) -> torch.Tensor:
     (a chunk below 2^(16L) is a legal operand: the product's REDC output
     stays below 2p before its final subtraction)."""
     L, n = dev.L, digests.shape[1]
-    v32 = bswap(digests.flip(0).to(torch.int64) & 0xFFFFFFFF)      # [8, N] LE 32-bit limbs
+    v32 = byteswap32(digests.flip(0).to(torch.int64) & 0xFFFFFFFF)      # [8, N] LE 32-bit limbs
     u16 = torch.stack([v32 & 0xFFFF, v32 >> 16], dim=1).reshape(16, n)
     n_chunks = -(-16 // L)
     u16 = torch.nn.functional.pad(u16, (0, 0, 0, n_chunks * L - 16)).to(torch.int32)
@@ -54,7 +54,7 @@ def prng_elements_dev(dev, seed_words: torch.Tensor, count: int) -> torch.Tensor
     # u64_be(i) as LE-byte words: 0, then byteswap32(i) (i < 2^32)
     msgs = torch.cat([state.to(torch.int64).expand(8, count),
                       torch.zeros((1, count), dtype=torch.int64, device=idx.device),
-                      bswap(idx)[None]]).to(torch.int32)                 # [10, count]
+                      byteswap32(idx)[None]]).to(torch.int32)                 # [10, count]
     return digest_words_to_field_mont(dev, _SHA256.digest_rows(msgs, 40))
 
 

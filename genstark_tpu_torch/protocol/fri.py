@@ -151,6 +151,19 @@ class LowDegreeProver:
                                                 column_proof=column_proof,
                                                 poly_proof=poly_proof))
 
+    def verify(self, proof, lc_values: List[int], exe_positions: List[int],
+               max_degree_plus1: int) -> bool:
+        """The JAX `LowDegreeProver.verify` (fri.py:152): `LowDegreeVerifier`'s."""
+        return LowDegreeVerifier(self.idx_generator, self.hash, self.context).verify(
+            proof, lc_values, exe_positions, max_degree_plus1)
+
+    def verify_remainder(self, remainder: List[int], max_degree_plus1: int,
+                         root_of_unity: int) -> None:
+        """The JAX `LowDegreeProver.verify_remainder` (fri.py:275): the
+        module's `verify_remainder` at this prover's extension factor."""
+        verify_remainder(self.field, self.idx_generator.extension_factor, remainder,
+                         max_degree_plus1, root_of_unity)
+
     def _fold(self, values: torch.Tensor, depth: int, special_x: int) -> torch.Tensor:
         """`fold` at `depth` with specialX from the host and the layer's
         tables (w^(4^depth))^i and their inverses as power series: the JAX

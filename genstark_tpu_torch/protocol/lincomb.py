@@ -18,8 +18,11 @@ from .composition import transcript_coefficients
 
 
 class LinearCombination:
-    def __init__(self, composition_degree: int, context, seed: Optional[bytes] = None,
-                 coefficient_offset: int = 0):
+    def __init__(self, seed: Optional[bytes], composition_degree: int,
+                 coefficient_offset: int, context):
+        """The JAX package's arguments (lincomb.py:17); the one-fetch prover
+        passes seed None and offset 0 and draws its coefficients on the
+        device."""
         self.field = context.field
         self.seed = seed
         self.coefficient_offset = coefficient_offset

@@ -87,7 +87,7 @@ class Prover:
         self.dev = dev
         self.hash = stark.hash
         self.c_poly = CompositionPolynomial(assertions, None, context)
-        self.l_comb = LinearCombination(self.c_poly.composition_degree, context)
+        self.l_comb = LinearCombination(None, self.c_poly.composition_degree, 0, context)
         Ne = context.evaluation_domain_size
         self.Ne = Ne
         self.layer_sizes: List[int] = []

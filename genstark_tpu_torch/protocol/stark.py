@@ -52,8 +52,8 @@ class Assertion:
 
 
 class Stark:
-    def __init__(self, air, device, options: Optional[dict] = None,
-                 logger: Optional[Logger] = None):
+    def __init__(self, air, options: Optional[dict] = None,
+                 logger: Optional[Logger] = None, *, device="cuda"):
         options = options or {}
         self.air = air
         self.dev = air.field.device_field(device)
@@ -108,7 +108,7 @@ class Stark:
         log = self.logger.start("Starting STARK computation")
         if not assertions:
             raise TypeError("At least one assertion must be provided")
-        context = self.air.init_proving_context(inputs, seed, self.dev)
+        context = self.air.init_proving_context(inputs, seed, dev=self.dev)
         self.last_context = context      # its trace_source and trace_seconds
         log("Set up evaluation context")
         try:
@@ -139,7 +139,7 @@ class Stark:
         dev = self.dev
 
         # 1 ----- evaluation context
-        context = self.air.init_proving_context(inputs, seed, dev)
+        context = self.air.init_proving_context(inputs, seed, dev=dev)
         self.last_context = context
         evaluation_domain_size = context.evaluation_domain_size
         log("Set up evaluation context")
@@ -178,9 +178,8 @@ class Stark:
         log("Computed composition polynomial C(x)")
 
         # 6 ----- random linear combination
-        l_combination = LinearCombination(c_poly.composition_degree, context,
-                                          seed=e_tree.root,
-                                          coefficient_offset=c_poly.coefficient_count)
+        l_combination = LinearCombination(e_tree.root, c_poly.composition_degree,
+                                          c_poly.coefficient_count, context)
         l_evaluations = l_combination.compute_many(c_evaluations, p_evaluations,
                                                    s_evaluations)
         log("Combined P(x) and S(x) evaluations with C(x) evaluations")
@@ -213,7 +212,7 @@ class Stark:
     def generate_execution_trace(self, inputs=None, seed=None):
         """(the Montgomery [R, L, T] trace on the Stark's device, its
         proving context)."""
-        context = self.air.init_proving_context(inputs, seed, self.dev)
+        context = self.air.init_proving_context(inputs, seed, dev=self.dev)
         return context.generate_execution_trace(), context
 
     def verify(self, assertions: Sequence[Assertion], proof: StarkProof,
@@ -229,8 +228,8 @@ class Stark:
         context = self.air.init_verification_context(proof.i_shapes, public_inputs)
         evaluation_domain_size = context.trace_length * ext
         c_poly = CompositionPolynomial(assertions, e_root, context)
-        l_combination = LinearCombination(c_poly.composition_degree, context, seed=e_root,
-                                          coefficient_offset=c_poly.coefficient_count)
+        l_combination = LinearCombination(e_root, c_poly.composition_degree,
+                                          c_poly.coefficient_count, context)
 
         # 2 ----- spot-check positions
         positions = self.index_generator.get_exe_indexes(

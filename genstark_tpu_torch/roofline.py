@@ -27,6 +27,7 @@ from . import kernels
 
 U32_CHAIN_K = 512                       # chained ops per element (vpu_bound.K)
 U32_OPS_PER_ELEMENT = (U32_CHAIN_K // 4) * 5   # counted as vpu_bound counts them
+U32_DEPENDENT_PER_ROUND = (U32_CHAIN_K // 4) * 4   # add, xor, rotate, add: the chain
 _MASK32 = 0xFFFFFFFF
 
 
@@ -50,12 +51,12 @@ def mont_chain_ref(dev, x: torch.Tensor, depth: int, general: bool = False) -> t
     return v.to(torch.int32)
 
 
-def u32_chain_ref(x: torch.Tensor) -> torch.Tensor:
+def u32_chain_ref(x: torch.Tensor, rounds: int = 1) -> torch.Tensor:
     """vpu_bound._kernel's chain on u32 words held in int32, in int64 with
-    32-bit masks."""
+    32-bit masks, `rounds` times."""
     v = x.to(torch.int64) & _MASK32
     w = v ^ 0x9E3779B9
-    for _ in range(U32_CHAIN_K // 4):
+    for _ in range(rounds * (U32_CHAIN_K // 4)):
         v = (v + w) & _MASK32
         v = v ^ (w >> 7)
         v = ((v >> 16) | (v << 16)) & _MASK32
@@ -70,10 +71,10 @@ def mont_chain(dev, x: torch.Tensor, depth: int, general: bool = False) -> torch
     return kernels.mont_chain(dev, x, depth, general)
 
 
-def u32_chain(x: torch.Tensor) -> torch.Tensor:
+def u32_chain(x: torch.Tensor, rounds: int = 1) -> torch.Tensor:
     if x.device.type == "cpu":
-        return u32_chain_ref(x)
-    return kernels.u32_chain(x)
+        return u32_chain_ref(x, rounds)
+    return kernels.u32_chain(x, rounds)
 
 
 # ------------------------------------------------------------ the rates
@@ -116,3 +117,18 @@ def u32_rate(device, n: int = 1 << 26, reps: int = 5) -> dict:
     x = torch.arange(n, dtype=torch.int32, device=device)
     ms = event_ms(lambda: kernels.u32_chain(x), reps)
     return {"n": n, "ms": ms, "u32_ops_per_s": n * U32_OPS_PER_ELEMENT / (ms * 1e-3)}
+
+
+def u32_latency(device, r1: int = 64, r2: int = 1024, reps: int = 5) -> dict:
+    """Seconds of one dependent u32 op on the card: the u32 chain on one
+    element (one thread), the slope between `r1` and `r2` rounds of
+    U32_DEPENDENT_PER_ROUND dependent ops (the launch cost cancels).  A
+    one-thread or one-block kernel's chain length times it is that
+    kernel's latency floor."""
+    if torch.device(device).type != "cuda":
+        raise RuntimeError("u32_latency measures a CUDA device")
+    x = torch.ones(1, dtype=torch.int32, device=device)
+    t1 = event_ms(lambda: kernels.u32_chain(x, r1), reps)
+    t2 = event_ms(lambda: kernels.u32_chain(x, r2), reps)
+    return {"rounds": (r1, r2), "ms": (t1, t2),
+            "s_per_op": (t2 - t1) * 1e-3 / ((r2 - r1) * U32_DEPENDENT_PER_ROUND)}

@@ -243,10 +243,10 @@ def test_inv_on_card_equals_plain(device, modulus):
             a[:, [0, n // 2, n - 1]] = 0
         x = dev.from_numpy(a).reshape((dev.L,) + shape)
         before = kernels.launch_counts["field_ew"]
-        pows = kernels.launch_counts["mont_pow"]
+        invs = kernels.launch_counts["mont_inv"]
         got = dev.inv(x)
         assert kernels.launch_counts["field_ew"] == before + 2 * (n - 1).bit_length() + 2
-        assert kernels.launch_counts["mont_pow"] == pows + 1
+        assert kernels.launch_counts["mont_inv"] == invs + 1
         assert torch.equal(got, dev.inv_ref(x))
 
 
@@ -486,6 +486,35 @@ def test_u32_chain_kernel_equals_plain(device):
     x = torch.as_tensor(rng.integers(0, 1 << 32, size=(8, 2048), dtype=np.uint64)
                         .astype(np.uint32).view(np.int32), device=device)
     assert torch.equal(roofline.u32_chain(x), roofline.u32_chain_ref(x))
+    one = x[0, :1].contiguous()      # the one-thread latency form
+    assert torch.equal(roofline.u32_chain(one, 3), roofline.u32_chain_ref(one, 3))
+
+
+def test_prime_field_device_is_the_card(device):
+    """`PrimeField.device` is the card's DeviceField, and a proving context
+    made in the JAX form takes it: its trace lies on the card and equals
+    the explicit form's."""
+    from genstark_tpu_torch import instantiate_script
+    field = create_prime_field(P32)
+    assert field.device is field.device_field("cuda")
+    src = """
+define Foo over prime field (2^32 - 3 * 2^25 + 1) {
+    secret input startValue: element[1];
+    transition 1 register {
+        for each (startValue) {
+            init { yield startValue; }
+            for steps [1..63] { yield $r0 + 2; }
+        }
+    }
+    enforce 1 constraint {
+        for all steps { enforce transition($r) = $n; }
+    }
+}"""
+    air = instantiate_script(src, {"extension_factor": 4}).air
+    trace = air.init_proving_context([[1]]).generate_execution_trace()
+    assert trace.device.type == "cuda"
+    want = air.init_proving_context([[1]], dev=field.device_field("cpu"))
+    assert torch.equal(trace.cpu(), want.generate_execution_trace())
 
 
 @pytest.mark.parametrize("modulus", [P64, P256], ids=["p64", "p256"])
@@ -621,9 +650,9 @@ def test_word_chain_kernel_equals_plain(device, modulus):
 
 @pytest.mark.parametrize("modulus", [P32, P64, P128, P224, P256],
                          ids=["p32", "p64", "p128", "p224", "p256"])
-def test_mont_pow_kernel_equals_plain(device, modulus):
-    """Kernel A against mont_pow_ref: one element (inv's use) and 300, zero
-    among them, the exponent p - 2, small ones and a 256-bit one."""
+def test_mont_inv_kernel_equals_plain(device, modulus):
+    """Kernel A against mont_pow_ref(x, p - 2): one element (inv's use) and
+    300, zero, one and p - 1 among them; one launch a call."""
     from genstark_tpu_torch import kernels
     field = create_prime_field(modulus)
     dev = field.device_field(device)
@@ -631,12 +660,13 @@ def test_mont_pow_kernel_equals_plain(device, modulus):
     a = _elements(rng, modulus, dev.L, 300)
     a[:, 7] = 0
     x = dev.from_numpy(a)
-    for e in (field.modulus - 2, 1, 2, 5, (1 << 256) - 1):
-        for xin in (x[:, :1], x):
-            before = kernels.launch_counts["mont_pow"]
-            got = kernels.mont_pow(dev, xin, e)
-            assert kernels.launch_counts["mont_pow"] == before + 1
-            assert torch.equal(got, dev.mont_pow_ref(xin, e))
+    x[:, 8:9] = dev.one((1,))
+    x[:, 9:11] = torch.as_tensor(_pm1(field, 2).astype(np.int32), device=device)
+    for xin in (x[:, :1], x, x[:, 7:8]):
+        before = kernels.launch_counts["mont_inv"]
+        got = kernels.mont_inv(dev, xin)
+        assert kernels.launch_counts["mont_inv"] == before + 1
+        assert torch.equal(got, dev.mont_pow_ref(xin, field.modulus - 2))
 
 
 def _odd_hex_roots(rng, n):
@@ -649,6 +679,29 @@ def _odd_hex_roots(rng, n):
         if hashlib.sha256(root).digest()[0] < 16:
             out.append(np.frombuffer(root, dtype="<u4").view(np.int32))
     return np.stack(out)
+
+
+def test_sample_queries_spans_two_windows(device):
+    """Kernel B on odd-hex states whose sets need more candidates than one
+    window of 256 (found on the host with chip_smoke.candidates_needed):
+    equal to sample_sets_ref and the host sampler."""
+    import chip_smoke
+    from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.protocol import device_queries as dq
+    from genstark_tpu_torch.protocol.queries import get_pseudorandom_indexes
+    rng = np.random.default_rng(29)
+    specs = [(48, 1 << 17, 16, 32 * 48 + 512), (24, 1 << 13, 16, 32 * 24 + 512)]
+    roots_np = np.concatenate([chip_smoke.odd_hex_roots(rng, 1, *spec[:3]) for spec in specs])
+    roots = torch.as_tensor(roots_np, device=device)
+    before = kernels.launch_counts["sample_queries"]
+    idx, found = kernels.sample_queries(roots, specs)
+    assert kernels.launch_counts["sample_queries"] == before + 1
+    want_idx, want_found = dq.sample_sets_ref(roots, specs)
+    assert torch.equal(idx, want_idx) and torch.equal(found, want_found)
+    for s, (count, max_, excl, _) in enumerate(specs):
+        seed = roots_np[s].view("<u4").tobytes()
+        assert chip_smoke.candidates_needed(seed, count, max_, excl) > 256
+        assert idx[s, :count].tolist() == get_pseudorandom_indexes(seed, count, max_, excl)
 
 
 def test_sample_queries_kernel_equals_plain(device):

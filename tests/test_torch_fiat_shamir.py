@@ -90,14 +90,14 @@ def test_mont_pow_ref_matches_pow(modulus):
     for e in (p - 2, 1, 2, 3, 17):
         got = dev.to_ints(dev.mont_pow_ref(x, e))
         assert got == [pow(v, e, p) for v in values]
-    # the public op takes the plain version on a CPU tensor
-    assert torch.equal(dev.mont_pow(x, p - 2), dev.mont_pow_ref(x, p - 2))
+    # the public inverse takes the plain version on a CPU tensor
+    assert torch.equal(dev.mont_inv(x), dev.mont_pow_ref(x, p - 2))
     with pytest.raises(ValueError):
         dev.mont_pow_ref(x, 0)
 
 
 def test_inv_matches_jax():
-    """`inv` (its total inverted by the ladder, on the device) against the
+    """`inv` (its total inverted by kernel A, here its plain version) against the
     JAX DeviceField.inv, zeros included."""
     modulus = P32
     dev = create_prime_field(modulus).device_field("cpu")

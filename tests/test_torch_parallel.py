@@ -1,7 +1,9 @@
 """The port's sharded prover on the CPU: groups of `gloo` ranks spawned by
 genstark_tpu_torch.parallel.launch.run_ranks (a FileStore, no port), one
 4-rank, one 2-rank and one 1-rank group running every rank-side case
-(tests/torch_parallel_cases.py), against the port's single-device proofs,
+(tests/torch_parallel_cases.py), and one 8-rank group (the JAX pins' mesh
+size) running the cases whose code turns on the rank count, against the
+port's single-device proofs,
 the JAX package's pins and `distributed_ntt` on the conftest's 8-device
 mesh, and both verifiers.  Exact comparisons.  The groups run in threads
 while the parent computes the JAX side; each has its own timeout."""
@@ -42,10 +44,13 @@ def _timed(fn, *args):
 @pytest.fixture(scope="module")
 def groups():
     """Every spawned group at once, in threads: 4, 2 and 1 ranks over every
-    case, a rank that raises, and a rank that outlives an 8 s timeout.
-    Read every future: its exception is raised where it is read."""
-    pool = concurrent.futures.ThreadPoolExecutor(5)
+    case, 8 ranks over `mesh_cases`, a rank that raises, and a rank that
+    outlives an 8 s timeout.  Read every future: its exception is raised
+    where it is read."""
+    pool = concurrent.futures.ThreadPoolExecutor(6)
     futures = {
+        8: pool.submit(_timed, run_ranks, cases.mesh_cases, 8, "gloo", "cpu", (),
+                       GROUP_TIMEOUT_S, 1),
         4: pool.submit(_timed, run_ranks, cases.all_cases, 4, "gloo", "cpu", (),
                        GROUP_TIMEOUT_S, 1),
         2: pool.submit(_timed, run_ranks, cases.all_cases, 2, "gloo", "cpu", (),
@@ -95,20 +100,23 @@ def jax_ntt():
     out = {}
     for p_name, n in cases.NTT_CASES:
         f = jax_field(getattr(jax_fields, p_name))
-        out[(p_name, n)] = f.device.to_ints(distributed_ntt(
-            f, f.device.from_ints(cases.ntt_values(f, n)), mesh))
+        x = f.device.from_ints(cases.ntt_values(f, n))
+        d = distributed_ntt(f, x, mesh, natural_output=False)
+        out[(p_name, n)] = (f.device.to_ints(distributed_ntt(f, x, mesh)), list(d.shape[1:]),
+                            f.device.to_ints(d.reshape(f.device.L, n)))
     return out
 
 
-@pytest.mark.parametrize("world", [4, 2, 1])
+@pytest.mark.parametrize("world", [8, 4, 2, 1])
 @pytest.mark.parametrize("case", cases.NTT_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
 def test_distributed_ntt_matches_single_and_jax(groups, jax_ntt, world, case):
     """(a) every rank's gathered output equals the port's single-device
-    ntt, and the JAX distributed_ntt."""
+    ntt, and the JAX distributed_ntt; with natural_output=False the ranks'
+    rows of the block layout D[k1, k2] equal the JAX function's."""
     for rank in _ranks(groups, world):
-        equal_single, ints = rank["ntt"][case]
+        equal_single, ints, d_shape, d_ints = rank["ntt"][case]
         assert equal_single
-        assert ints == jax_ntt[case]
+        assert (ints, d_shape, d_ints) == jax_ntt[case]
 
 
 @pytest.mark.parametrize("world", [4, 2, 1])
@@ -153,7 +161,7 @@ def test_sharded_p32_equals_single_and_jax(groups, single, world):
                        port.parse(data))
 
 
-@pytest.mark.parametrize("world", [4, 2, 1])
+@pytest.mark.parametrize("world", [8, 4, 2, 1])
 def test_sharded_p128_equals_jax_pin(groups, world):
     """(e) the sharded p128 proof is the JAX package's pinned bytes
     (tests/test_sharded_prover.py:73-74) on every rank."""
@@ -179,13 +187,14 @@ def test_halo_roll_across_blocks(groups, world):
         assert rank["halo"] and all(rank["halo"].values()), rank["halo"]
 
 
-@pytest.mark.parametrize("world", [4, 2, 1])
+@pytest.mark.parametrize("world", [8, 4, 2, 1])
 def test_fri_layer_below_sharded_size(groups, single, world):
     """(g) a FRI layer that falls below the sharded size is gathered and
     the proof is the single-device one; the ranks took their blocks of
-    factored tables (outer-factor rows)."""
-    want_sharded = {4: [True, False, False], 2: [True, True, False],
-                    1: [True, True, False]}[world]
+    factored tables (outer-factor rows).  A layer of n points is sharded
+    while (n / 4) / D >= 64 rows (layers 2048 and 512)."""
+    want_sharded = {8: [True, False, False], 4: [True, False, False],
+                    2: [True, True, False], 1: [True, True, False]}[world]
     for rank in _ranks(groups, world):
         case = rank["fri_drop"]
         assert case["fri_sharded"] == want_sharded
@@ -212,7 +221,7 @@ def test_make_mesh_raises_past_the_group(groups, world):
     assert all(r["make_mesh_raises"] for r in _ranks(groups, world))
 
 
-@pytest.mark.parametrize("world", [4, 2, 1])
+@pytest.mark.parametrize("world", [8, 4, 2, 1])
 def test_every_collective_runs(groups, world):
     """Every collective of the mesh ran on every rank, a one-rank group
     included (no local shortcut): all_to_all_single in both its forms

@@ -47,9 +47,9 @@ def test_secret_input_proof_equals_jax_and_verifies():
     jassert = [JaxAssertion(0, 0, controls[0]), JaxAssertion(63, 0, controls[-1])]
     want = jstark.serialize(jstark.prove(jassert, [[3]]))
 
-    stark = instantiate(schema_from_reference(jstark.air.schema),
+    stark = instantiate(schema_from_reference(jstark.air.schema), "default",
                         {"hash_algorithm": "blake2s256", "extension_factor": 16,
-                         "exe_query_count": 48, "fri_query_count": 24}, "cpu")
+                         "exe_query_count": 48, "fri_query_count": 24}, device="cpu")
     proof = stark.prove([Assertion(a.step, a.register, a.value) for a in jassert], [[3]])
     got = stark.serialize(proof)
     assert _digest(got) == _digest(want)

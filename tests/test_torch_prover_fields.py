@@ -46,7 +46,7 @@ def _jax_mimc(steps, modulus, options):
 
 
 def _port_proof_of_jax_schema(jstark, jassert, options):
-    stark = instantiate(schema_from_reference(jstark.air.schema), options, "cpu")
+    stark = instantiate(schema_from_reference(jstark.air.schema), "default", options, device="cpu")
     proof = stark.prove([Assertion(a.step, a.register, a.value) for a in jassert], [[3]])
     data = stark.serialize(proof)
     assert stark.size_of(proof) == len(data)

@@ -269,12 +269,12 @@ def test_merkle_example_proof_accepted_by_both(name):
 def test_instantiate_sources_and_default_device(tmp_path):
     """instantiate / instantiate_script take text, bytes or a path, and
     put the Stark on the CUDA card unless asked for another device."""
-    stark = instantiate(lib224_source(), TOY_32, "cpu", component="ComputePoseidonHash")
+    stark = instantiate(lib224_source(), "ComputePoseidonHash", TOY_32, device="cpu")
     assert stark.dev.device.type == "cpu" and stark.air.trace_register_count == 3
     path = tmp_path / "mimc.air"
     path.write_text(MIMC_SCRIPT.format(last=63))
     for source in (str(path), path.read_bytes()):
-        assert instantiate_script(source, TOY_16, "cpu").air.schema.base_steps == 64
+        assert instantiate_script(source, TOY_16, device="cpu").air.schema.base_steps == 64
     for fn in (instantiate, instantiate_script):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 

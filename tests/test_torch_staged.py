@@ -168,8 +168,8 @@ def foo():
     import io
     jlog = io.StringIO()
     jstark = jax_instantiate(_foo_schema(), options=OPTIONS, logger=JaxLogger())
-    stark = instantiate(schema_from_reference(jstark.air.schema), OPTIONS, "cpu",
-                        logger=Logger())
+    stark = instantiate(schema_from_reference(jstark.air.schema), "default", OPTIONS, Logger(),
+                        device="cpu")
     vals = _foo_values(P32)
     jassert = [JaxAssertion(0, 0, vals[0]), JaxAssertion(63, 0, vals[63])]
     with contextlib.redirect_stdout(jlog):
@@ -204,7 +204,7 @@ def _stage_inputs(foo):
     jp = jax_ntt.intt(jctx.field, jctx.generate_execution_trace())
     jpe = jax_ntt.low_degree_extend(jctx.field, jp, jctx.evaluation_domain_size)
     stark = foo["stark"]
-    ctx = stark.air.init_proving_context([], None, stark.dev)
+    ctx = stark.air.init_proving_context([], None, dev=stark.dev)
     p = ntt.intt(ctx.field, ctx.generate_execution_trace())
     pe = ntt.low_degree_extend(ctx.field, p, ctx.evaluation_domain_size)
     assert _equal(p, jp) and _equal(pe, jpe)
@@ -221,8 +221,7 @@ def test_composition_lincomb_and_low_degree_prover_match_jax(foo):
 
     s = ctx.secret_register_traces
     assert s == [] and jctx.secret_register_traces == []
-    lc = LinearCombination(c.composition_degree, ctx, seed=SEED,
-                           coefficient_offset=c.coefficient_count)
+    lc = LinearCombination(SEED, c.composition_degree, c.coefficient_count, ctx)
     jlc = JaxLinearCombination(SEED, jc.composition_degree, jc.coefficient_count, jctx)
     l_evals = lc.compute_many(c_evals, pe, s)
     jl_evals = jlc.compute_many(jc_evals, jpe, [])

@@ -59,7 +59,11 @@ def _ntt_cases(mesh):
         off, b = mesh.block(n)
         got = distributed_ntt(f, x[:, off:off + b].contiguous(), mesh)
         full = torch.from_numpy(fetch(got, mesh, sharded=True))
-        out[(p_name, n)] = (bool(torch.equal(full, ntt.ntt(f, x))), dev.to_ints(full))
+        # the block layout D[k1, k2]: each rank's rows k1, gathered along -2
+        rows = distributed_ntt(f, x[:, off:off + b].contiguous(), mesh, natural_output=False)
+        d = torch.cat(mesh.all_gather(rows), dim=-2)
+        out[(p_name, n)] = (bool(torch.equal(full, ntt.ntt(f, x))), dev.to_ints(full),
+                            list(d.shape[-2:]), dev.to_ints(d.reshape(dev.L, n)))
     f = fields.create_prime_field(fields.P128)
     dev = f.device_field(mesh.device)
     vals = random.Random(7)
@@ -107,17 +111,32 @@ def _fri_drop_case(mesh):
             "factored": sorted(k for k, t in tables.items() if t[0] == "factored")}
 
 
+def mesh_cases(mesh):
+    """The cases whose code turns on the rank count (the 8-rank group's):
+    the distributed NTT, the p128 pin (D <= T, the factored tables' blocks)
+    and a FRI layer gathered below the sharded size; with the traffic of
+    every collective."""
+    from genstark_tpu_torch.field import P128
+    t0 = time.monotonic()
+    out = {"ntt": _ntt_cases(mesh)}
+    _, data, fallbacks = prove_case(mesh, P128, 128, False, 64, SHARDED_OPTS)
+    out["p128"] = {"bytes": data, "fallbacks": fallbacks}
+    out["fri_drop"] = _fri_drop_case(mesh)
+    out["traffic"] = dict(mesh.traffic)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def all_cases(mesh):
     """Every rank-side case of the module, one group."""
-    from genstark_tpu_torch.field import P32, P64, P128
+    from genstark_tpu_torch.field import P32, P64
     t0 = time.monotonic()
-    out = {"ntt": _ntt_cases(mesh), "halo": _halo_cases(mesh)}
+    out = mesh_cases(mesh)
+    out["halo"] = _halo_cases(mesh)
     for label, args in (("p32", (P32, 128, False, 64, SHARDED_OPTS)),
-                        ("p128", (P128, 128, False, 64, SHARDED_OPTS)),
                         ("p64", (P64, 64, True, 64, TOY))):
         _, data, fallbacks = prove_case(mesh, *args)
         out[label] = {"bytes": data, "fallbacks": fallbacks}
-    out["fri_drop"] = _fri_drop_case(mesh)
     from genstark_tpu_torch.parallel import make_mesh
     from genstark_tpu_torch.parallel.distributed import fetch
     mine = torch.full((2, 5), mesh.rank, dtype=torch.int32)
