@@ -12,8 +12,9 @@
 // a globally bit-reversed array, which must not be reversed again).
 //
 // What bounds it on this card: a butterfly is one Montgomery product and a
-// modular add and sub (~1,600 integer ops at L = 16) on 2 elements, so the
-// stages are bound by the instruction rate; device memory is touched once
+// modular add and sub (field.cuh's word product: 4K^2 + K = 264 multiplies
+// at L = 16, K = L/2, and their carry adds) on 2 elements, so the stages
+// are bound by the instruction rate; device memory is touched once
 // per transform (one read, one write of L x n limbs, one read of the
 // twiddles).  Design:
 //   - one block owns C local transforms of neighbouring groups (columns) of
@@ -33,6 +34,11 @@
 //     a stage), capped at 128 registers by __launch_bounds__: 16 warps per SM
 //     at L = 16 and n = 2048 (one block), and at the four-step's 256- and
 //     512-point rows (several blocks);
+//   - a butterfly reads its elements' 16-bit limbs from the tile, packs
+//     each limb pair into a word (field.cuh's load_elem_w on the tile; the
+//     twiddle likewise) for the word product, and unpacks the results into
+//     the tile (store_elem_w): the tile keeps 16-bit limb rows, so the
+//     layout, swizzle and vector accesses below are those of the limb tile;
 //   - shared memory holds limb l of element i of column c at
 //     (c * L + l) * n + swz(i), where swz XORs the 5-bit chunks above bit 4
 //     into the bank bits (swz below).  The bit-reversed store (32
@@ -91,7 +97,8 @@ __device__ __forceinline__ int bitrev(int j, int log_n) {
 }
 
 template <int L>
-__global__ void __launch_bounds__(kBflyThreads) butterfly_kernel(BflyArgs a, Field f) {
+__global__ void __launch_bounds__(kBflyThreads) butterfly_kernel(BflyArgs a, FieldW f) {
+  constexpr int K = L / 2;
   extern __shared__ uint32_t sm[];  // data [C][L][n], then twiddles [L][n/2], all swizzled
   const int log_n = a.log_n, log_cols = a.log_cols;
   const int n = 1 << log_n;
@@ -184,22 +191,16 @@ __global__ void __launch_bounds__(kBflyThreads) butterfly_kernel(BflyArgs a, Fie
       const int i0 = ((k >> lm) << (lm + 1)) + r;
       uint32_t* col = sm + (bf >> (log_n - 1)) * L * n;
       const int p0 = swz(i0), p1 = swz(i0 + m), pt = swz(r << log_ts);
-      uint32_t u[L], v[L], w[L];
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        v[l] = col[l * n + p1];
-        w[l] = tws[l * half + pt];
-      }
-      mont_mul<L>(v, w, f, v);
-#pragma unroll
-      for (int l = 0; l < L; ++l) u[l] = col[l * n + p0];
-      add_mod<L>(u, v, f, w);
-      sub_mod<L>(u, v, f, v);
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        col[l * n + p0] = w[l];
-        col[l * n + p1] = v[l];
-      }
+      // the tile's 16-bit limb rows, packed into K words in registers
+      uint32_t u[K], v[K], w[K];
+      load_elem_w<K>(col, n, p1, v);
+      load_elem_w<K>(tws, half, pt, w);
+      mont_mul_w<K>(v, w, f, v);
+      load_elem_w<K>(col, n, p0, u);
+      add_mod_w<K>(u, v, f, w);
+      sub_mod_w<K>(u, v, f, v);
+      store_elem_w<K>(col, n, p0, w);
+      store_elem_w<K>(col, n, p1, v);
     }
     __syncthreads();
   }
@@ -241,7 +242,8 @@ size_t butterfly_smem(int log_n, int log_cols) {
 }
 
 template <int L>
-cudaError_t launch_butterfly(BflyArgs a, long long transforms, const Field& f, cudaStream_t st) {
+cudaError_t launch_butterfly(BflyArgs a, long long transforms, const FieldW& f,
+                             cudaStream_t st) {
   const int n = 1 << a.log_n;
   // A column view takes 2 neighbouring columns a block if the grid still
   // gives 15/16 of the SMs a block and the tile fits in shared memory.
@@ -306,7 +308,7 @@ extern "C" int gs_butterfly(int L, const void* x, const long long* x_strides, vo
   a.vec_tw = log_n >= 3 && reinterpret_cast<uintptr_t>(tw) % 16 == 0;
   const long long transforms = static_cast<long long>(batch) * groups;
   if (transforms > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  const gs::Field f = gs::field_from_words(field_words, L);
+  const gs::FieldW f = gs::fieldw_from_words(field_words, L);
   auto st = static_cast<cudaStream_t>(stream);
   switch (L) {
     case 2: return gs::launch_butterfly<2>(a, transforms, f, st);

@@ -23,8 +23,9 @@
 // array every stage (2 * L * n * 4 bytes, 512 MB at n = 2^22, L = 16), and
 // read each twiddle's L limbs as L sectors of the limb-major table.  Here a
 // pass reads and writes the array once for k stages and does k * n/2
-// Montgomery products, so at k = 5 or 6 the products (~1,600 integer ops
-// each at L = 16) bound it, not the bytes.  Design:
+// Montgomery products, so at k = 5 or 6 the products (field.cuh's word
+// product: 4K^2 + K = 264 multiplies each at L = 16, K = L/2) bound it, not
+// the bytes.  Design:
 //   - the elements i = base + t * m + c, t < 2^k, c < C (C = 16 columns,
 //     64 bytes per limb row: two full sectors; so m >= 16, and the route's
 //     lowest m is 2048) close under the k stages, so
@@ -35,6 +36,9 @@
 //   - the twiddles come from the element-major table [n/2, L] (one twiddle
 //     is L contiguous limbs: 4 16-byte loads at L = 16), straight from
 //     device memory or L2: a stage of half-size m' uses m' of them;
+//   - a butterfly packs its elements' limb pairs from the tile, and the
+//     twiddle's, into K words in registers for the word product, and
+//     unpacks the results into the tile, which keeps 16-bit limb rows;
 //   - 256 threads a block, 2 blocks an SM (16 warps, at most 128 registers a
 //     thread); shared memory holds tile word w at w ^ (bit 5 of w) << 4, so
 //     the two rows a warp's butterflies touch at the first stage (2 apart,
@@ -54,26 +58,24 @@ constexpr int kLogCols = 4, kCols = 1 << kLogCols;  // C = 16 columns a tile
 
 __device__ __forceinline__ int tile_swz(int w) { return w ^ (((w >> 5) & 1) << 4); }
 
-// Twiddle `idx` of the element-major table [n/2, L] into registers.
+// Twiddle `idx` of the element-major table [n/2, L] into registers as K =
+// L/2 words (limb_pair).
 template <int L>
 __device__ __forceinline__ void load_twiddle(const int32_t* __restrict__ tw, long long idx,
-                                             uint32_t (&w)[L]) {
+                                             uint32_t (&w)[L / 2]) {
   const int32_t* p = tw + idx * L;
   if constexpr (L % 4 == 0) {
 #pragma unroll
     for (int q = 0; q < L / 4; ++q) {
       const int4 v = __ldg(reinterpret_cast<const int4*>(p) + q);
-      w[4 * q] = v.x;
-      w[4 * q + 1] = v.y;
-      w[4 * q + 2] = v.z;
-      w[4 * q + 3] = v.w;
+      w[2 * q] = limb_pair(static_cast<uint32_t>(v.x), static_cast<uint32_t>(v.y));
+      w[2 * q + 1] = limb_pair(static_cast<uint32_t>(v.z), static_cast<uint32_t>(v.w));
     }
   } else {
 #pragma unroll
     for (int q = 0; q < L / 2; ++q) {
       const int2 v = __ldg(reinterpret_cast<const int2*>(p) + q);
-      w[2 * q] = v.x;
-      w[2 * q + 1] = v.y;
+      w[q] = limb_pair(static_cast<uint32_t>(v.x), static_cast<uint32_t>(v.y));
     }
   }
 }
@@ -81,7 +83,8 @@ __device__ __forceinline__ void load_twiddle(const int32_t* __restrict__ tw, lon
 template <int L>
 __global__ void __launch_bounds__(kStageThreads, 2)
 butterfly_stages_kernel(int32_t* x, const int32_t* __restrict__ tw, int log_n, int log_m, int k,
-                        Field f) {
+                        FieldW f) {
+  constexpr int K = L / 2;
   extern __shared__ uint4 smem_raw[];
   uint32_t* sm = reinterpret_cast<uint32_t*>(smem_raw);  // [L][2^k * C], swizzled
   const long long n = 1LL << log_n, m = 1LL << log_m;
@@ -118,20 +121,16 @@ butterfly_stages_kernel(int32_t* x, const int32_t* __restrict__ tw, int log_n, i
       const int p0 = tile_swz((t0 << kLogCols) | c);
       const int p1 = tile_swz(((t0 + (1 << j)) << kLogCols) | c);
       const long long r = (static_cast<long long>(low) << log_m) + c0 + c;  // j-th in the group
-      uint32_t u[L], v[L], w[L];
+      // the tile's 16-bit limb rows, packed into K words in registers
+      uint32_t u[K], v[K], w[K];
       load_twiddle<L>(tw, r << log_tstride, w);
-#pragma unroll
-      for (int l = 0; l < L; ++l) v[l] = sm[(l << log_tile) + p1];
-      mont_mul<L>(v, w, f, v);
-#pragma unroll
-      for (int l = 0; l < L; ++l) u[l] = sm[(l << log_tile) + p0];
-      add_mod<L>(u, v, f, w);
-      sub_mod<L>(u, v, f, v);
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        sm[(l << log_tile) + p0] = w[l];
-        sm[(l << log_tile) + p1] = v[l];
-      }
+      load_elem_w<K>(sm, tile, p1, v);
+      mont_mul_w<K>(v, w, f, v);
+      load_elem_w<K>(sm, tile, p0, u);
+      add_mod_w<K>(u, v, f, w);
+      sub_mod_w<K>(u, v, f, v);
+      store_elem_w<K>(sm, tile, p0, w);
+      store_elem_w<K>(sm, tile, p1, v);
     }
     __syncthreads();
   }
@@ -146,7 +145,7 @@ butterfly_stages_kernel(int32_t* x, const int32_t* __restrict__ tw, int log_n, i
 
 template <int L>
 cudaError_t launch_stages(int32_t* x, const int32_t* tw, int batch, int log_n, int log_m, int k,
-                          const Field& f, cudaStream_t st) {
+                          const FieldW& f, cudaStream_t st) {
   const size_t smem = (static_cast<size_t>(L) << (k + kLogCols)) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(butterfly_stages_kernel<L>,
@@ -178,7 +177,7 @@ extern "C" int gs_butterfly_stages(int L, void* x, const void* tw, int batch, in
   if (batch == 0) return 0;
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(tw) % 16 != 0)
     return cudaErrorMisalignedAddress;
-  const gs::Field f = gs::field_from_words(field_words, L);
+  const gs::FieldW f = gs::fieldw_from_words(field_words, L);
   auto* d = static_cast<int32_t*>(x);
   auto* t = static_cast<const int32_t*>(tw);
   auto st = static_cast<cudaStream_t>(stream);

@@ -398,9 +398,9 @@ cudaError_t launch(const DftArgs& a, const FieldW& f, const DftEpilogue& epi,
 }  // namespace gs
 
 // x_strides: the input view's element strides (plane, pre block, j, column
-// in block); arest: columns per pre block.  field_words: p limbs [L], n0p,
-// n0p32.  epi_words: the bias correction for n_slices slices [L] then
-// n_ch - 1 chunk constants of L limbs each.  Returns the launch's
+// in block); arest: columns per pre block.  field_words: p limbs [L], n0.
+// epi_words: the bias correction for n_slices slices [L] then n_ch - 1
+// chunk constants of L limbs each.  Returns the launch's
 // cudaError_t.
 extern "C" int gs_dft_level(int L, const void* w8, const void* x, const long long* x_strides,
                             int arest, int in_limbs, int m, int cols, int n_slices, int mode,

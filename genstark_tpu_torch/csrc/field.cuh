@@ -1,12 +1,41 @@
-// 16-bit-limb prime-field arithmetic shared by every kernel of the port.
+// Prime-field arithmetic shared by every kernel of the port: the 32-bit-word
+// Montgomery product and modular add / sub.
 //
 // CUDA counterparts of the JAX package's limb helpers in
 // genstark_tpu/ntt/pallas_kernels.py: _mont_mul_limbs (:36), _cond_sub_p
-// (:75), _add_mod (:88) and _sub_mod (:99).  An element is L 16-bit limbs,
-// little-endian, each held in a uint32_t register.  Every function returns
-// the canonical representative (< p), so a kernel built on these helpers is
-// bit-identical to the plain torch field (genstark_tpu_torch/field/device.py)
-// whatever order it applies them in.
+// (:75), _add_mod (:88) and _sub_mod (:99).  At the port's boundary an
+// element is L 16-bit limbs, little-endian, limb-major int32 [L, n] (the JAX
+// layout); a kernel packs them into K = L/2 32-bit words in registers.  Word
+// w of an element is its limb pair (2w, 2w+1): w = limb[2w] | limb[2w+1] <<
+// 16.  Every L the port takes (2, 4, 8, 14, 16) is even, so R = 2^(32K) =
+// 2^(16L): the Montgomery radix is the JAX package's, and every Montgomery
+// table, constant and R mod p of the port holds unchanged.  Every function
+// returns the canonical representative (< p), so a kernel built on these
+// helpers is bit-identical to the plain torch field
+// (genstark_tpu_torch/field/device.py, the 16-bit-limb schedule of
+// _mont_mul_limbs) whatever order it applies them in.
+//
+// Schedule of the product (CIOS, carry chains in PTX): for each word b_i of b,
+//   t += a * b_i        (low halves along one carry chain, high halves one
+//                        word up along a second)
+//   m  = t_0 * n0 mod 2^32
+//   t += m * p          (the same two chains; t_0 becomes 0)
+//   t >>= 32
+// with t in K + 2 words; then one conditional subtract of p.  That is 4K^2
+// multiply-adds and K quotient multiplies, the least roofline.mont_min_u32_ops
+// counts.  The result is canonical whenever a * b < R p (a < R and b < p
+// suffices: fiat_shamir.digest_words_to_field_mont multiplies a digest
+// chunk below R by a constant below p).  tests/test_torch_words.py models
+// this exact instruction sequence in numpy (carry flag included) against
+// Python integers, and a butterfly of them against the plain transform.
+//
+// The carry flag lives between separate `asm volatile` statements.  nvcc
+// keeps volatile asm in order, but it does not promise to emit nothing that
+// sets the flag between them, so the compiled code is what is checked:
+// every run of chip_smoke.py holds each kernel's instantiations bit for bit
+// against the plain field at every L, on inputs with 0, 1 and p - 1 among
+// them, as does tests/test_torch_cuda.py on the card.  A broken chain shows
+// there.
 #pragma once
 
 #include <cstdint>
@@ -14,166 +43,6 @@
 namespace gs {
 
 constexpr int kMaxL = 16;
-
-// Modulus limbs and n0' = -p^-1 mod 2^16, passed to kernels by value.
-struct Field {
-  uint32_t p[kMaxL];
-  uint32_t n0p;
-};
-
-// value = carry * 2^(16L) + t < 2p  ->  t := value mod p (canonical).
-template <int L>
-__device__ __forceinline__ void cond_sub_p(uint32_t (&t)[L], uint32_t carry,
-                                           const Field& f) {
-  uint32_t diff[L];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    uint32_t s = t[j] - f.p[j] - borrow;
-    diff[j] = s & 0xFFFFu;
-    borrow = s >> 31;
-  }
-  const bool take = (carry != 0u) || (borrow == 0u);
-#pragma unroll
-  for (int j = 0; j < L; ++j) t[j] = take ? diff[j] : t[j];
-}
-
-// SOS Montgomery product a*b*R^-1 mod p with lazy (carry-free) uint32
-// accumulators: every partial product is split into 16-bit halves, so no
-// accumulator passes 2^22 for L <= 16.  `out` may alias `a` or `b`.
-template <int L>
-__device__ __forceinline__ void mont_mul(const uint32_t (&a)[L],
-                                         const uint32_t (&b)[L],
-                                         const Field& f, uint32_t (&out)[L]) {
-  uint32_t acc[2 * L + 1];
-#pragma unroll
-  for (int k = 0; k < 2 * L + 1; ++k) acc[k] = 0u;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      const uint32_t prod = a[i] * b[k];
-      acc[i + k] += prod & 0xFFFFu;
-      acc[i + k + 1] += prod >> 16;
-    }
-  }
-  uint32_t c = 0u;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const uint32_t x = acc[i] + c;
-    const uint32_t m = ((x & 0xFFFFu) * f.n0p) & 0xFFFFu;
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      const uint32_t mp = m * f.p[k];
-      if (k == 0) {
-        c = (x + (mp & 0xFFFFu)) >> 16;
-      } else {
-        acc[i + k] += mp & 0xFFFFu;
-      }
-      acc[i + k + 1] += mp >> 16;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    const uint32_t s = acc[L + k] + c;
-    out[k] = s & 0xFFFFu;
-    c = s >> 16;
-  }
-  cond_sub_p<L>(out, c, f);
-}
-
-// out = a + b mod p (canonical inputs).  `out` may alias `a` or `b`.
-template <int L>
-__device__ __forceinline__ void add_mod(const uint32_t (&a)[L],
-                                        const uint32_t (&b)[L],
-                                        const Field& f, uint32_t (&out)[L]) {
-  uint32_t c = 0u;
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const uint32_t s = a[j] + b[j] + c;
-    out[j] = s & 0xFFFFu;
-    c = s >> 16;
-  }
-  cond_sub_p<L>(out, c, f);
-}
-
-// out = a - b mod p (canonical inputs).  `out` may alias `a` or `b`.
-template <int L>
-__device__ __forceinline__ void sub_mod(const uint32_t (&a)[L],
-                                        const uint32_t (&b)[L],
-                                        const Field& f, uint32_t (&out)[L]) {
-  uint32_t t[L];
-  uint32_t borrow = 0u;
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const uint32_t s = a[j] - b[j] - borrow;
-    t[j] = s & 0xFFFFu;
-    borrow = s >> 31;
-  }
-  uint32_t c = 0u;
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const uint32_t s = t[j] + f.p[j] + c;
-    out[j] = borrow ? (s & 0xFFFFu) : t[j];
-    c = s >> 16;
-  }
-}
-
-// Load element `idx` of a limb-major int32 array [L, stride] into registers.
-template <int L>
-__device__ __forceinline__ void load_elem(const int32_t* __restrict__ base,
-                                          long long stride, long long idx,
-                                          uint32_t (&out)[L]) {
-#pragma unroll
-  for (int j = 0; j < L; ++j)
-    out[j] = static_cast<uint32_t>(base[j * stride + idx]);
-}
-
-template <int L>
-__device__ __forceinline__ void store_elem(int32_t* __restrict__ base,
-                                           long long stride, long long idx,
-                                           const uint32_t (&v)[L]) {
-#pragma unroll
-  for (int j = 0; j < L; ++j) base[j * stride + idx] = static_cast<int32_t>(v[j]);
-}
-
-// Field from host words: p limbs [L], n0p (16-bit), n0p32 (32-bit).
-inline Field field_from_words(const uint32_t* words, int L) {
-  Field f = {};
-  for (int j = 0; j < L; ++j) f.p[j] = words[j];
-  f.n0p = words[L];
-  return f;
-}
-
-// ------------------------------------------------------------------------
-// The word product: K = L/2 32-bit words per element.
-//
-// Word w of an element is its limb pair (2w, 2w+1): w = limb[2w] |
-// limb[2w+1] << 16.  Every L the port takes (2, 4, 8, 14, 16) is even, so
-// R = 2^(32K) = 2^(16L): the Montgomery radix is the same as the 16-bit
-// product's, and every Montgomery table, constant and R mod p of the port
-// holds unchanged.  The results are canonical (< p), so a kernel may mix
-// this product with mont_mul above and stay bit-identical to the plain
-// field.
-//
-// Schedule (CIOS, carry chains in PTX): for each word b_i of b,
-//   t += a * b_i        (low halves along one carry chain, high halves one
-//                        word up along a second)
-//   m  = t_0 * n0p32 mod 2^32
-//   t += m * p          (the same two chains; t_0 becomes 0)
-//   t >>= 32
-// with t in K + 2 words; then one conditional subtract of p.  That is 4K^2
-// multiply-adds and K quotient multiplies, the least roofline.mont_min_u32_ops
-// counts.  tests/test_torch_words.py models this exact instruction sequence
-// in numpy (carry flag included) against Python integers.
-//
-// The carry flag lives between separate `asm volatile` statements.  nvcc
-// keeps volatile asm in order, but it does not promise to emit nothing that
-// sets the flag between them, so the compiled code is what is checked:
-// every run of chip_smoke.py holds each instantiation bit for bit against
-// the plain field (kernel 4 and kernel 10's word chain at every L, kernel 1
-// at L = 2 and 8 with both of its k-step counts), as does
-// tests/test_torch_cuda.py on the card.  A broken chain shows there.
 constexpr int kMaxK = kMaxL / 2;
 
 struct FieldW {
@@ -181,11 +50,16 @@ struct FieldW {
   uint32_t n0;        // -p^-1 mod 2^32
 };
 
-// Field words from host words: p limbs [L], n0p, n0p32.
+// Word w of an element from its limb pair (2w, 2w + 1).
+__host__ __device__ __forceinline__ uint32_t limb_pair(uint32_t lo, uint32_t hi) {
+  return lo | (hi << 16);
+}
+
+// Field words from host words: p limbs [L], then n0 (kernels._field_words).
 inline FieldW fieldw_from_words(const uint32_t* words, int L) {
   FieldW f = {};
-  for (int w = 0; w < L / 2; ++w) f.p[w] = words[2 * w] | (words[2 * w + 1] << 16);
-  f.n0 = words[L + 1];
+  for (int w = 0; w < L / 2 && w < kMaxK; ++w) f.p[w] = limb_pair(words[2 * w], words[2 * w + 1]);
+  f.n0 = words[L];
   return f;
 }
 
@@ -321,24 +195,40 @@ __device__ __forceinline__ void sub_mod_w(const uint32_t (&a)[K], const uint32_t
   for (int j = 1; j < K; ++j) out[j] = addc_cc(d[j], f.p[j] & mask);
 }
 
-// Element `idx` of a limb-major int32 array [L, stride] as K = L/2 words.
-template <int K>
-__device__ __forceinline__ void load_elem_w(const int32_t* __restrict__ base,
-                                            long long stride, long long idx,
+// A limb read: int32 arrays in device memory through the read-only cache (a
+// launch must not write what it reads so), uint32 tiles in shared memory
+// directly.
+__device__ __forceinline__ uint32_t read_limb(const int32_t* p) {
+  return static_cast<uint32_t>(__ldg(p));
+}
+__device__ __forceinline__ uint32_t read_limb(const uint32_t* p) { return *p; }
+
+// Offsets into limb rows: 64-bit in device memory (an [L, n] array may pass
+// 2^31 words), 32-bit in a shared-memory tile.
+template <typename T> struct RowIndex { using type = long long; };
+template <> struct RowIndex<uint32_t> { using type = int; };
+
+// The element at offset `idx` of limb rows `stride` apart, as K = L/2 words:
+// a limb-major int32 array in device memory (a contiguous [L, stride], or any
+// strided or broadcast view), or a kernel's uint32 limb tile in shared memory.
+template <int K, typename T>
+__device__ __forceinline__ void load_elem_w(const T* base, typename RowIndex<T>::type stride,
+                                            typename RowIndex<T>::type idx,
                                             uint32_t (&out)[K]) {
 #pragma unroll
   for (int w = 0; w < K; ++w)
-    out[w] = static_cast<uint32_t>(__ldg(base + (2 * w) * stride + idx)) |
-             (static_cast<uint32_t>(__ldg(base + (2 * w + 1) * stride + idx)) << 16);
+    out[w] = limb_pair(read_limb(base + (2 * w) * stride + idx),
+                       read_limb(base + (2 * w + 1) * stride + idx));
 }
 
-template <int K>
-__device__ __forceinline__ void store_elem_w(int32_t* __restrict__ base, long long stride,
-                                             long long idx, const uint32_t (&v)[K]) {
+template <int K, typename T>
+__device__ __forceinline__ void store_elem_w(T* base, typename RowIndex<T>::type stride,
+                                             typename RowIndex<T>::type idx,
+                                             const uint32_t (&v)[K]) {
 #pragma unroll
   for (int w = 0; w < K; ++w) {
-    base[(2 * w) * stride + idx] = static_cast<int32_t>(v[w] & 0xFFFFu);
-    base[(2 * w + 1) * stride + idx] = static_cast<int32_t>(v[w] >> 16);
+    base[(2 * w) * stride + idx] = static_cast<T>(v[w] & 0xFFFFu);
+    base[(2 * w + 1) * stride + idx] = static_cast<T>(v[w] >> 16);
   }
 }
 

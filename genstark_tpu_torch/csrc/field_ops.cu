@@ -8,16 +8,15 @@
 // genstark_tpu_torch/field/device.py (mont_mul_ref, add_ref, sub_ref,
 // outer_table_ref).
 //
-// What bounds them on this card: kernel 5's Montgomery product (the 16-bit
-// one, field.cuh mont_mul) at L limbs is ~2 L^2 32-bit multiplies plus the
-// lazy-accumulator adds (~1,500 integer ops at L = 16) on 8L bytes in and 4L
-// out, so mul is issue-bound for L >= 8 and add / sub (~6L ops) are
-// memory-bound.  Kernel 6 writes 4L bytes a product and reads almost nothing
-// (its factors are nj + s elements), so its bytes bound is the output alone;
-// it runs the word product (mont_mul_w, 4k^2 + k multiplies for k = L/2),
+// What bounds them on this card: kernel 5's Montgomery product (field.cuh
+// mont_mul_w on K = L/2 words: 4K^2 + K multiplies in PTX carry chains,
+// 264 at L = 16) on 8L bytes in and 4L out, so mul is issue-bound for L >=
+// 8 and add / sub (~3K ops) are memory-bound.  Kernel 6 writes 4L bytes a
+// product and reads almost nothing (its factors are nj + s elements), so
+// its bytes bound is the output alone; it runs the same word product,
 // which sets its time at this code's product rate.  The plain torch
 // formulation spends ~200 launches and a [2L+1, N] int64 accumulator in
-// device memory per product; here one thread owns one element, its limbs
+// device memory per product; here one thread owns one element, its words
 // and the accumulator live in registers, and each operand is read once and
 // the result written once.
 //
@@ -52,8 +51,8 @@ struct EwArgs {
   int nd;
 };
 
-template <int L, int OP>
-__global__ void __launch_bounds__(256) field_ew_kernel(EwArgs e, Field f) {
+template <int K, int OP>
+__global__ void __launch_bounds__(256) field_ew_kernel(EwArgs e, FieldW f) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= e.n) return;
   long long oa = 0, ob = 0, rem = i;
@@ -63,29 +62,28 @@ __global__ void __launch_bounds__(256) field_ew_kernel(EwArgs e, Field f) {
     oa += k * e.sa[d];
     ob += k * e.sb[d];
   }
-  uint32_t x[L], y[L];
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    x[j] = static_cast<uint32_t>(e.a[j * e.la + oa]);
-    y[j] = static_cast<uint32_t>(e.b[j * e.lb + ob]);
-  }
+  // each operand at its own limb stride and offset: a strided or broadcast
+  // view launches as it is
+  uint32_t x[K], y[K];
+  load_elem_w<K>(e.a, e.la, oa, x);
+  load_elem_w<K>(e.b, e.lb, ob, y);
   if (OP == 0) {
-    mont_mul<L>(x, y, f, x);
+    mont_mul_w<K>(x, y, f, x);
   } else if (OP == 1) {
-    add_mod<L>(x, y, f, x);
+    add_mod_w<K>(x, y, f, x);
   } else {
-    sub_mod<L>(x, y, f, x);
+    sub_mod_w<K>(x, y, f, x);
   }
-  store_elem<L>(e.out, e.n, i, x);
+  store_elem_w<K>(e.out, e.n, i, x);
 }
 
-template <int L>
-cudaError_t launch_ew(int op, const EwArgs& e, const Field& f, cudaStream_t st) {
+template <int K>
+cudaError_t launch_ew(int op, const EwArgs& e, const FieldW& f, cudaStream_t st) {
   const unsigned blocks = static_cast<unsigned>((e.n + 255) / 256);
   switch (op) {
-    case 0: field_ew_kernel<L, 0><<<blocks, 256, 0, st>>>(e, f); break;
-    case 1: field_ew_kernel<L, 1><<<blocks, 256, 0, st>>>(e, f); break;
-    case 2: field_ew_kernel<L, 2><<<blocks, 256, 0, st>>>(e, f); break;
+    case 0: field_ew_kernel<K, 0><<<blocks, 256, 0, st>>>(e, f); break;
+    case 1: field_ew_kernel<K, 1><<<blocks, 256, 0, st>>>(e, f); break;
+    case 2: field_ew_kernel<K, 2><<<blocks, 256, 0, st>>>(e, f); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -118,8 +116,8 @@ outer_table_kernel(const int32_t* __restrict__ outer, int nj, const int32_t* __r
   if (k < s) load_elem_w<K>(inner, s, k, b);
   for (int i = threadIdx.x; i < nr * K; i += kOuterCols) {
     const int r = i / K, w = i % K;   // K is a compile-time constant
-    orow[i] = static_cast<uint32_t>(__ldg(outer + (2 * w) * nj + j0 + r)) |
-              (static_cast<uint32_t>(__ldg(outer + (2 * w + 1) * nj + j0 + r)) << 16);
+    orow[i] = limb_pair(read_limb(outer + (2 * w) * nj + j0 + r),
+                        read_limb(outer + (2 * w + 1) * nj + j0 + r));
   }
   __syncthreads();
   if (k >= s) return;
@@ -411,14 +409,14 @@ extern "C" int gs_field_ew(int op, int L, const void* a, const long long* a_str,
     e.n *= shape[d];
   }
   if (e.n <= 0) return 0;
-  const gs::Field f = gs::field_from_words(field_words, L);
+  const gs::FieldW f = gs::fieldw_from_words(field_words, L);
   auto st = static_cast<cudaStream_t>(stream);
   switch (L) {
-    case 2: return gs::launch_ew<2>(op, e, f, st);
-    case 4: return gs::launch_ew<4>(op, e, f, st);
-    case 8: return gs::launch_ew<8>(op, e, f, st);
-    case 14: return gs::launch_ew<14>(op, e, f, st);
-    case 16: return gs::launch_ew<16>(op, e, f, st);
+    case 2: return gs::launch_ew<1>(op, e, f, st);
+    case 4: return gs::launch_ew<2>(op, e, f, st);
+    case 8: return gs::launch_ew<4>(op, e, f, st);
+    case 14: return gs::launch_ew<7>(op, e, f, st);
+    case 16: return gs::launch_ew<8>(op, e, f, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -21,8 +21,8 @@
 // multiplies each, k = L/2 words) against (2 + B + V) * 4L bytes read and
 // written, so it sits above the memory roofline at every L.  Design:
 //   - the products run on the 32-bit-word product (field.cuh mont_mul_w:
-//     4k^2 + k multiplies in PTX carry chains, where the 16-bit-limb
-//     product did 2L^2 = 8k^2 multiplies and split each one);
+//     4k^2 + k multiplies in PTX carry chains, where a 16-bit-limb product
+//     does 2L^2 = 8k^2 multiplies and splits each one);
 //   - a block first copies the per-launch constants (x_last, bc, lc and
 //     the ext-periodic inv series) into shared memory as words, so no
 //     product reloads a constant from device memory limb by limb;
@@ -256,7 +256,7 @@ cudaError_t launch_tail(TailArgs a, const FieldW& f, cudaStream_t st) {
 
 // ptrs: qe, b, e, dom_outer, dom_inner, incr_outer, incr_inner, inv, bc, lc,
 // out (device pointers; b / incr may be null when absent).  dims: Ne, nj, s,
-// ext, B, V, nb, nl, b_inc, ps_inc.  field_words: p limbs [L], n0p, n0p32;
+// ext, B, V, nb, nl, b_inc, ps_inc.  field_words: p limbs [L], n0;
 // x_last: L limbs (Montgomery).
 extern "C" int gs_lcomb_tail(int L, void* const* ptrs, const long long* dims,
                              const uint32_t* field_words,

@@ -89,11 +89,15 @@ def _nvcc() -> str:
 def build() -> str:
     """Compile the kernels (once per source hash) and return the library
     path: one nvcc per source, all running at once, then one link.  Records
-    the build seconds and the compiler's register report in `build_info`."""
+    the build seconds and the compiler's register report in `build_info`
+    (for a library built before, the report its build wrote)."""
     out_dir = os.path.join(_BUILD, _source_hash())
     lib_path = os.path.join(out_dir, _LIB_NAME)
     if os.path.exists(lib_path):
         build_info.setdefault("seconds", 0.0)
+        if "log" not in build_info:
+            with open(os.path.join(out_dir, "build.log")) as fh:
+                build_info["log"] = fh.read()
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
@@ -150,7 +154,7 @@ def _load():
         lib.gs_butterfly.restype = I
         lib.gs_butterfly_stages.argtypes = [I, P, P, I, I, I, I, P, P]
         lib.gs_butterfly_stages.restype = I
-        lib.gs_mont_chain.argtypes = [I, P, P, LL, I, I, P, P]
+        lib.gs_mont_chain.argtypes = [I, P, P, LL, I, P, P]
         lib.gs_mont_chain.restype = I
         lib.gs_u32_chain.argtypes = [P, P, LL, I, P]
         lib.gs_u32_chain.restype = I
@@ -183,10 +187,10 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _field_words(dev) -> np.ndarray:
-    """p limbs [L], then n0' mod 2^16 (field.cuh `Field`) and n0' mod 2^32
-    (`FieldW`, the word product)."""
+    """p limbs [L], then n0' = -p^-1 mod 2^32 (field.cuh `FieldW`, the word
+    product): L + 1 words."""
     return np.concatenate([dev.params.p_limbs.astype(np.uint32),
-                           np.asarray([dev.n0p, dev.params.n0p32], dtype=np.uint32)])
+                           np.asarray([dev.params.n0p32], dtype=np.uint32)])
 
 
 def _u32p(arr: np.ndarray):
@@ -556,10 +560,9 @@ def butterfly_stages(dev, x: torch.Tensor, table: torch.Tensor, m: int, k: int) 
 
 
 # ------------------------------------------------------------- kernels 10, 11
-def mont_chain(dev, x: torch.Tensor, depth: int, general: bool = False) -> torch.Tensor:
+def mont_chain(dev, x: torch.Tensor, depth: int) -> torch.Tensor:
     """Kernel 10 (csrc/probes.cu gs_mont_chain): contract of
     roofline.mont_chain_ref.  x int32 [L, n] contiguous -> x squared
-    `depth` times by the 16-bit-limb product, or with `general` v <- v*x
     `depth` times by the word product; a new [L, n] tensor."""
     L = _field_l(dev)
     _require(x, "x", torch.int32)
@@ -569,8 +572,8 @@ def mont_chain(dev, x: torch.Tensor, depth: int, general: bool = False) -> torch
         raise ValueError("depth must be >= 0")
     out = torch.empty_like(x)
     fw = np.ascontiguousarray(_field_words(dev))
-    rc = _load().gs_mont_chain(L, x.data_ptr(), out.data_ptr(), x.shape[1], depth, int(general),
-                               _u32p(fw), _stream(x))
+    rc = _load().gs_mont_chain(L, x.data_ptr(), out.data_ptr(), x.shape[1], depth, _u32p(fw),
+                               _stream(x))
     _check(rc, "mont_chain")
     launch_counts["mont_chain"] += 1
     return out

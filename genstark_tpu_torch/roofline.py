@@ -7,12 +7,14 @@ Counterparts of the JAX package's `scripts/roofline.py` (`_mont_chain_kernel`
 is the card's integer-op rate that the bounds of the field and hash kernels
 divide by: a hash counts its u32 ops, a Montgomery product the least
 number of 32-bit multiplies any schedule needs (`mont_min_u32_ops`).  The
-Montgomery rate is that of this code's own `field.cuh` products, so it
-says how far they are from the card, not what the card can do: the
-16-bit-limb product on squares (`general=False`, the JAX probe's chain) and
-the 32-bit-word product on general operands (`general=True`, v <- v*w with
-w fixed, the product of kernels 1 and 4).  Bytes over the card's memory
-rate is the other bound.
+Montgomery rate is that of this code's own product, `field.cuh`'s word
+product (`mont_mul_w`), so it says how far the product is from the card,
+not what the card can do.  The chain squares (v <- v*v, the JAX probe's
+chain), and one chain gives the rate of every field kernel's product: on
+the word product a square shares no work with a general product, since
+every step is the same PTX carry chains in `asm volatile`, which the
+compiler neither merges nor reorders.  Bytes over the card's memory rate
+is the other bound.
 
 `mont_chain` and `u32_chain` run their plain versions on CPU tensors and
 launch their kernels (csrc/probes.cu) on CUDA tensors, or raise.  The rate
@@ -41,13 +43,12 @@ def mont_min_u32_ops(L: int) -> int:
 
 
 # ------------------------------------------------------------ plain versions
-def mont_chain_ref(dev, x: torch.Tensor, depth: int, general: bool = False) -> torch.Tensor:
+def mont_chain_ref(dev, x: torch.Tensor, depth: int) -> torch.Tensor:
     """x [L, n] (Montgomery limbs) squared `depth` times, each step one
-    Montgomery product of the element with itself; with `general`, v = x
-    then v <- v * x `depth` times (plain field ops)."""
+    Montgomery product of the element with itself (plain field ops)."""
     v = x
     for _ in range(depth):
-        v = dev.mont_mul_ref(v, x if general else v)
+        v = dev.mont_mul_ref(v, v)
     return v.to(torch.int32)
 
 
@@ -65,10 +66,10 @@ def u32_chain_ref(x: torch.Tensor, rounds: int = 1) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ the wrappers
-def mont_chain(dev, x: torch.Tensor, depth: int, general: bool = False) -> torch.Tensor:
+def mont_chain(dev, x: torch.Tensor, depth: int) -> torch.Tensor:
     if x.device.type == "cpu":
-        return mont_chain_ref(dev, x, depth, general)
-    return kernels.mont_chain(dev, x, depth, general)
+        return mont_chain_ref(dev, x, depth)
+    return kernels.mont_chain(dev, x, depth)
 
 
 def u32_chain(x: torch.Tensor, rounds: int = 1) -> torch.Tensor:
@@ -93,18 +94,16 @@ def event_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def mont_rate(dev, n: int = 1 << 21, d1: int = 16, d2: int = 64, reps: int = 5,
-              general: bool = False) -> dict:
+def mont_rate(dev, n: int = 1 << 21, d1: int = 16, d2: int = 64, reps: int = 5) -> dict:
     """Montgomery products per second at dev.L limbs, from the slope
     between chain depths d1 and d2 over n elements (the fixed memory
-    traffic and launch cost cancel), as `bench_mont_rate` measures it;
-    `general` picks the word product's v <- v*w chain."""
+    traffic and launch cost cancel), as `bench_mont_rate` measures it."""
     if dev.device.type != "cuda":
         raise RuntimeError("mont_rate measures a CUDA device")
     x = dev.from_numpy(dev.params.r2_limbs).reshape(dev.L, 1).expand(dev.L, n).contiguous()
-    t1 = event_ms(lambda: kernels.mont_chain(dev, x, d1, general), reps)
-    t2 = event_ms(lambda: kernels.mont_chain(dev, x, d2, general), reps)
-    return {"L": dev.L, "n": n, "depths": (d1, d2), "ms": (t1, t2), "general": general,
+    t1 = event_ms(lambda: kernels.mont_chain(dev, x, d1), reps)
+    t2 = event_ms(lambda: kernels.mont_chain(dev, x, d2), reps)
+    return {"L": dev.L, "n": n, "depths": (d1, d2), "ms": (t1, t2),
             "mont_muls_per_s": (d2 - d1) * n / ((t2 - t1) * 1e-3)}
 
 

@@ -14,7 +14,8 @@ proves: the port kernel launches of one prove, prove seconds (best of 5, 3
 at 2^20 steps) and their peak device memory, the synchronizing calls of one prove (all of them, and
 those after its first port kernel) with the host milliseconds spent in the
 runtime's synchronizing calls, and one profiled prove's device kernel
-time, launches, busy share and the host wall of its `prove.*` stages.  One
+time, launches, busy share, each port kernel's device ms and launches
+(`port_kernels_ms`) and the host wall of its `prove.*` stages.  One
 JSON line a path (also appended to FILE), then the card's `nvidia-smi`
 name and power limit.
 """
@@ -102,6 +103,8 @@ def measure(label: str, device, smoke, kernels) -> dict:
            "device_ms": device_ms, "profiled_wall_ms": wall_ms,
            "stages_ms": {k: us / 1e3 for k, us in stages.items()},
            "busy": device_ms / wall_ms if wall_ms else None,
+           "port_kernels_ms": {k: [us / 1e3, n] for k, (us, n) in
+                               sorted(smoke.port_totals(by_name).items())},
            "host_fallbacks": smoke.host_fallbacks(stark), **syncs}
     del stark
     torch.cuda.empty_cache()

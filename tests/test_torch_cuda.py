@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
+from genstark_tpu_torch.testing import edge_input, edge_pairs, edge_values
 
 pytestmark = pytest.mark.cuda
 
@@ -103,22 +104,26 @@ def _pm1(field, n):
 
 @ALL_FIELDS
 def test_field_ew_kernel_equals_plain_and_counts(device, modulus):
-    """Kernel 5: every op, same-shape operands, a scalar on either side,
-    p - 1, a strided column view and a batch against a [L, 1, 1] constant;
-    each call launches the kernel exactly once."""
+    """Kernel 5: every op, same-shape operands (every ordered pair of edge values
+    among them), a scalar on either side and a batch against a [L, 1, 1]
+    constant (a random scalar, 0, 1 and p - 1), p - 1, and a strided column
+    view; each call launches the kernel exactly once."""
     from genstark_tpu_torch import kernels
     field = create_prime_field(modulus)
     dev = field.device_field(device)
     L = dev.L
     rng = np.random.default_rng(modulus % 991)
-    a = dev.from_numpy(_elements(rng, modulus, L, 4096))
-    b = dev.from_numpy(_elements(rng, modulus, L, 4096))
+    ab = dev.from_numpy(edge_input(field, _elements(rng, modulus, L, 2 * 4096)))
+    ab = ab.reshape(L, 2, 4096)
+    a, b = ab[:, 0].contiguous(), ab[:, 1].contiguous()       # every edge pair at a[i], b[i]
     c = dev.from_numpy(_elements(rng, modulus, L, 1))
     pm1 = dev.from_numpy(_pm1(field, 4096))
     cols = dev.from_numpy(_elements(rng, modulus, L, 4 * 1024)).reshape(L, 4, 1024)
     batch = dev.from_numpy(_elements(rng, modulus, L, 3 * 4096)).reshape(L, 3, 4096)
-    pairs = [(a, b), (a, c), (c, a), (pm1, pm1), (cols[:, 1], a[:, :1024]),
-             (batch, c.reshape(L, 1, 1))]
+    scalars = [c] + [dev.from_ints([v], to_mont=False) for v in (0, 1, modulus - 1)]
+    pairs = [(a, b), (pm1, pm1), (cols[:, 1], a[:, :1024])]
+    for k in scalars:
+        pairs += [(a, k), (k, a), (batch, k.reshape(L, 1, 1))]
     for pub, ref in ((dev.mont_mul, dev.mont_mul_ref), (dev._add, dev.add_ref),
                      (dev._sub, dev.sub_ref)):
         for x, y in pairs:
@@ -344,20 +349,26 @@ def _stage_table(field, dev, n):
 def test_stage_kernels_equal_plain_and_count(device, modulus):
     """Kernels 7 and 9: passes of k = 1 stage at m on both sides of 4096,
     and of k = 2 .. 6 stages from the least m (16) up, against
-    butterfly_stages_ref, in place; a pass from m <= 4096 counts as
-    `bfly_stage`, a larger m as `bfly_stage_split`, one launch each.  A
-    pass from m < 16 raises and launches nothing."""
+    butterfly_stages_ref, in place, every ordered pair of edge values added
+    and subtracted at the first butterflies of each pass from m >= 128 (row
+    0; the first 16 pairs from m = 16 and 32 in row 1); a pass from m <=
+    4096 counts as `bfly_stage`, a larger m as `bfly_stage_split`, one
+    launch each.  A pass from m < 16 raises and launches nothing."""
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.ntt import radix2
     field = create_prime_field(modulus)
     dev = field.device_field(device)
     n = 2 ** 14
     rng = np.random.default_rng(modulus % 97)
-    x = dev.from_numpy(_elements(rng, modulus, dev.L, 2 * n)).reshape(dev.L, 2, n)
-    x = x.permute(1, 0, 2).contiguous()
+    runs = ((2048, 1), (4096, 1), (8192, 1), (16, 4), (32, 2), (128, 3), (16, 6), (256, 6),
+            (2048, 3), (4096, 2))
+    root = field.get_root_of_unity(n)
+    x = np.stack([edge_input(field, _elements(rng, modulus, dev.L, n),
+                             sorted({m for m, _ in runs if m >= 128}), root=root),
+                  edge_input(field, _elements(rng, modulus, dev.L, n), (16, 32), root=root)])
+    x = dev.from_numpy(x)
     table = _stage_table(field, dev, n)
-    for m, k in ((2048, 1), (4096, 1), (8192, 1), (16, 4), (32, 2), (128, 3), (16, 6), (256, 6),
-                 (2048, 3), (4096, 2)):
+    for m, k in runs:
         row = "bfly_stage" if m <= 4096 else "bfly_stage_split"
         before = dict(kernels.launch_counts)
         got = radix2.butterfly_stages(dev, x.clone(), table, m, k)
@@ -373,15 +384,19 @@ def test_stage_kernels_equal_plain_and_count(device, modulus):
 @ALL_FIELDS
 def test_fused_passes_of_the_2_22_route_equal_plain(device, modulus):
     """The two passes the direct route runs at 2^22 points (6 stages from
-    m = 2048, 5 from 2^17) against butterfly_stages_ref, one row."""
+    m = 2048, 5 from 2^17) against butterfly_stages_ref, one row, every
+    ordered pair of edge values added and subtracted at each pass's first
+    butterflies."""
     from genstark_tpu_torch.ntt import radix2
     field = create_prime_field(modulus)
     dev = field.device_field(device)
     n = 2 ** 22
     table = _stage_table(field, dev, n)
-    x = dev.from_numpy(_elements(np.random.default_rng(modulus % 71), modulus, dev.L, n))[None]
     passes = radix2.stage_passes(n, radix2.LOCAL_MAX, radix2.PASS_DEPTH)
     assert passes == [(2048, 6), (2 ** 17, 5)]
+    x = edge_input(field, _elements(np.random.default_rng(modulus % 71), modulus, dev.L, n),
+                   [m for m, _ in passes], root=field.get_root_of_unity(n))
+    x = dev.from_numpy(x)[None]
     for m, k in passes:
         got = radix2.butterfly_stages(dev, x.clone(), table, m, k)
         assert torch.equal(got, radix2.butterfly_stages_ref(dev, x.clone(), table, m, k))
@@ -391,7 +406,9 @@ def test_fused_passes_of_the_2_22_route_equal_plain(device, modulus):
 def test_butterfly_kernel_layouts_equal_plain(device, modulus):
     """Kernel 8 at every local size from 2 to butterfly_max_n(L), both
     entries, on contiguous views (16-byte accesses) and on strided ones
-    (column views in, a permuted output), out of place and in place."""
+    (column views in, a permuted output), out of place and in place; the
+    contiguous rows hold the ordered pairs of edge values at their first
+    butterflies."""
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.field.limbs import power_series_mont_np
     from genstark_tpu_torch.ntt import radix2
@@ -404,7 +421,9 @@ def test_butterfly_kernel_layouts_equal_plain(device, modulus):
         table = dev.from_numpy(power_series_mont_np(
             field.params, field.get_root_of_unity(n), n // 2))
         B, G = 2, 3
-        x = dev.from_numpy(_elements(rng, modulus, L, B * G * n)).reshape(B, G, L, n)
+        x = dev.from_numpy(np.stack([edge_input(field, _elements(rng, modulus, L, n))
+                                     for _ in range(B * G)]))
+        x = x.reshape(B, G, L, n)
         cols = dev.from_numpy(_elements(rng, modulus, L, B * G * n)).reshape(L, B, n, G)
         cols = cols.permute(1, 3, 0, 2)                                   # [B, G, L, n], stride G
         for bitrev_in in (False, True):
@@ -434,7 +453,8 @@ def test_butterfly_kernel_column_tiles_equal_plain(device, modulus):
     for n, G in ((64, 2048), (256, 1040), (512, 520), (1024, 264)):
         table = dev.from_numpy(power_series_mont_np(
             field.params, field.get_root_of_unity(n), n // 2))
-        flat = dev.from_numpy(_elements(rng, modulus, L, G * n))
+        # column g is flat[j G + g]: x_g at j = 0, y_g at j = n/2
+        flat = dev.from_numpy(edge_input(field, _elements(rng, modulus, L, G * n)))
         cols = flat.reshape(1, L, n, G).permute(0, 3, 1, 2)               # [1, G, L, n], stride G
         rows = flat.reshape(1, G, L, n)
         for bitrev_in in (False, True):
@@ -454,14 +474,20 @@ def test_butterfly_kernel_column_tiles_equal_plain(device, modulus):
 @ALL_FIELDS
 def test_bitrev_butterfly_kernel_equals_plain(device, modulus):
     """Kernel 8's bit-reversed entry over the 2048-point blocks of a
-    2^13-point array, in place."""
+    2^13-point array, in place, every ordered pair of edge values at the first
+    stage's butterflies."""
     from genstark_tpu_torch.field.limbs import power_series_mont_np
     from genstark_tpu_torch.ntt import radix2
     field = create_prime_field(modulus)
     dev = field.device_field(device)
     n, local, L = 2 ** 13, 2048, dev.L
     rng = np.random.default_rng(modulus % 83)
-    x = dev.from_numpy(_elements(rng, modulus, L, n)).reshape(1, L, n)
+    from genstark_tpu_torch.field.limbs import ints_to_limbs
+    xs, ys = edge_pairs(field)
+    x = _elements(rng, modulus, L, n)
+    # bit-reversed input: the first stage pairs neighbours, so interleave
+    x[:, :2 * len(xs)] = ints_to_limbs([v for pair in zip(xs, ys) for v in pair], L)
+    x = dev.from_numpy(x).reshape(1, L, n)
     table = dev.from_numpy(power_series_mont_np(
         field.params, pow(field.get_root_of_unity(n), n // local, modulus), local // 2))
     view = lambda t: t.view(1, L, n // local, local).permute(0, 2, 1, 3)
@@ -471,12 +497,54 @@ def test_bitrev_butterfly_kernel_equals_plain(device, modulus):
     assert torch.equal(view(got), want)
 
 
-@ALL_FIELDS
-def test_mont_chain_kernel_equals_plain(device, modulus):
-    from genstark_tpu_torch import roofline
+def test_word_kernels_at_the_demo_field(device):
+    """Kernels 8 and 5 at the demo-static field 96769 (L = 2: one word, p
+    far below R = 2^32): local transforms of 2 .. 512 points (its largest
+    power-of-two root), both entries, the ordered pairs of edge values at the
+    first butterflies; mul, add and sub over every ordered pair and with 0,
+    1 and p - 1 as a scalar on either side."""
+    from genstark_tpu_torch.field.limbs import power_series_mont_np
+    from genstark_tpu_torch.ntt import radix2
+    modulus = 96769
     field = create_prime_field(modulus)
     dev = field.device_field(device)
-    x = dev.from_numpy(_elements(np.random.default_rng(31), modulus, dev.L, 4096))
+    assert dev.L == 2
+    rng = np.random.default_rng(17)
+    for log_n in range(1, 10):
+        n = 1 << log_n
+        table = dev.from_numpy(power_series_mont_np(field.params, field.get_root_of_unity(n),
+                                                    n // 2))
+        x = dev.from_numpy(np.stack([edge_input(field, _elements(rng, modulus, 2, n))
+                                     for _ in range(6)]))
+        x = x.reshape(2, 3, 2, n)
+        for bitrev_in in (False, True):
+            assert torch.equal(radix2.butterfly(dev, x, table, bitrev_in=bitrev_in),
+                               radix2.butterfly_ref(dev, x, table, bitrev_in=bitrev_in))
+    ab = dev.from_numpy(edge_input(field, _elements(rng, modulus, 2, 2 * 128)))
+    ab = ab.reshape(2, 2, 128)
+    a, b = ab[:, 0].contiguous(), ab[:, 1].contiguous()
+    pairs = [(a, b)]
+    for v in (0, 1, modulus - 1):
+        k = dev.from_ints([v], to_mont=False)
+        pairs += [(a, k), (k, a)]
+    for pub, ref in ((dev.mont_mul, dev.mont_mul_ref), (dev._add, dev.add_ref),
+                     (dev._sub, dev.sub_ref)):
+        for x, y in pairs:
+            assert torch.equal(pub(x, y), ref(x, y))
+
+
+@ALL_FIELDS
+def test_mont_chain_kernel_equals_plain(device, modulus):
+    """Kernel 10's squaring chain, with the edge values (0, 1 and p - 1 among them)
+    in the first columns."""
+    from genstark_tpu_torch import roofline
+    from genstark_tpu_torch.field.limbs import ints_to_limbs
+    field = create_prime_field(modulus)
+    dev = field.device_field(device)
+    x = _elements(np.random.default_rng(31), modulus, dev.L, 4096)
+    edges = edge_values(field)
+    x[:, :len(edges)] = ints_to_limbs(edges, dev.L)
+    x = dev.from_numpy(x)
     assert torch.equal(roofline.mont_chain(dev, x, 5), roofline.mont_chain_ref(dev, x, 5))
 
 
@@ -634,18 +702,6 @@ def test_lcomb_tail_kernel_cases(device, modulus, case):
     got = lcomb_tail(*args)
     assert kernels.launch_counts["lcomb_tail"] == before + 1
     assert torch.equal(got, lcomb_tail_ref(*args))
-
-
-@ALL_FIELDS
-def test_word_chain_kernel_equals_plain(device, modulus):
-    """Kernel 10's general chain (v <- v * x by the word product)."""
-    from genstark_tpu_torch import roofline
-    field = create_prime_field(modulus)
-    dev = field.device_field(device)
-    x = dev.from_numpy(_elements(np.random.default_rng(43), modulus, dev.L, 4099))
-    x[:, :2] = torch.as_tensor(_pm1(field, 2).astype(np.int32), device=device)
-    assert torch.equal(roofline.mont_chain(dev, x, 7, general=True),
-                       roofline.mont_chain_ref(dev, x, 7, general=True))
 
 
 @pytest.mark.parametrize("modulus", [P32, P64, P128, P224, P256],
