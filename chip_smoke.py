@@ -2,33 +2,40 @@
 kernels on field.cuh's one word product with no register spill), checks
 each against its plain torch version on the card, the field kernels at
 every limb count with 0, 1 and p - 1 among their inputs (and the batched
-inverse, built on kernel 5, against its plain version), measures the
-card's ceilings with
-the two probe kernels, proves the pinned toy proofs (the division AIR among
-them), the bench configuration (MiMC-128, 2^13 steps, secret input 3),
-MiMC-256 at 2^13 steps (the radix-2 path) and MiMC-256 at 2^18 and 2^20
-steps (the large-domain path: direct radix-2 route with the stage kernels),
-the reference's Rescue and Poseidon Merkle-proof configurations at depth 16
-and the lib224-import Merkle proof, each compiled from its AirScript source,
-and its elliptic-curve point multiplication, compiled from AirAssembly, and
-the reference's fibonacci (2^17 steps) and static-variables demos, each
-with its trace from the native generator; proves five of these again with
-the staged prover (`prove_staged`), whose bytes must equal the one-fetch
-prove's, with no plain version called; runs the public ntt / intt /
-low_degree_extend at the staged paths' sizes against the plain path;
-proves the bench and MiMC-256 at 2^18 steps with the sharded prover
-(protocol/sharded.py) over four ranks that share the card over gloo,
-spawned by parallel/launch.run_ranks (every rank's bytes equal to the
-pin, every kernel of the sharded path held against its plain version at
-the shard shapes, distributed_ntt / distributed_intt at 2^17 and 2^22
-points against the single-device ntt), and the bench over one nccl rank
-(a one-rank mesh calls every collective, so NCCL runs each on the card);
-parses, re-serializes and verifies every proof it makes with the port's
-verifier; counts the synchronizing
-calls of one warm prove on every path (one, the proof's fetch, after the
-prove's first kernel) and requires every proof to come out of the
-device-sampled one-fetch path; and prints one JSON line per contract at the
-end.
+inverse, built on kernel 5, against its plain version), and every kernel
+of the large paths at their largest shapes (MiMC-256 at Ne = 2^24, L = 16;
+MiMC-128 at Ne = 2^25, L = 8, with kernel 1 at every level of the 2^24- and
+2^25-point LDEs and of the 2^20- and 2^21-point iNTTs); measures the card's
+ceilings with the two probe kernels; proves the pinned toy proofs (the
+division AIR among them), the bench configuration (MiMC-128, 2^13 steps,
+secret input 3), MiMC-256 at 2^13 steps (the radix-2 path) and MiMC-256 at
+2^18 and 2^20 steps (the large-domain path: direct radix-2 route with the
+stage kernels), MiMC-128 up the JAX package's ladder on the digit route (2^17
+steps against the port's CPU pin; 2^20 steps, the north star, whose
+one-fetch, staged and sharded proofs must agree; 2^21 steps, Ne = 2^25, five
+DFT levels of 32), the reference's Rescue and Poseidon Merkle-proof
+configurations at depth 16 and the lib224-import Merkle proof, each
+compiled from its AirScript source, and its elliptic-curve point
+multiplication, compiled from AirAssembly, and the reference's fibonacci
+(2^17 steps) and static-variables demos, each with its trace from the
+native generator; proves five of these and MiMC-128 at 2^20 steps again
+with the staged prover (`prove_staged`), whose bytes must equal the
+one-fetch prove's, with no plain version called; runs the public ntt /
+intt / low_degree_extend at the staged paths' sizes against the plain path,
+and times the public ntt of 2^20 p128 points (butterflies a second); proves
+the bench, MiMC-256 at 2^18 steps and MiMC-128 at 2^20 steps with the
+sharded prover (protocol/sharded.py) over four ranks that share the card
+over gloo, spawned by parallel/launch.run_ranks (every rank's bytes equal
+to the pin or to the one-fetch proof, every kernel of the sharded path held
+against its plain version at the shard shapes, distributed_ntt /
+distributed_intt at 2^17, 2^22 and 2^24 points against the single-device
+ntt), and the bench over one nccl rank (a one-rank mesh calls every
+collective, so NCCL runs each on the card); parses, re-serializes and
+verifies every proof it makes with the port's verifier; counts the
+synchronizing calls of one warm prove on every path (one, the proof's
+fetch, after the prove's first kernel) and requires every proof to come out
+of the device-sampled one-fetch path; and prints one JSON line per contract
+at the end.
 
     python3 chip_smoke.py
 
@@ -55,6 +62,9 @@ P128_PIN = (7329, "3fa3bc9f84d3505912258df9974587b18b35619116a2787786b3beacd3cc4
 # the JAX package's proof on the CPU (tests/test_torch_prover.py recomputes it).
 BENCH_PIN = (97254, "3143467fcd3034ebdc758ce12b9501aa4b5f1c7efa57d5df8beaf153403fd928")
 BENCH_STEPS = 2 ** 13
+# Kernels the bench, each MiMC-128 path and its sharded ranks must launch.
+BENCH_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
+                 "outer_table", "sample_queries")
 TOY = {"extension_factor": 4, "exe_query_count": 8, "fri_query_count": 6}
 # MiMC over P256 = 2^256 - 351*2^32 + 1 (the reference's mimc256), 64 steps,
 # 64 constants, secret input 3: the bench options and the toy options over
@@ -81,22 +91,34 @@ LARGE_PIN = (197428, "77ac03bf41603b6dc55ee72ec00680901a5d0d8929cf792f2b7a61268c
 LARGEST_STEPS = 2 ** 20
 # The direct route's transform size on the 2^18-step path (Ne).
 LARGE_N = 2 ** 22
+# MiMC-128 (the bench's AIR, options and secret input over p128) up the JAX
+# package's proof ladder (BENCH_r05_ladder.json: 2^13, 2^17, 2^20 and 2^21
+# steps), every transform on the digit route (kernel 1).  2^17 steps (Ne =
+# 2^21) against the port's proof from its plain versions on the CPU
+# (`python -m examples.mimc_torch 131072 cpu`, which prints its time and peak
+# host memory; tests/test_torch_ladder.py's slow test recomputes it); 2^20
+# steps (Ne = 2^24, four levels of 64), the project's north star, whose
+# one-fetch, staged and sharded proofs must agree; 2^21 steps (Ne = 2^25,
+# five levels of 32), the ladder's top, whose three proves must agree.
+LADDER_STEPS = (2 ** 17, 2 ** 20, 2 ** 21)
+LADDER_17_PIN = (147726, "196baca816715b912220583b99f484afade3b63745aaf6ee213369f06f02b5d5")
 # The sharded prover (protocol/sharded.py) over ranks spawned by
 # parallel/launch.py: SHARDED_RANKS ranks sharing the one card over gloo
-# prove the bench and MiMC-256 at 2^18 steps, each against its pin; one rank
-# over nccl proves the bench.  (label, steps, modulus name, pin, kernels the
-# path must launch on every rank: its transforms are local ones of at most
-# 2048 points, kernel 1's levels or kernel 8.)
+# prove the bench and MiMC-256 at 2^18 steps, each against its pin, and
+# MiMC-128 at 2^20 steps against the one-fetch prove's bytes of the same
+# call (pin None); one rank over nccl proves the bench.  (label, steps,
+# modulus name, pin, kernels the path must launch on every rank: its
+# transforms are local ones of at most 4096 points, kernel 1's levels or
+# kernel 8.)
 SHARDED_RANKS = 4
 SHARDED_TIMEOUT_S = 600.0
-SHARDED_PATHS = (("bench", 2 ** 13, "P128", BENCH_PIN,
-                  ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
-                   "outer_table", "sample_queries")),
+SHARDED_PATHS = (("bench", 2 ** 13, "P128", BENCH_PIN, BENCH_KERNELS),
                  ("mimc256-2^18", LARGE_STEPS, "P256", LARGE_PIN,
                   ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
-                   "outer_table", "sample_queries")))
+                   "outer_table", "sample_queries")),
+                 ("mimc128-2^20", 2 ** 20, "P128", None, BENCH_KERNELS))
 # distributed_ntt / distributed_intt against the single-device ntt
-DIST_NTT_SIZES = (("P128", 2 ** 17), ("P256", LARGE_N))
+DIST_NTT_SIZES = (("P128", 2 ** 17), ("P256", LARGE_N), ("P128", 2 ** 24))
 # The collectives every sharded prove must call on every rank (Mesh.traffic's
 # names: all_to_all_single with equal blocks and with the FRI transpose's
 # splits), on either backend.
@@ -137,9 +159,7 @@ DEMO_STEPS = 64
 DEMO_PIN = (6744, "5b934baaabb63a82243317f415cd033047af8f07860844e1453811a611dcc5b4")
 DEMO_MODULUS = 96769
 
-# Kernels each main path must launch.
-BENCH_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
-                 "outer_table", "sample_queries")
+# Kernels each other main path must launch.
 MIMC256_KERNELS = ("hash_words", "hash_limbs", "lcomb_tail", "field_ew", "outer_table",
                    "butterfly", "sample_queries")
 LARGE_KERNELS = ("bfly_stage", "bfly_stage_split", "butterfly", "field_ew", "outer_table",
@@ -203,6 +223,10 @@ PLAIN_VERSIONS = (
 # products (H100 SXM data sheet).
 MEM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+# Elements (m x columns) of one call of the plain DFT level (`plain_level`
+# chunks a level by columns): its float64 digit products hold D^2 = 289
+# values an element at p128, 2.4 GB at 2^20 elements.
+PLAIN_LEVEL_ELEMS = 1 << 20
 # u32 ops per blake2s compression: 10 rounds of 8 G functions of 14 ops.
 BLAKE2S_BLOCK_OPS = 10 * 8 * 14
 # u32 ops per SHA-256 compression: 64 rounds of 24 (Sigma1 5, Ch 3, T1 4
@@ -367,16 +391,9 @@ def check_dft(dev, field, rng, results):
                     k_ms += km
                     p_ms += pm
                     d_ms = None if d_ms is None or dm is None else d_ms + dm
-                    tw_bytes = sum(t.numel() * 4 for t in (tw or {}).values())
-                    n_bytes += ((4 * L if kind != "digits" else D) * m * cols + D * m * m
-                                + tw_bytes + (D if out_digits else 4 * L) * m * cols)
-                    # m*D^2 int8 digit multiply-adds per output (2 ops each, at
-                    # the card's int8 tensor-core rate), the solinas folds
-                    # that reduce the wide integer, and 1 (direct panel) or
-                    # 2 (factored) twiddle products on the word product
-                    work += [("int8_mma", 2 * m * cols * m * D * D), ("u32", m * cols * folds),
-                             (("mont", L), m * cols * {"none": 0, "direct": 1,
-                                                         "factored": 2}[mode])]
+                    cost = dft_level_cost(L, m, cols, tw, kind != "digits", out_digits, folds)
+                    n_bytes += cost["bytes"]
+                    work += cost["work"]
         if main:
             a = plan.w8s[lvl].reshape(D * m, m)
             b = x8.permute(1, 0, 2).reshape(m, D * cols).contiguous()
@@ -395,6 +412,107 @@ def check_dft(dev, field, rng, results):
         print(f"dft_level: the three levels of a p128 2^17 transform as the main path runs "
               f"them: {k_ms:.4f} ms (events), device {fmt_ms(d_ms)}; torch._int_mm on the same "
               f"digit products {fmt_ms(mm_ms)}", flush=True)
+
+
+def large_ms(fn):
+    """(events ms, device ms) of a call of fn() that runs for a millisecond
+    or so: CUDA events (mean of 5 after a warm-up), where the wrapper's
+    host cost is small beside the kernel, and the port kernels' device time
+    from torch.profiler (`device_ms`, taken twice if the profiler records
+    no port kernel the first time; None if it records none either time)."""
+    em = cuda_ms(fn)
+    dm = device_ms(fn, reps=5)
+    return em, dm if dm is not None else device_ms(fn, reps=5)
+
+
+def dft_level_cost(L: int, m: int, cols: int, tw, in_limbs: bool, out_digits: bool,
+                   folds: int) -> dict:
+    """Bytes and work of one kernel-1 level: its input read (int32 limbs or
+    int8 digit planes), the digit matrix and the twiddle tables read, its
+    output written (digit planes or limbs); m*D^2 int8 digit multiply-adds
+    per output (2 ops each, at the card's int8 tensor-core rate), the
+    solinas folds that reduce the wide integer, and 1 (direct panel) or 2
+    (factored) twiddle products on the word product."""
+    D = 2 * L + 1
+    products = 0 if tw is None else (1 if "p" in tw else 2)
+    tw_bytes = sum(t.numel() * 4 for t in (tw or {}).values())
+    return {"bytes": ((4 * L if in_limbs else D) * m * cols + D * m * m + tw_bytes
+                      + (D if out_digits else 4 * L) * m * cols),
+            "work": [("int8_mma", 2 * m * cols * m * D * D), ("u32", m * cols * folds),
+                     (("mont", L), m * cols * products)]}
+
+
+def plain_level(dev, w8, x, m: int, rest: int, tw, out_digits: bool = False):
+    """`run_dft_level_ref` over column chunks of PLAIN_LEVEL_ELEMS / m
+    columns, the same contract: unchunked, a p128 level of 2^25 points would
+    hold 77 GB of float64 digit products.  A chunk narrower than `rest` lies
+    inside one period of the twiddle; it takes the factored pair's rows of A
+    for its columns (direct panels have rest <= 64, below every chunk)."""
+    import torch
+    from genstark_tpu_torch.ntt import dft
+    if x.dim() == 4:                 # the transform's view [planes, pre, m, r]
+        x = x.permute(0, 2, 1, 3).reshape(x.shape[0], m, x.shape[1] * x.shape[3])
+    cols = x.shape[2]
+    chunk = max(1, min(cols, PLAIN_LEVEL_ELEMS // m))
+    parts = []
+    for i0 in range(0, cols, chunk):
+        tw_c, rest_c = tw, rest
+        if rest > chunk:
+            require("a" in tw, f"a direct twiddle panel of rest {rest} > {chunk} columns")
+            s = tw["b"].shape[-1]
+            require(chunk % s == 0, f"a chunk of {chunk} columns splits the twiddle's s = {s}")
+            h0 = (i0 % rest) // s
+            tw_c, rest_c = {"a": tw["a"][h0:h0 + chunk // s], "b": tw["b"]}, chunk
+        parts.append(dft.run_dft_level_ref(dev, w8, x[:, :, i0:i0 + chunk], m, rest_c, tw_c,
+                                           out_digits))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+
+
+def check_dft_chain(device, field, plan, label: str, results, rates=None):
+    """Kernel 1 at every level of one transform plan, each level fed as
+    `ntt._digit_transform` feeds it: level 0 int32 limbs [L, n] as the view
+    [L, 1, m, r] (its digits carry the plan's scale), every later level the
+    previous level's int8 digit planes as the view [D, pre, m, r] (the
+    kernel's output, once it has equalled the plain version's); each level's
+    twiddle (none, direct, or factored at its rest); digits out but at the
+    last level.  Each level against `plain_level`, tolerance 0.  With
+    `rates`, each level's time beside its bound (`large_ms`); returns
+    (events ms, device ms, bound ms) summed over the levels, or None without
+    rates."""
+    from genstark_tpu_torch import kernels
+    dev = field.device_field(device)
+    L, n, q = dev.L, plan.n, len(plan.levels)
+    folds = solinas_fold_mults(field.modulus)
+    cur = device_elements(device, 50 + n.bit_length(), field.modulus, L, n)
+    pre, rest, total = 1, n, [0.0, 0.0, 0.0]
+    for lvl, m in enumerate(plan.levels):
+        rest //= m
+        view = cur.reshape(cur.shape[0], pre, m, rest)
+        tw = plan.tws[lvl] if rest > 1 else None
+        args = (dev, plan.w8s[lvl], view, m, rest, tw, lvl < q - 1)
+        got = kernels.dft_level(*args)
+        e = max_abs_err(got, plain_level(*args))
+        mode = "none" if tw is None else ("direct" if "p" in tw else
+                                          f"factored s = {tw['b'].shape[-1]}")
+        timing = ""
+        if rates is not None:
+            em, dm = large_ms(lambda: kernels.dft_level(*args))
+            cost = dft_level_cost(L, m, n // m, tw, lvl == 0, lvl < q - 1, folds)
+            bound_ms, bound_by, _ = bound(cost, rates)
+            total[0] += em
+            total[1] = None if total[1] is None or dm is None else total[1] + dm
+            total[2] += bound_ms
+            timing = (f"; events {em:.4f} ms, device {fmt_ms(dm)}, against a bound of "
+                      f"{bound_ms:.4f} ms ({bound_by})")
+        print(f"dft_level {label} level {lvl} (m = {m}, pre = {pre}, rest = {rest}, {mode}, "
+              f"{'limbs' if lvl == 0 else 'digits'} in, "
+              f"{'digits' if lvl < q - 1 else 'limbs'} out): max_abs_err={e}{timing}",
+              flush=True)
+        require(e == 0, f"dft_level != plain version at {label} level {lvl}")
+        results["dft_level"]["max_abs_err"] = max(results["dft_level"]["max_abs_err"], e)
+        cur = got.reshape(got.shape[0], m * pre, rest)
+        pre *= m
+    return None if rates is None else tuple(total)
 
 
 def solinas_fold_mults(modulus: int) -> int:
@@ -1426,36 +1544,73 @@ def chunked_err(got, plain, n: int, chunk: int = 1 << 21) -> int:
                for i0 in range(0, n, chunk))
 
 
-def check_largest_shapes(device, field, results) -> None:
-    """Each kernel the 2^20-step path launches, against its plain version at
-    that path's largest shapes: Ne = 4 * LARGE_N = 2^24 at L = 16, where
-    the [2, 16, Ne] evaluation vectors hold 2^29 elements (2^31 bytes).
-    Kernel 5 on [16, Ne] and on the [16, 2, Ne] view of a [2, 16, Ne]
-    tensor (the direct route's scale multiply) with a scalar on either side;
-    kernel 6 at the Ne-point stage table's factors (4096 x 2048); kernel 3
-    over the Ne leaves of two vectors and the first FRI layer's Ne/4 rows;
-    kernel 2 over the e-tree's first level (Ne/2 pairs); kernel 4 at Ne with
-    the prover's split s = 4096; kernel 8's bit-reversed pass and the direct
-    route's stage passes at Ne over [2, 16, Ne].  The plain versions run on
-    column (or block) chunks where an output column reads only its own
-    input columns; kernel 6's and the stages' plain versions run whole."""
+def ladder_plans(field, dev):
+    """(label, DftPlan) of the two transforms of the ladder's 2^20- and
+    2^21-step paths that carry a level-1 scale, as the prover makes them
+    (`Prover._plan_specs`): the LDE to Ne = 16 T with R^-1 folded
+    ("w_Ne_std": four levels of 64 at 2^24, five of 32 at 2^25) and the
+    trace's iNTT with T^-1 folded ("w_T_inv")."""
+    from genstark_tpu_torch.ntt import DftPlan
+    f, p = field.host, field.modulus
+    plans = []
+    for T in reversed(LADDER_STEPS[1:]):
+        Ne = 16 * T
+        plans.append((f"LDE 2^{Ne.bit_length() - 1} (R^-1)", DftPlan(
+            field, dev, Ne, f.get_root_of_unity(Ne), f.inv(field.params.R_mod % p))))
+        plans.append((f"iNTT 2^{T.bit_length() - 1} (T^-1)", DftPlan(
+            field, dev, T, f.inv(f.get_root_of_unity(T)), f.inv(T % p))))
+    return plans
+
+
+def check_largest_shapes(device, field, Ne: int, results, rates=None, dft_plans=()):
+    """Each kernel of a large path against its plain version at that path's
+    largest shapes, Ne evaluation points at the field's L: the [2, L, Ne]
+    evaluation vectors hold 2^29 elements (2^31 bytes) both for MiMC-256 at
+    2^20 steps (Ne = 2^24, L = 16) and for MiMC-128 at 2^21 steps (Ne =
+    2^25, L = 8).  Kernel 5 on [L, Ne] and on the [L, 2, Ne] view of a
+    [2, L, Ne] tensor (the direct route's scale multiply) with a scalar on
+    either side; kernel 6 at the Ne/2-point table's factors; kernel 3 over
+    the Ne leaves of two vectors and the first FRI layer's Ne/4 rows; kernel
+    2 over the e-tree's first level (Ne/2 pairs); kernel 4 at Ne with the
+    prover's split s; kernel B at the path's query sets (48 positions over
+    Ne, 24 over each FRI layer's Ne/4^k).  On the digit route (p32, p128),
+    kernel 1 at every level of each plan of `dft_plans` ((label, DftPlan):
+    `check_dft_chain`); on the radix-2 route, kernel 8's bit-reversed pass
+    and the direct route's stage passes over [2, L, Ne].  The plain versions
+    run on column (or block) chunks where an output column reads only its
+    own input columns; kernel 6's and the stages' plain versions run whole.
+    With `rates`, the time of kernels 1-6 at these shapes, whose operands
+    lie far past the card's 50 MB L2, beside their bounds (`large_ms`):
+    returns {kernel: (events ms, device ms, bound ms, bound by)}."""
     import torch
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.hash import create_hash, digest_rows_ref, elements_to_words
-    from genstark_tpu_torch.ntt import radix2
+    from genstark_tpu_torch.ntt import digit_dft_field, radix2
+    from genstark_tpu_torch.protocol import device_queries as dq
     from genstark_tpu_torch.protocol.lincomb_kernel import lcomb_tail, lcomb_tail_ref
     dev = field.device_field(device)
-    L, p, Ne, elem = dev.L, field.modulus, 4 * LARGE_N, field.element_size
+    L, p, elem = dev.L, field.modulus, field.element_size
     split = lambda n: 1 << ((n.bit_length() - 1) // 2)                # the plans' s
     chunk = Ne // 8
     seeds = iter(range(20, 40))
     rnd = lambda *shape: device_elements(device, next(seeds), p, L, *shape)
     cols = lambda t, i0, i1: t[..., i0:i1] if t.shape[-1] > 1 else t    # a scalar stays
+    where = f"Ne = {Ne}, L = {L}"
+    times = {}
 
     def note(name, e, what):
-        print(f"{name} at the 2^20-step path's shape, {what}: max_abs_err={e}", flush=True)
-        require(e == 0, f"{name} kernel != plain version at {what}")
+        print(f"{name} at {where}, {what}: max_abs_err={e}", flush=True)
+        require(e == 0, f"{name} kernel != plain version at {what} ({where})")
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+
+    def timed(name, fn, cost):
+        if rates is None:
+            return
+        em, dm = large_ms(fn)
+        bound_ms, bound_by, _ = bound(cost, rates)
+        times[name] = (em, dm, bound_ms, bound_by)
+        print(f"{name} at {where}: events {em:.4f} ms, device {fmt_ms(dm)}, against a bound "
+              f"of {bound_ms:.4f} ms ({bound_by})", flush=True)
 
     a, b, c = rnd(Ne), rnd(Ne), rnd(1)
     e_std = rnd(2, Ne).transpose(0, 1).contiguous()                  # [2, L, Ne]
@@ -1465,12 +1620,17 @@ def check_largest_shapes(device, field, results) -> None:
         for x, y in ((a, b), (ev, c), (c, ev)):
             err = max(err, chunked_err(kernels.field_ew(dev, op, x, y), lambda i0, i1: ref(
                 cols(x, i0, i1), cols(y, i0, i1)), Ne, chunk))
-        note("field_ew", err, f"{op} [16, {Ne}] and [16, 2, {Ne}] x scalar")
+        note("field_ew", err, f"{op} [{L}, {Ne}] and [{L}, 2, {Ne}] x scalar")
+    timed("field_ew", lambda: kernels.field_ew(dev, "mul", a, b),
+          {"bytes": 3 * L * 4 * Ne, "work": [(("mont", L), Ne)]})
 
     s = split(Ne // 2)
     outer, inner = rnd(Ne // 2 // s), rnd(s)
     note("outer_table", max_abs_err(kernels.outer_table(dev, outer, inner),
                                     dev.outer_table_ref(outer, inner)), f"{Ne // 2 // s} x {s}")
+    timed("outer_table", lambda: kernels.outer_table(dev, outer, inner),
+          outer_cost(L, Ne // 2 // s, s))
+    del outer, inner
 
     algo = "blake2s256"
     h = create_hash(algo)
@@ -1480,51 +1640,85 @@ def check_largest_shapes(device, field, results) -> None:
     err = max(err, chunked_err(h.digest_stride_rows(a, elem), lambda i0, i1: digest_rows_ref(
         algo, torch.cat([elements_to_words(a[:, k * M + i0:k * M + i1]) for k in range(4)]),
         4 * elem), M, chunk))
-    note("hash_limbs", err, f"{Ne} leaves of [2, 16, {Ne}], {M} stride-4 rows")
-    words = a[:, :Ne // 2].contiguous()                               # [16, Ne/2]
+    note("hash_limbs", err, f"{Ne} leaves of [2, {L}, {Ne}], {M} stride-4 rows")
+    timed("hash_limbs", lambda: h.merge_element_rows(e_std, elem), limbs_cost(2, L, Ne))
+    timed("hash_limbs rows", lambda: h.digest_stride_rows(a, elem), limbs_cost(4, L, M))
+    words = a.reshape(-1)[:16 * (Ne // 2)].view(16, Ne // 2)        # [16, Ne/2] words
     note("hash_words", chunked_err(kernels.hash_words(algo, words, 64),
                                    lambda i0, i1: digest_rows_ref(algo, words[:, i0:i1], 64),
                                    Ne // 2, chunk), f"{Ne // 2} 64-byte pairs")
+    timed("hash_words", lambda: kernels.hash_words(algo, words, 64),
+          {"bytes": (64 + 32) * (Ne // 2), "work": [("u32", (Ne // 2) * BLAKE2S_BLOCK_OPS)]})
 
     s, ext = split(Ne), 16
     qe, b_stack = a, rnd(1, Ne).transpose(0, 1).contiguous()          # [1, L, Ne]
     dom, incr = (rnd(Ne // s), rnd(s)), (rnd(Ne // s), rnd(s))
     inv_series, b_coeffs, l_coeffs = rnd(ext), rnd(2), rnd(4)
     x_last = p - 12345
-    tail = lcomb_tail(dev, qe, b_stack, e_std, dom, incr, inv_series, x_last, b_coeffs,
-                      l_coeffs, True, True, ext)
+    args = (dev, qe, b_stack, e_std, dom, incr, inv_series, x_last, b_coeffs, l_coeffs,
+            True, True, ext)
+    tail = lcomb_tail(*args)
     note("lcomb_tail", chunked_err(tail, lambda i0, i1: lcomb_tail_ref(
         dev, qe[:, i0:i1], b_stack[..., i0:i1], e_std[..., i0:i1],
         (dom[0][:, i0 // s:i1 // s], dom[1]), (incr[0][:, i0 // s:i1 // s], incr[1]),
         inv_series, x_last, b_coeffs, l_coeffs, True, True, ext), Ne, chunk),
         f"Ne = {Ne}, B = 1, V = 2, s = {s}")
-    del tail, b_stack, b, words
+    del tail
+    timed("lcomb_tail", lambda: lcomb_tail(*args), tail_cost(args))
+    del args, b_stack, b, words
 
-    local = radix2.LOCAL_MAX
-    table = rnd(local // 2)
-    blocks = lambda t: t.view(2, L, Ne // local, local).permute(0, 2, 1, 3)
-    got = e_std.clone()
-    kernels.butterfly(dev, blocks(got), table, out=blocks(got), bitrev_in=True)
-    gc = Ne // local // 8
-    err = max(max_abs_err(blocks(got)[:, g0:g0 + gc], radix2.butterfly_ref(
-        dev, blocks(e_std)[:, g0:g0 + gc], table, bitrev_in=True))
-        for g0 in range(0, Ne // local, gc))
-    note("butterfly", err, f"bit-reversed entry over [2, 16, {Ne}] in blocks of {local}")
-    del got
-    table = rnd(Ne // 2).t().contiguous()                           # [Ne/2, L]
-    for m, k in radix2.stage_passes(Ne, local, radix2.PASS_DEPTH):
-        row = "bfly_stage" if m <= kernels.STAGE_SPLIT_ABOVE else "bfly_stage_split"
-        got = kernels.butterfly_stages(dev, e_std.clone(), table, m, k)
-        note(row, max_abs_err(got, radix2.butterfly_stages_ref(dev, e_std.clone(), table, m, k)),
-             f"stages m = {m} .. {m << (k - 1)} over [2, 16, {Ne}]")
+    n_cand = lambda count: 32 * count + 512                           # Prover._n_cand
+    specs = [(48, Ne, ext, n_cand(48))] + [(24, 1 << k, ext, n_cand(24))
+                                           for k in range(Ne.bit_length() - 3, 6, -2)]
+    g = torch.Generator(device=device)
+    g.manual_seed(Ne)
+    roots = torch.randint(-2 ** 31, 2 ** 31 - 1, (len(specs), 8), generator=g, device=device,
+                          dtype=torch.int32)
+    got, want = kernels.sample_queries(roots, specs), dq.sample_sets_ref(roots, specs)
+    note("sample_queries", max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1])),
+         f"{len(specs)} sets, max_ {[m for _, m, _, _ in specs]}")
+
+    if digit_dft_field(field):
+        for label, plan in dft_plans:
+            t0 = time.monotonic()
+            chain = check_dft_chain(device, field, plan, label, results, rates)
+            print(f"dft_level {label}: {len(plan.levels)} levels {plan.levels} checked in "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+            if chain is not None:
+                times[f"dft_level {label}"] = chain + ("the levels' sum",)
+                print(f"dft_level {label}: events {chain[0]:.4f} ms, device {fmt_ms(chain[1])} "
+                      f"over its {len(plan.levels)} levels against a bound of {chain[2]:.4f} ms",
+                      flush=True)
+    else:
+        local = radix2.LOCAL_MAX
+        table = rnd(local // 2)
+        blocks = lambda t: t.view(2, L, Ne // local, local).permute(0, 2, 1, 3)
+        got = e_std.clone()
+        kernels.butterfly(dev, blocks(got), table, out=blocks(got), bitrev_in=True)
+        gc = Ne // local // 8
+        err = max(max_abs_err(blocks(got)[:, g0:g0 + gc], radix2.butterfly_ref(
+            dev, blocks(e_std)[:, g0:g0 + gc], table, bitrev_in=True))
+            for g0 in range(0, Ne // local, gc))
+        note("butterfly", err, f"bit-reversed entry over [2, {L}, {Ne}] in blocks of {local}")
         del got
-    del a, c, e_std, ev, table
+        table = rnd(Ne // 2).t().contiguous()                           # [Ne/2, L]
+        for m, k in radix2.stage_passes(Ne, local, radix2.PASS_DEPTH):
+            row = "bfly_stage" if m <= kernels.STAGE_SPLIT_ABOVE else "bfly_stage_split"
+            got = kernels.butterfly_stages(dev, e_std.clone(), table, m, k)
+            note(row, max_abs_err(got, radix2.butterfly_stages_ref(dev, e_std.clone(), table,
+                                                                   m, k)),
+                 f"stages m = {m} .. {m << (k - 1)} over [2, {L}, {Ne}]")
+            del got
+        del table
+    del a, c, e_std, ev
     torch.cuda.empty_cache()
+    return times
 
 
-def profile_prove(stark, assertions, inputs) -> dict:
+def profile_prove(stark, assertions, inputs, stats: dict = None) -> dict:
     """Device kernel time by name over one prove, and the device's busy
-    share of the wall time; returns port_totals of the profile.  A
+    share of the wall time; returns port_totals of the profile (and puts
+    the wall, device and busy share into `stats`, where given).  A
     measurement only: a profiler that captures nothing is reported, not
     fatal."""
     try:
@@ -1533,6 +1727,10 @@ def profile_prove(stark, assertions, inputs) -> dict:
         print(f"profiler failed: {err!r}", flush=True)
         return {}
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    if stats is not None:
+        stats.update(profiled_wall_ms=wall_ms, device_ms=busy_ms,
+                     busy_pct=100 * busy_ms / wall_ms,
+                     launches_recorded=sum(n for _, n in by_name.values()))
     print(f"profiled prove wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% busy), {sum(n for _, n in by_name.values())} "
           f"kernel launches", flush=True)
@@ -1794,50 +1992,61 @@ def four_step_proof(device, steps: int) -> bytes:
     return data
 
 
-def run_largest(kernels, device, steps: int, label: str, sync_log: dict) -> dict:
-    """MiMC-256 at `steps` steps: a warm-up, then three proves (launch
-    counts of the first, best of 3, peak memory); the three proofs must be
-    identical; then `check_one_fetch` and one profiled prove.  Returns the
-    launches of one prove."""
+def run_largest(kernels, stark, assertions, required, label: str, sync_log: dict, pin=None):
+    """A large MiMC path (MiMC-256 at 2^20 steps on the radix-2 route, or
+    MiMC-128 up the JAX package's ladder on the digit route): a warm-up,
+    then three proves, the launch counts set to 0 before the first and
+    read after it, every plain version's calls counted (there must be
+    none), each prove's peak device memory and native trace seconds; the
+    proofs must be identical and equal to `pin` where there is one, the
+    port's verifier must accept them (verify_ms best of 3), and every
+    kernel of `required` must have launched; then `check_one_fetch` and one
+    profiled prove.  Returns (launches of one prove, proof bytes, stats)."""
     import torch
-    from mimc_torch import make_mimc_stark
-    from genstark_tpu_torch.field import P256
-    stark, constants = make_mimc_stark(steps, device, modulus=P256)
-    assertions = mimc_assertions(stark, constants, steps)
     t0 = time.monotonic()
     stark.prove(assertions, [[3]])
     torch.cuda.synchronize()
     warmup = time.monotonic() - t0
     kernels.reset_launch_counts()
     times, datas, launches, traces, peaks = [], [], None, [], []
-    for _ in range(3):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.monotonic()
-        proof = stark.prove(assertions, [[3]])
-        torch.cuda.synchronize()
-        times.append(time.monotonic() - t0)
-        peaks.append(torch.cuda.max_memory_allocated())
-        traces.append(require_native(stark, label))
-        if launches is None:
-            launches = dict(kernels.launch_counts)
-        datas.append(stark.serialize(proof))
+    with plain_calls() as plain:
+        for _ in range(3):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            proof = stark.prove(assertions, [[3]])
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+            peaks.append(torch.cuda.max_memory_allocated())
+            traces.append(require_native(stark, label))
+            if launches is None:
+                launches = dict(kernels.launch_counts)
+            datas.append(stark.serialize(proof))
+            del proof
     peak = max(peaks)
     print(f"{label} peak device memory of each prove: {peaks}", flush=True)
     got = proof_digest(datas[0])
     print(f"{label} proof: {got[0]} bytes sha256 {got[1]}", flush=True)
-    print(f"{label} launches in one prove: {launches}", flush=True)
-    print(f"{label} warmup {warmup:.4f} s; prove best-of-3 {min(times):.6f} s; prove seconds "
-          f"{[round(t, 6) for t in times]}; peak device memory {peak} bytes "
-          f"({peak / 2 ** 30:.3f} GiB)", flush=True)
+    print(f"{label} launches in one prove: {launches}; plain-version calls {plain or 0}",
+          flush=True)
+    print(f"{label} warmup {warmup:.4f} s; prove best-of-3 {min(times):.6f} s, median "
+          f"{median(times):.6f} s; prove seconds {[round(t, 6) for t in times]}; peak device "
+          f"memory {peak} bytes ({peak / 2 ** 30:.3f} GiB)", flush=True)
     print(f"{label} native trace seconds: {[round(t, 6) for t in traces]}", flush=True)
-    require(datas[0] == datas[1] == datas[2], f"{label}: two proves gave different bytes")
-    verify_proof(stark, assertions, datas[0], None, label, reps=1)
-    missing = [k for k in LARGE_KERNELS if launches[k] == 0]
+    require(all(d == datas[0] for d in datas), f"{label}: two proves gave different bytes")
+    if pin is not None:
+        require(got == pin, f"{label} proof differs from its pin {pin}")
+    require(not plain, f"{label}: the prove on the card ran plain versions {plain}")
+    verify_ms = verify_proof(stark, assertions, datas[0], None, label, reps=3)
+    missing = [k for k in required if launches[k] == 0]
     require(not missing, f"{label}: kernels of the path never launched: {missing}")
     check_one_fetch(kernels, stark, lambda: stark.prove(assertions, [[3]]), label, sync_log)
     phase(f"{label}: where the time goes (torch.profiler, one prove)")
-    profile_prove(stark, assertions, [[3]])
-    return launches
+    stats = {"prove_s": times, "best_s": min(times), "median_s": median(times),
+             "warmup_s": warmup, "trace_s": traces, "peak_bytes": peak,
+             "verify_ms": verify_ms, "launches": launches, "bytes": got[0], "sha256": got[1]}
+    totals = profile_prove(stark, assertions, [[3]], stats)
+    stats["port_kernels_ms"] = {short: [us / 1e3, n] for short, (us, n) in totals.items()}
+    return launches, datas[0], stats
 
 
 @contextlib.contextmanager
@@ -2014,10 +2223,13 @@ def sharded_rank(mesh, paths, ntt_sizes, reps: int, scaling: bool) -> dict:
     return out
 
 
-def run_sharded(device, results, smi_line: str) -> dict:
+def run_sharded(device, results, smi_line: str, expected: dict) -> dict:
     """The sharded phases: SHARDED_RANKS ranks sharing the card over gloo,
     then one rank over nccl (the bench).  Every rank's proof must equal
-    its pin, the port's verifier must accept it, every kernel of the path
+    its pin; a path without one takes its one-fetch prove from earlier in
+    this call, `expected[label]` = (digest, best prove_s, stark,
+    assertions), as its pin, its single-device prove_s and its verifier.
+    The port's verifier must accept every proof, every kernel of the path
     must have launched on every rank with no plain version called, every
     collective of COLLECTIVES must have run on every rank (NCCL's one rank
     included), no prove may fall back to the host sampler, and every kernel must equal
@@ -2033,6 +2245,9 @@ def run_sharded(device, results, smi_line: str) -> dict:
     from genstark_tpu_torch.parallel.scaling import comm_compute_split
     single, starks = {}, {}
     for label, steps, modulus_name, _, _ in SHARDED_PATHS:
+        if label in expected:
+            _, single[label], *starks[label] = expected[label]
+            continue
         stark, constants = make_mimc_stark(steps, device, modulus=getattr(fields, modulus_name))
         assertions = mimc_assertions(stark, constants, steps)
         stark.prove(assertions, [[3]])
@@ -2070,6 +2285,7 @@ def run_sharded(device, results, smi_line: str) -> dict:
                         f"sharded {label} rank {r['rank']}: distributed transform {size} differs")
         per_path = {}
         for path_label, _, _, pin, required in paths:
+            pin = pin or expected[path_label][0]
             rows = [r["paths"][path_label] for r in ranks]
             for r, row in zip(ranks, rows):
                 got = proof_digest(row["bytes"])
@@ -2179,17 +2395,48 @@ def run_staged(kernels, stark, assertions, inputs, pin, required, label: str,
 def plain_transform(dev, x, plan):
     """The public transform's plain path, on the tensors' device: the
     radix-2 route's `transform_ref`, or the digit route with every level
-    run by `run_dft_level_ref`."""
+    run by `run_dft_level_ref` (in column chunks, `plain_level`)."""
     from genstark_tpu_torch import ntt
     from genstark_tpu_torch.ntt import dft, radix2
     if isinstance(plan, radix2.Radix2Plan):
         return radix2.transform_ref(dev, x, plan)
     saved = dft.run_dft_level
-    dft.run_dft_level = dft.run_dft_level_ref
+    dft.run_dft_level = plain_level
     try:
         return ntt._digit_transform(dev, x, plan)
     finally:
         dft.run_dft_level = saved
+
+
+def check_ntt_rate(kernels, device, smi_line: str) -> dict:
+    """The port's public `ntt` of 2^20 p128 points (four kernel-1 levels of
+    32) against its plain path (tolerance 0), then its time on the card
+    (CUDA events, mean of 10 after a warm-up) as butterflies a second,
+    (n/2) log2(n) / t: the JAX package's NTT quantity (bench.py:114-168),
+    printed beside the card, not a benchmark."""
+    import torch
+    from genstark_tpu_torch import ntt
+    from genstark_tpu_torch.field import P128, create_prime_field
+    field = create_prime_field(P128)
+    dev = field.device_field(device)
+    n = 2 ** 20
+    x = device_elements(device, 2024, field.modulus, dev.L, n)
+    kernels.reset_launch_counts()
+    got = ntt.ntt(field, x)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    plan = ntt._plan(field, dev, n, False)
+    err = max_abs_err(got, plain_transform(dev, x, plan))
+    del got
+    ms = cuda_ms(lambda: ntt.ntt(field, x), reps=10)
+    rate = (n // 2) * (n.bit_length() - 1) / (ms / 1e3)
+    out = {"n": n, "levels": list(plan.levels), "max_abs_err": err, "ms": ms,
+           "butterflies_per_s": rate, "launches": launches, "device": smi_line}
+    print(f"public ntt p128 n = {n} (levels {plan.levels}): max_abs_err={err}; {ms:.4f} ms, "
+          f"{rate:.6e} butterflies/s on {smi_line}; launches {launches}", flush=True)
+    require(err == 0, f"public ntt of {n} p128 points != its plain path")
+    print(json.dumps({"ntt_2_20": out}), flush=True)
+    return out
 
 
 def check_public_ntt(kernels, device, rng, smi_line: str) -> None:
@@ -2264,6 +2511,7 @@ def main() -> int:
 
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
+    from genstark_tpu_torch.ntt import dft_levels
     sys.path.insert(0, os.path.join(HERE, "examples"))
     from mimc_torch import make_mimc_stark, prove_div, prove_mimc, round_constants
     from examples import (demo_static_torch, elliptic_torch, fibonacci_torch,
@@ -2359,8 +2607,19 @@ def main() -> int:
     phase(f"kernels vs plain versions at the {LARGEST_STEPS}-step path's largest shapes "
           f"(Ne = {4 * LARGE_N}, [2, 16, Ne] operands)")
     t0 = time.monotonic()
-    check_largest_shapes(device, f256, results)
+    check_largest_shapes(device, f256, 4 * LARGE_N, results)
     print(f"largest-shape checks {time.monotonic() - t0:.1f} s", flush=True)
+
+    phase(f"kernels vs plain versions at the MiMC-128 ladder's largest shapes (Ne = "
+          f"{16 * LADDER_STEPS[-1]}, [2, 8, Ne] operands; kernel 1 at every level of the "
+          f"LDE and the iNTT of the {LADDER_STEPS[1]}- and {LADDER_STEPS[2]}-step paths)")
+    t0 = time.monotonic()
+    ladder_times = check_largest_shapes(device, f128, 16 * LADDER_STEPS[-1], results, rates,
+                                        ladder_plans(f128, dev128))
+    print(json.dumps({"ladder_kernel_times": {
+        k: {"ms": v[0], "device_ms": v[1], "bound_ms": v[2], "bound_by": v[3]}
+        for k, v in ladder_times.items()}, "device": smi_line}), flush=True)
+    print(f"ladder largest-shape checks {time.monotonic() - t0:.1f} s", flush=True)
 
     phase("pinned toy proofs on the card, each verified by the port")
     toy_assertions = lambda stark, count: mimc_assertions(
@@ -2500,15 +2759,57 @@ def main() -> int:
     del four, large_data
     torch.cuda.empty_cache()
 
-    phase(f"sharded prover: {SHARDED_RANKS} ranks sharing one card over gloo (the bench and "
-          f"MiMC-256 at {LARGE_STEPS} steps, distributed NTT at {DIST_NTT_SIZES}), then one "
-          f"rank over nccl (the bench)")
+    phase("the public ntt of 2^20 p128 points: its rate on the card")
+    check_ntt_rate(kernels, device, smi_line)
+
+    ladder, ladder_launches = {}, []
+
+    def ladder_path(steps, pin=None):
+        label = f"mimc128-2^{steps.bit_length() - 1}"
+        phase(f"MiMC-128 ladder: {steps} steps (Ne = {16 * steps}, the LDE's levels "
+              f"{dft_levels(16 * steps)})")
+        t0 = time.monotonic()
+        stark, assertions, _ = mimc_path(steps)
+        launches_, data, ladder[label] = run_largest(kernels, stark, assertions, BENCH_KERNELS,
+                                                      label, sync_log, pin=pin)
+        ladder_launches.append(launches_)
+        print(f"{label} phase {time.monotonic() - t0:.1f} s", flush=True)
+        return label, stark, assertions, data
+
+    label, stark, _, _ = ladder_path(LADDER_STEPS[0], LADDER_17_PIN)
+    del stark
+    torch.cuda.empty_cache()
+    label, stark, assertions, data = ladder_path(LADDER_STEPS[1])
+    north_star = proof_digest(data)
     t0 = time.monotonic()
-    sharded_launches = run_sharded(device, results, smi_line)
+    launches_, ladder[label]["staged"] = run_staged(
+        kernels, stark, assertions, [[3]], north_star, STAGED_DIGIT, label, sync_log, smi_line,
+        reps=2)
+    ladder_launches.append(launches_)
+    print(f"{label} staged phase {time.monotonic() - t0:.1f} s", flush=True)
+
+    phase(f"sharded prover: {SHARDED_RANKS} ranks sharing one card over gloo (the bench, "
+          f"MiMC-256 at {LARGE_STEPS} steps and MiMC-128 at {LADDER_STEPS[1]} steps, "
+          f"distributed NTT at {DIST_NTT_SIZES}), then one rank over nccl (the bench)")
+    t0 = time.monotonic()
+    sharded_launches = run_sharded(
+        device, results, smi_line,
+        {label: (north_star, ladder[label]["best_s"], stark, assertions)})
     print(f"sharded phases {time.monotonic() - t0:.1f} s", flush=True)
+    del stark, data
+    torch.cuda.empty_cache()
 
     phase(f"MiMC-256: P256, {LARGEST_STEPS} steps (Ne = {16 * LARGEST_STEPS})")
-    largest_launches = run_largest(kernels, device, LARGEST_STEPS, "mimc256-2^20", sync_log)
+    stark, assertions, _ = mimc_path(LARGEST_STEPS, P256)
+    largest_launches, _, _ = run_largest(kernels, stark, assertions, LARGE_KERNELS,
+                                         "mimc256-2^20", sync_log)
+    del stark
+    torch.cuda.empty_cache()
+
+    _, stark, _, _ = ladder_path(LADDER_STEPS[2])
+    del stark
+    torch.cuda.empty_cache()
+    print(json.dumps({"ladder": ladder, "device": smi_line}), flush=True)
     print(json.dumps({"syncs": sync_log}), flush=True)
 
     from genstark_tpu_torch.native import tracegen
@@ -2517,6 +2818,7 @@ def main() -> int:
           f"({ {k: round(v, 3) for k, v in tracegen.build_seconds.items()} })", flush=True)
     launches = {k: bench_launches[k] + mimc256_launches[k] + large_launches[k]
                 + largest_launches[k] + sum(m[k] for m in merkle_launches)
+                + sum(m[k] for m in ladder_launches)
                 + sum(m[k] for m in demo_launches)
                 + sum(st["launches"][k] for st in staged.values())
                 + div_launches[k] + rates["launches"].get(k, 0)

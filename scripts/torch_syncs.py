@@ -11,7 +11,7 @@ kernels built in its own `_build/`.  The instrument is this checkout's
 `chip_smoke.py` (`count_syncs`, `profile_run`, `host_fallbacks`), so two
 trees run in turns are measured alike.  Per path, after two warm-up
 proves: the port kernel launches of one prove, prove seconds (best of 5, 3
-at 2^20 steps) and their peak device memory, the synchronizing calls of one prove (all of them, and
+at 2^20 steps and more) and their peak device memory, the synchronizing calls of one prove (all of them, and
 those after its first port kernel) with the host milliseconds spent in the
 runtime's synchronizing calls, and one profiled prove's device kernel
 time, launches, busy share, each port kernel's device ms and launches
@@ -32,7 +32,10 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATHS = ("bench", "mimc256", "rescue-merkle-16", "poseidon-merkle-16", "lib224-merkle-8",
-         "pointmul", "fibonacci", "demo-static", "mimc256-2^18", "mimc256-2^20")
+         "pointmul", "fibonacci", "demo-static", "mimc256-2^18", "mimc256-2^20",
+         "mimc128-2^17", "mimc128-2^20", "mimc128-2^21")
+# Paths of 2^20 steps and more: best of 3, not 5.
+LONG_PATHS = ("mimc256-2^20", "mimc128-2^20", "mimc128-2^21")
 
 
 def load_instrument():
@@ -50,7 +53,9 @@ def make_path(label: str, device, smoke):
     from genstark_tpu_torch.field import P128, P256
     from mimc_torch import make_mimc_stark
     mimc = {"bench": (2 ** 13, P128), "mimc256": (2 ** 13, P256),
-            "mimc256-2^18": (2 ** 18, P256), "mimc256-2^20": (2 ** 20, P256)}
+            "mimc256-2^18": (2 ** 18, P256), "mimc256-2^20": (2 ** 20, P256),
+            "mimc128-2^17": (2 ** 17, P128), "mimc128-2^20": (2 ** 20, P128),
+            "mimc128-2^21": (2 ** 21, P128)}
     if label in mimc:
         steps, modulus = mimc[label]
         stark, constants = make_mimc_stark(steps, device, modulus=modulus)
@@ -88,7 +93,7 @@ def measure(label: str, device, smoke, kernels) -> dict:
     port_launches = sum(kernels.launch_counts.values())
     times = []
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(3 if label == "mimc256-2^20" else 5):
+    for _ in range(3 if label in LONG_PATHS else 5):
         t0 = time.monotonic()
         prove()
         torch.cuda.synchronize()

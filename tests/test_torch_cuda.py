@@ -656,6 +656,51 @@ def test_dft_level_kernel_inputs_and_modes(device, modulus, m, mode):
             assert torch.equal(got, want), (given.dtype, tuple(given.shape), out_digits)
 
 
+@DFT_FIELDS
+@pytest.mark.parametrize("n,count", [(2 ** 10, 5), (2 ** 12, 6)])
+def test_dft_level_kernel_on_a_forced_five_level_chain(device, modulus, n, count, monkeypatch):
+    """Kernel 1 at every level of a transform split into levels of 4
+    (`ntt.MAX_LEVEL_BITS` lowered to 2): five levels at n = 2^10 and six at
+    2^12, factored twiddles wherever rest > 4.  Each level is fed as the
+    transform feeds it, the strided view [planes, pre, m, r] of the previous
+    level's output, in both input forms (int32 limbs, which the kernel
+    encodes, and int8 digit planes), limbs and digits out, against
+    run_dft_level_ref; then the whole transform against the plain chain."""
+    from genstark_tpu_torch import kernels, ntt
+    from genstark_tpu_torch.ntt import DftPlan, dft
+    monkeypatch.setattr(ntt, "MAX_LEVEL_BITS", 2)
+    ntt.dft_levels.cache_clear()
+    try:
+        field = create_prime_field(modulus)
+        dev = field.device_field(device)
+        plan = DftPlan(field, dev, n, field.get_root_of_unity(n),
+                       field.inv(field.params.R_mod % modulus))
+    finally:
+        ntt.dft_levels.cache_clear()
+    assert plan.levels == (4,) * count
+    assert sum(tw is not None and "a" in tw for tw in plan.tws) == count - 2   # rest > 4
+    x = dev.from_numpy(_elements(np.random.default_rng(n), modulus, dev.L, n))
+    limbs, pre, rest = x, 1, n
+    for lvl, m in enumerate(plan.levels):
+        rest //= m
+        tw = plan.tws[lvl] if rest > 1 else None
+        view = lambda t: t.reshape(t.shape[0], pre, m, rest)
+        for given in (view(limbs), view(dft.encode_digits(limbs))):
+            for out_digits in (False, True):
+                args = (dev, plan.w8s[lvl], given, m, rest, tw, out_digits)
+                assert torch.equal(kernels.dft_level(*args), dft.run_dft_level_ref(*args)), \
+                    (lvl, given.dtype, out_digits)
+        limbs = kernels.dft_level(dev, plan.w8s[lvl], view(limbs), m, rest, tw, False)
+        limbs = limbs.reshape(dev.L, m * pre, rest)
+        pre *= m
+    got = ntt.transform(dev, x.reshape(1, dev.L, n), plan)
+    monkeypatch.setattr(dft, "run_dft_level", dft.run_dft_level_ref)
+    want = ntt.transform(dev, x.reshape(1, dev.L, n), plan)
+    assert torch.equal(got, want)
+    # the last level's [L, k_q, (k_q-1, ..., k_1)] is the transform's order
+    assert torch.equal(limbs.reshape(dev.L, n), got[0])
+
+
 def _tail_case(device, modulus, case):
     from genstark_tpu_torch.field.limbs import power_series_mont_np
     field = create_prime_field(modulus)
