@@ -3,14 +3,19 @@ kernels on field.cuh's one word product with no register spill), checks
 each against its plain torch version on the card, the field kernels at
 every limb count with 0, 1 and p - 1 among their inputs (and the batched
 inverse, built on kernel 5, against its plain version), and every kernel
-of the large paths at their largest shapes (MiMC-256 at Ne = 2^24, L = 16;
-MiMC-128 at Ne = 2^25, L = 8, with kernel 1 at every level of the 2^24- and
-2^25-point LDEs and of the 2^20- and 2^21-point iNTTs); measures the card's
+of the large paths at their largest shapes (MiMC-256 at Ne = 2^24, L = 16,
+with kernel 1 at every level of the 2^22- and 2^24-point LDEs; MiMC-128 at
+Ne = 2^25, L = 8, with kernel 1 at every level of the 2^24- and 2^25-point
+LDEs and of the 2^20- and 2^21-point iNTTs; MiMC over P64 at Ne = 2^22, L =
+4, with kernel 8 and the stage passes); times the P256 LDE transforms of
+2^22 and 2^24 points on the digit route and on the radix-2 route; measures the card's
 ceilings with the two probe kernels; proves the pinned toy proofs (the
-division AIR among them), the bench configuration (MiMC-128, 2^13 steps,
-secret input 3), MiMC-256 at 2^13 steps (the radix-2 path) and MiMC-256 at
-2^18 and 2^20 steps (the large-domain path: direct radix-2 route with the
-stage kernels), MiMC-128 up the JAX package's ladder on the digit route (2^17
+division AIR among them, and MiMC over 2^64 - 2^32 + 1, kernel 1 at L = 4),
+the bench configuration (MiMC-128, 2^13 steps, secret input 3), MiMC-256 at
+2^13, 2^18 and 2^20 steps (the digit route at L = 16, as the JAX package
+routes every solinas field), MiMC over P64 at 2^18 steps (the large-domain
+radix-2 path: the direct route with the stage kernels, one-fetch, staged
+and four-step), MiMC-128 up the JAX package's ladder on the digit route (2^17
 steps against the port's CPU pin; 2^20 steps, the north star, whose
 one-fetch, staged and sharded proofs must agree; 2^21 steps, Ne = 2^25, five
 DFT levels of 32), the reference's Rescue and Poseidon Merkle-proof
@@ -62,7 +67,9 @@ P128_PIN = (7329, "3fa3bc9f84d3505912258df9974587b18b35619116a2787786b3beacd3cc4
 # the JAX package's proof on the CPU (tests/test_torch_prover.py recomputes it).
 BENCH_PIN = (97254, "3143467fcd3034ebdc758ce12b9501aa4b5f1c7efa57d5df8beaf153403fd928")
 BENCH_STEPS = 2 ** 13
-# Kernels the bench, each MiMC-128 path and its sharded ranks must launch.
+# Kernels the bench, each MiMC-128 and MiMC-256 path (the digit route: P256
+# takes it at every size, as the JAX package routes every modulus its
+# solinas_spec takes) and their sharded ranks must launch.
 BENCH_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
                  "outer_table", "sample_queries")
 TOY = {"extension_factor": 4, "exe_query_count": 8, "fri_query_count": 6}
@@ -71,6 +78,12 @@ TOY = {"extension_factor": 4, "exe_query_count": 8, "fri_query_count": 6}
 # P64 (tests/test_torch_prover_fields.py holds the same pins).
 P256_64_PIN = (40300, "aeca982219743b04f13dd8b6be2b855f951bb16fd4c837f841d62af059265be4")
 P64_64_PIN = (4614, "8f2cc12a4eea675682570374637c919519eb1c5628201c0d5b99a9a5892f6fe9")
+# MiMC over 2^64 - 2^32 + 1 (Plonky2's "Goldilocks" prime, the digit route
+# at L = 4), 64 steps, 64 constants, the toy options with blake2s256, secret
+# input 3: the JAX package's proof on the CPU
+# (tests/test_torch_digit_wide.py holds the port to it; its slow test
+# recomputes it).
+GOLDILOCKS_64_PIN = (5094, "90fc6d5ed4e181f7164c64d1cfc3c79bb7c377a25e512823e1a6d79bc5ec4b74")
 # The division AIR (examples/mimc_torch.make_div_stark: a constraint that
 # divides by a register), P128, 64 steps, the toy options, seed 3: the JAX
 # package's proof on the CPU (tests/test_torch_inv.py recomputes it); equal to
@@ -85,6 +98,13 @@ MIMC256_PIN = (118019, "da7b087ffccb38cf15a6bafd33a0905c30dddd81881229018dc3f6a3
 # P256`, which prints its time and peak host memory).
 LARGE_STEPS = 2 ** 18
 LARGE_PIN = (197428, "77ac03bf41603b6dc55ee72ec00680901a5d0d8929cf792f2b7a61268ca8ad2f")
+# MiMC over P64 (not of solinas form: the radix-2 route, where the JAX
+# package also runs its radix-2 kernels) at 2^18 steps, the bench options,
+# secret input 3 (Ne = 2^22, the direct route's stage kernels 7/9 and kernel
+# 8): the port's proof from its plain versions on the CPU (`python -m
+# examples.mimc_torch 262144 cpu P64`; tests/test_torch_digit_wide.py's slow
+# test recomputes it).
+MIMC64_18_PIN = (148598, "3dfb7dbd57b47a767d57ba35cb708fce4f969ec2d8a30ebce0e9a6e43ad0ed07")
 # One more rung at 2^20 steps (Ne = 2^24): no pin; each kernel it launches is
 # held against its plain version at its largest shapes, and three proves
 # must agree.
@@ -108,14 +128,12 @@ LADDER_17_PIN = (147726, "196baca816715b912220583b99f484afade3b63745aaf6ee213369
 # MiMC-128 at 2^20 steps against the one-fetch prove's bytes of the same
 # call (pin None); one rank over nccl proves the bench.  (label, steps,
 # modulus name, pin, kernels the path must launch on every rank: its
-# transforms are local ones of at most 4096 points, kernel 1's levels or
-# kernel 8.)
+# transforms are local ones of at most 4096 points, kernel 1's levels on
+# every path.)
 SHARDED_RANKS = 4
 SHARDED_TIMEOUT_S = 600.0
 SHARDED_PATHS = (("bench", 2 ** 13, "P128", BENCH_PIN, BENCH_KERNELS),
-                 ("mimc256-2^18", LARGE_STEPS, "P256", LARGE_PIN,
-                  ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
-                   "outer_table", "sample_queries")),
+                 ("mimc256-2^18", LARGE_STEPS, "P256", LARGE_PIN, BENCH_KERNELS),
                  ("mimc128-2^20", 2 ** 20, "P128", None, BENCH_KERNELS))
 # distributed_ntt / distributed_intt against the single-device ntt
 DIST_NTT_SIZES = (("P128", 2 ** 17), ("P256", LARGE_N), ("P128", 2 ** 24))
@@ -159,11 +177,15 @@ DEMO_STEPS = 64
 DEMO_PIN = (6744, "5b934baaabb63a82243317f415cd033047af8f07860844e1453811a611dcc5b4")
 DEMO_MODULUS = 96769
 
-# Kernels each other main path must launch.
-MIMC256_KERNELS = ("hash_words", "hash_limbs", "lcomb_tail", "field_ew", "outer_table",
-                   "butterfly", "sample_queries")
-LARGE_KERNELS = ("bfly_stage", "bfly_stage_split", "butterfly", "field_ew", "outer_table",
-                 "hash_words", "hash_limbs", "lcomb_tail", "sample_queries")
+# Kernels each other main path must launch.  MiMC over P64 at 2^18 steps
+# keeps the direct radix-2 route (kernels 8, 7 and 9), where the JAX package
+# also runs its radix-2 kernels.
+RADIX2_LARGE_KERNELS = ("bfly_stage", "bfly_stage_split", "butterfly", "field_ew",
+                        "outer_table", "hash_words", "hash_limbs", "lcomb_tail",
+                        "sample_queries")
+# A path runs one transform route: one that requires kernel 1 launches none
+# of these, one that requires kernel 8 launches no kernel 1.
+RADIX2_KERNELS = ("butterfly", "bfly_stage", "bfly_stage_split")
 PROBE_KERNELS = ("mont_chain", "u32_chain")
 # The limb counts of the port's fields (P32, P64, P128, P224, P256).
 FIELD_LIMBS = (2, 4, 8, 14, 16)
@@ -176,17 +198,20 @@ def mangled(name: str, *args: int) -> str:
 
 
 # Every instantiation moved to the word product in one piece: kernel 5 at K
-# = L/2 for mul, add and sub, kernels 8 and 7/9 at L, kernel 10 at K.  Each
+# = L/2 for mul, add and sub, kernels 8 and 7/9 at L, kernel 10 at K.  And
+# kernel 1 at every limb count (k steps KS = 1 and 2 a slice, KS = 1 alone
+# at L >= 14, csrc/dft_level.cu), whose A fragments stay in registers.  Each
 # must be in the build's register report, without a spill.
 WORD_KERNELS = tuple(
     [mangled("field_ew_kernel", L // 2, op) for L in FIELD_LIMBS for op in (0, 1, 2)]
     + [mangled(k, L) for k in ("butterfly_kernel", "butterfly_stages_kernel")
        for L in FIELD_LIMBS]
-    + [mangled("mont_chain_kernel", L // 2) for L in FIELD_LIMBS])
+    + [mangled("mont_chain_kernel", L // 2) for L in FIELD_LIMBS]
+    + [mangled("dft_level_kernel", L, ks) for L in FIELD_LIMBS
+       for ks in ((1,) if L >= 14 else (1, 2))])
+# The Merkle paths (p128) and the P224 paths (lib224-merkle-8, pointmul).
 MERKLE_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
                   "sample_queries")
-P224_KERNELS = ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
-                "sample_queries")
 # the division AIR's constraint divides by a register: its proves run inv,
 # whose total is inverted by kernel A
 DIV_KERNELS = ("dft_level", "hash_words", "field_ew", "sample_queries", "mont_inv")
@@ -195,8 +220,8 @@ FIB_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew"
 DEMO_KERNELS = ("butterfly", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
                 "sample_queries")
 # The staged prover forms every table by power_series and every field op on
-# kernel 5, commits with kernels 2 and 3, and transforms with kernel 1 (p32,
-# p128) or kernel 8 (every other field at these sizes); it samples on the
+# kernel 5, commits with kernels 2 and 3, and transforms with kernel 1 (the
+# solinas fields) or kernel 8 (P64 and the demo field); it samples on the
 # host, so no kernel B, and forms C(x) and L(x) without kernel 4.
 STAGED_DIGIT = ("dft_level", "hash_words", "hash_limbs", "field_ew")
 STAGED_RADIX2 = ("butterfly", "hash_words", "hash_limbs", "field_ew")
@@ -257,6 +282,18 @@ def phase(name: str) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def check_launches(label: str, launches: dict, required) -> None:
+    """Every kernel of `required` launched, and the path ran one transform
+    route: kernel 1 and no radix-2 kernel where it requires kernel 1, no
+    kernel 1 where it requires kernel 8."""
+    missing = [k for k in required if launches.get(k, 0) == 0]
+    require(not missing, f"{label}: kernels of the path never launched: {missing}")
+    other = RADIX2_KERNELS if "dft_level" in required else (
+        ("dft_level",) if "butterfly" in required else ())
+    stray = {k: launches[k] for k in other if launches.get(k, 0)}
+    require(not stray, f"{label}: launched kernels of the other transform route: {stray}")
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -340,16 +377,18 @@ def random_elements(rng, modulus: int, L: int, n: int):
 
 
 def check_dft(dev, field, rng, results):
-    """Kernel 1 at the levels of the main path's 2^17-point transform, in
-    every twiddle mode, limbs and digits out, digits in; level 0 also with
-    limbs in, as the transform's strided view (the main path's form).  The
-    reported time is the main path's three levels (device time, and event
-    means); beside it torch._int_mm on the stacked digit product of each
-    level, a yardstick for the multiply-adds alone (it does not compute the
-    level)."""
+    """Kernel 1 at the levels of a 2^17-point transform (factored, direct
+    and no twiddle), limbs and digits out, digits in; level 0 also with
+    limbs in, as the transform's strided view (the main path's form); 0, 1
+    and p - 1 among every level's inputs.  Run for every limb count kernel
+    1 is built for.  At p128 the reported time is the main path's three
+    levels (device time, and event means); beside it torch._int_mm on the
+    stacked digit product of each level, a yardstick for the multiply-adds
+    alone (it does not compute the level)."""
     import torch
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.ntt import DftPlan, dft
+    from genstark_tpu_torch.testing import plant
     n = 2 ** 17
     plan = DftPlan(field, dev, n, field.get_root_of_unity(n), 1)
     rest = n
@@ -362,7 +401,8 @@ def check_dft(dev, field, rng, results):
     for lvl, m in enumerate(plan.levels):
         rest //= m
         cols = n // m
-        x = dev.from_numpy(random_elements(rng, field.modulus, L, m * cols)).reshape(L, m, cols)
+        x = dev.from_numpy(plant(field, random_elements(rng, field.modulus, L, m * cols),
+                                 [0, 1, field.modulus - 1], 0)).reshape(L, m, cols)
         x8 = dft.encode_digits(x).contiguous()
         tw = plan.tws[lvl] if rest > 1 else None
         mode = "none" if tw is None else ("direct" if "p" in tw else "factored")
@@ -377,8 +417,8 @@ def check_dft(dev, field, rng, results):
                 e = max_abs_err(kernels.dft_level(*args), want)
                 km = cuda_ms(lambda: kernels.dft_level(*args))
                 dm = device_ms(lambda: kernels.dft_level(*args))
-                print(f"dft_level p{field.modulus.bit_length()} m={m} cols={cols} rest={rest} "
-                      f"{mode} {kind} in, {'digits' if out_digits else 'limbs'} out: "
+                print(f"dft_level p{field.modulus.bit_length()} (L = {L}) m={m} cols={cols} "
+                      f"rest={rest} {mode} {kind} in, {'digits' if out_digits else 'limbs'} out: "
                       f"max_abs_err={e} kernel {km:.4f} ms (device {fmt_ms(dm)}) "
                       f"plain {pm:.4f} ms", flush=True)
                 require(e == 0, "dft_level kernel != plain version")
@@ -475,15 +515,19 @@ def check_dft_chain(device, field, plan, label: str, results, rates=None):
     previous level's int8 digit planes as the view [D, pre, m, r] (the
     kernel's output, once it has equalled the plain version's); each level's
     twiddle (none, direct, or factored at its rest); digits out but at the
-    last level.  Each level against `plain_level`, tolerance 0.  With
-    `rates`, each level's time beside its bound (`large_ms`); returns
-    (events ms, device ms, bound ms) summed over the levels, or None without
-    rates."""
+    last level; 0, 1 and p - 1 among the transform's inputs.  Each level
+    against `plain_level`, tolerance 0.  With `rates`, each level's time
+    beside its bound (`large_ms`); returns (events ms, device ms, bound ms)
+    summed over the levels, or None without rates."""
+    import torch
     from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.field.limbs import ints_to_limbs
     dev = field.device_field(device)
     L, n, q = dev.L, plan.n, len(plan.levels)
     folds = solinas_fold_mults(field.modulus)
     cur = device_elements(device, 50 + n.bit_length(), field.modulus, L, n)
+    cur[:, :3] = torch.as_tensor(ints_to_limbs([0, 1, field.modulus - 1], L).astype("int32"),
+                                 device=device)
     pre, rest, total = 1, n, [0.0, 0.0, 0.0]
     for lvl, m in enumerate(plan.levels):
         rest //= m
@@ -1525,6 +1569,48 @@ def check_large_transforms(kernels, device, field, rng) -> None:
         torch.cuda.empty_cache()
 
 
+def check_route_times(kernels, device, field, smi_line: str) -> dict:
+    """The LDE transforms of the mimc256-2^18 and -2^20 paths (LARGE_N and
+    4 LARGE_N P256 points, R^-1 folded, one [1, L, n] polynomial) on both
+    routes in this one call: the plan `make_plan` gives (the digit route,
+    kernel 1) and a `Radix2Plan` built directly (the direct route: kernel
+    8 and the stage passes).  Both equal; each timed by CUDA events (the
+    wrapper's torch ops included) and by its port kernels' device time
+    (`large_ms`).  Prints and returns {"2^k": {route: {...}}}."""
+    import torch
+    from genstark_tpu_torch.ntt import DftPlan, make_plan, radix2, transform
+    dev = field.device_field(device)
+    L, p = dev.L, field.modulus
+    r_inv = field.inv(field.params.R_mod % p)
+    out = {}
+    for n in (LARGE_N, 4 * LARGE_N):
+        root = field.get_root_of_unity(n)
+        plans = {"digit": make_plan(field, dev, n, root, r_inv),
+                 "radix2": radix2.Radix2Plan(field, dev, n, root, r_inv)}
+        require(isinstance(plans["digit"], DftPlan),
+                f"make_plan gave P256 a {type(plans['digit']).__name__}")
+        x = device_elements(device, 70 + n.bit_length(), p, L, 1, n).transpose(0, 1).contiguous()
+        e = max_abs_err(transform(dev, x, plans["digit"]), transform(dev, x, plans["radix2"]))
+        require(e == 0, f"P256 {n}-point LDE: the digit and radix-2 routes disagree")
+        row = {"max_abs_err": e}
+        for name, plan in plans.items():
+            kernels.reset_launch_counts()
+            transform(dev, x, plan)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in kernels.launch_counts.items() if v}
+            em, dm = large_ms(lambda: transform(dev, x, plan))
+            shape = list(plan.levels) if name == "digit" else [plan.route, plan.passes]
+            row[name] = {"ms": em, "device_ms": dm, "launches": launches, "shape": shape}
+            print(f"P256 {n}-point LDE (R^-1 folded) on the {name} route {shape}: events "
+                  f"{em:.4f} ms, port kernels' device time {fmt_ms(dm)}; launches {launches}",
+                  flush=True)
+        out[f"2^{n.bit_length() - 1}"] = row
+        del plans, x
+        torch.cuda.empty_cache()
+    print(json.dumps({"p256_routes": out, "device": smi_line}), flush=True)
+    return out
+
+
 def device_elements(device, seed: int, modulus: int, L: int, *shape):
     """int32 [L, *shape] canonical limbs made on the card from `seed`
     (random_elements' rule: the top limb below the modulus's top limb)."""
@@ -1544,16 +1630,17 @@ def chunked_err(got, plain, n: int, chunk: int = 1 << 21) -> int:
                for i0 in range(0, n, chunk))
 
 
-def ladder_plans(field, dev):
-    """(label, DftPlan) of the two transforms of the ladder's 2^20- and
-    2^21-step paths that carry a level-1 scale, as the prover makes them
+def ladder_plans(field, dev, steps=LADDER_STEPS[1:]):
+    """(label, DftPlan) of the two transforms of each path of `steps` (by
+    default the ladder's 2^20- and 2^21-step paths; the MiMC-256 paths'
+    2^18 and 2^20) that carry a level-1 scale, as the prover makes them
     (`Prover._plan_specs`): the LDE to Ne = 16 T with R^-1 folded
     ("w_Ne_std": four levels of 64 at 2^24, five of 32 at 2^25) and the
     trace's iNTT with T^-1 folded ("w_T_inv")."""
     from genstark_tpu_torch.ntt import DftPlan
     f, p = field.host, field.modulus
     plans = []
-    for T in reversed(LADDER_STEPS[1:]):
+    for T in reversed(steps):
         Ne = 16 * T
         plans.append((f"LDE 2^{Ne.bit_length() - 1} (R^-1)", DftPlan(
             field, dev, Ne, f.get_root_of_unity(Ne), f.inv(field.params.R_mod % p))))
@@ -1573,10 +1660,11 @@ def check_largest_shapes(device, field, Ne: int, results, rates=None, dft_plans=
     the Ne leaves of two vectors and the first FRI layer's Ne/4 rows; kernel
     2 over the e-tree's first level (Ne/2 pairs); kernel 4 at Ne with the
     prover's split s; kernel B at the path's query sets (48 positions over
-    Ne, 24 over each FRI layer's Ne/4^k).  On the digit route (p32, p128),
-    kernel 1 at every level of each plan of `dft_plans` ((label, DftPlan):
-    `check_dft_chain`); on the radix-2 route, kernel 8's bit-reversed pass
-    and the direct route's stage passes over [2, L, Ne].  The plain versions
+    Ne, 24 over each FRI layer's Ne/4^k).  On the digit route (every
+    solinas field), kernel 1 at every level of each plan of `dft_plans`
+    ((label, DftPlan): `check_dft_chain`); on the radix-2 route, kernel 8's
+    bit-reversed pass and the direct route's stage passes over [2, L, Ne].
+    The plain versions
     run on column (or block) chunks where an output column reads only its
     own input columns; kernel 6's and the stages' plain versions run whole.
     With `rates`, the time of kernels 1-6 at these shapes, whose operands
@@ -1643,7 +1731,8 @@ def check_largest_shapes(device, field, Ne: int, results, rates=None, dft_plans=
     note("hash_limbs", err, f"{Ne} leaves of [2, {L}, {Ne}], {M} stride-4 rows")
     timed("hash_limbs", lambda: h.merge_element_rows(e_std, elem), limbs_cost(2, L, Ne))
     timed("hash_limbs rows", lambda: h.digest_stride_rows(a, elem), limbs_cost(4, L, M))
-    words = a.reshape(-1)[:16 * (Ne // 2)].view(16, Ne // 2)        # [16, Ne/2] words
+    # [16, Ne/2] words: a's limbs where L >= 8, else 8 / L fresh vectors
+    words = (a if L >= 8 else rnd(8 // L, Ne)).reshape(-1)[:16 * (Ne // 2)].view(16, Ne // 2)
     note("hash_words", chunked_err(kernels.hash_words(algo, words, 64),
                                    lambda i0, i1: digest_rows_ref(algo, words[:, i0:i1], 64),
                                    Ne // 2, chunk), f"{Ne // 2} 64-byte pairs")
@@ -1914,16 +2003,18 @@ def require_native(stark, label: str) -> float:
 
 
 def run_main_path(kernels, stark, assertions, inputs, pin, required, label: str,
-                  sync_log: dict, spread: int = 20, public=None):
+                  sync_log: dict, spread: int = 20, public=None, stats: dict = None):
     """One main path: a warm-up prove (with the g++ build of the schema's
     trace generator); the launch counts set to 0, one prove checked against
     its pin (where there is one), the counts and the peak device memory
-    read; the proof parsed, re-serialized and verified (verify_ms best of 5);
+    read, every plain version's calls counted (there must be none); the
+    proof parsed, re-serialized and verified (verify_ms best of 5);
     best of 5 and the spread of `spread` proves with each prove's native
     trace seconds; the synchronizing calls of one warm prove and the
     host-sampled fallbacks (`check_one_fetch`, into sync_log); one profiled
-    prove.  Returns (launches, proof bytes, the profile's port kernel
-    totals)."""
+    prove (its wall, device time and busy share, with the best and median
+    prove seconds, into `stats` where given).  Returns (launches, proof
+    bytes, the profile's port kernel totals)."""
     import torch
     from genstark_tpu_torch.native import tracegen
     built = dict(tracegen.build_seconds)
@@ -1936,19 +2027,21 @@ def run_main_path(kernels, stark, assertions, inputs, pin, required, label: str,
           f"warm-up trace {require_native(stark, label):.6f} s", flush=True)
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    data = stark.serialize(stark.prove(assertions, inputs))
+    with plain_calls() as plain:
+        data = stark.serialize(stark.prove(assertions, inputs))
     launches = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     require_native(stark, label)
     got = proof_digest(data)
     print(f"{label} proof: {got[0]} bytes sha256 {got[1]}", flush=True)
-    print(f"{label} launches in one prove: {launches}", flush=True)
+    print(f"{label} launches in one prove: {launches}; plain-version calls {plain or 0}",
+          flush=True)
+    require(not plain, f"{label}: the prove on the card ran plain versions {plain}")
     print(f"{label} peak device memory in one prove: {peak} bytes ({peak / 2 ** 30:.3f} GiB)",
           flush=True)
     if pin is not None:
         require(got == pin, f"{label} proof differs from its pin {pin}")
-    missing = [k for k in required if launches[k] == 0]
-    require(not missing, f"{label}: kernels of the path never launched: {missing}")
+    check_launches(label, launches, required)
     verify_proof(stark, assertions, data, public, label, reps=5)
     times, traces = [], []
     for _ in range(spread):
@@ -1967,17 +2060,22 @@ def run_main_path(kernels, stark, assertions, inputs, pin, required, label: str,
     print(f"{label} prove seconds: {[round(t, 6) for t in times]}", flush=True)
     check_one_fetch(kernels, stark, lambda: stark.prove(assertions, inputs), label, sync_log)
     phase(f"{label}: where the time goes (torch.profiler, one prove)")
-    return launches, data, profile_prove(stark, assertions, inputs)
+    if stats is not None:
+        stats.update(best_s=min(times[:5]), median_s=ranked[len(ranked) // 2], peak_bytes=peak)
+    totals = profile_prove(stark, assertions, inputs, stats)
+    if stats is not None:
+        stats["port_kernels_ms"] = {short: [us / 1e3, n] for short, (us, n) in totals.items()}
+    return launches, data, totals
 
 
-def four_step_proof(device, steps: int) -> bytes:
-    """The same MiMC-256 proof on a fresh Stark whose transforms all take
-    the four-step route (the direct route's threshold raised past Ne while
-    its plans are made, at the first prove)."""
+def four_step_proof(device, steps: int, modulus: int) -> bytes:
+    """The same MiMC proof over a radix-2 field (P64) on a fresh Stark
+    whose transforms all take the four-step route (the direct route's
+    threshold raised past Ne while its plans are made, at the first
+    prove)."""
     from mimc_torch import make_mimc_stark
-    from genstark_tpu_torch.field import P256
     from genstark_tpu_torch.ntt import radix2
-    stark, constants = make_mimc_stark(steps, device, modulus=P256)
+    stark, constants = make_mimc_stark(steps, device, modulus=modulus)
     saved = radix2.DIRECT_ABOVE
     radix2.DIRECT_ABOVE = steps * stark.air.extension_factor            # Ne
     try:
@@ -1993,8 +2091,8 @@ def four_step_proof(device, steps: int) -> bytes:
 
 
 def run_largest(kernels, stark, assertions, required, label: str, sync_log: dict, pin=None):
-    """A large MiMC path (MiMC-256 at 2^20 steps on the radix-2 route, or
-    MiMC-128 up the JAX package's ladder on the digit route): a warm-up,
+    """A large MiMC path (MiMC-256 at 2^20 steps, or MiMC-128 up the JAX
+    package's ladder, both on the digit route): a warm-up,
     then three proves, the launch counts set to 0 before the first and
     read after it, every plain version's calls counted (there must be
     none), each prove's peak device memory and native trace seconds; the
@@ -2037,8 +2135,7 @@ def run_largest(kernels, stark, assertions, required, label: str, sync_log: dict
         require(got == pin, f"{label} proof differs from its pin {pin}")
     require(not plain, f"{label}: the prove on the card ran plain versions {plain}")
     verify_ms = verify_proof(stark, assertions, datas[0], None, label, reps=3)
-    missing = [k for k in required if launches[k] == 0]
-    require(not missing, f"{label}: kernels of the path never launched: {missing}")
+    check_launches(label, launches, required)
     check_one_fetch(kernels, stark, lambda: stark.prove(assertions, [[3]]), label, sync_log)
     phase(f"{label}: where the time goes (torch.profiler, one prove)")
     stats = {"prove_s": times, "best_s": min(times), "median_s": median(times),
@@ -2297,9 +2394,8 @@ def run_sharded(device, results, smi_line: str, expected: dict) -> dict:
                       flush=True)
                 require(got == pin, f"sharded {label} {path_label} rank {r['rank']}: proof "
                         f"differs from its pin {pin}")
-                missing = [k for k in required if row["launches"][k] == 0]
-                require(not missing, f"sharded {label} {path_label} rank {r['rank']}: kernels "
-                        f"of the path never launched: {missing}")
+                check_launches(f"sharded {label} {path_label} rank {r['rank']}",
+                               row["launches"], required)
                 require(not any(row["plain_calls"].values()),
                         f"sharded {label} {path_label}: plain versions called {row['plain_calls']}")
                 require(row["host_fallbacks"] == 0,
@@ -2368,8 +2464,7 @@ def run_staged(kernels, stark, assertions, inputs, pin, required, label: str,
     require(data == fused, f"{label}: prove_staged and prove gave different bytes")
     if pin is not None:
         require(got == pin, f"{label} staged proof differs from its pin {pin}")
-    missing = [k for k in required if launches[k] == 0]
-    require(not missing, f"{label}: kernels of the staged path never launched: {missing}")
+    check_launches(f"{label} staged", launches, required)
     verify_proof(stark, assertions, data, public, f"{label} staged")
     times = {"prove": [], "prove_staged": []}
     for _ in range(reps):
@@ -2511,7 +2606,8 @@ def main() -> int:
 
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
-    from genstark_tpu_torch.ntt import dft_levels
+    from genstark_tpu_torch.ntt import DftPlan, dft_levels
+    from genstark_tpu_torch.testing import GOLDILOCKS
     sys.path.insert(0, os.path.join(HERE, "examples"))
     from mimc_torch import make_mimc_stark, prove_div, prove_mimc, round_constants
     from examples import (demo_static_torch, elliptic_torch, fibonacci_torch,
@@ -2526,7 +2622,8 @@ def main() -> int:
         print(f"ptxas: {name}: {report}", flush=True)
     # the butterflies, kernel 5 and kernel 10 on the word product: a spill
     # there is a fault (K words need fewer registers than the 2L + 1
-    # accumulators of a 16-bit-limb product)
+    # accumulators of a 16-bit-limb product); so is one in kernel 1, whose
+    # A fragments must stay in registers at every L
     for part in WORD_KERNELS:
         found = [report for name, report in reports if part in name]
         require(found, f"{part} is not in the build's register report")
@@ -2569,6 +2666,9 @@ def main() -> int:
     dev128, dev32 = f128.device_field(device), f32.device_field(device)
     check_dft(dev128, f128, rng, results)
     check_dft(dev32, f32, rng, results)
+    wide_digit = [create_prime_field(m) for m in (GOLDILOCKS, P224, P256)]
+    for field in wide_digit:          # kernel 1 at L = 4, 14 and 16
+        check_dft(field.device_field(device), field, rng, results)
     check_hash_words(dev128, rng, results)
     check_hash_limbs(dev128, f128, rng, results)
     check_tail(dev128, f128, rng, results)
@@ -2601,14 +2701,39 @@ def main() -> int:
     phase("kernels 1, 3, 4 and 6: device time at the main paths' shapes (torch.profiler)")
     print(json.dumps({"kernel_times": kernel_times(device, rates)}), flush=True)
 
-    phase(f"large transforms: P256 at {LARGE_N} points by three routes, 2x and 4x round trips")
+    phase(f"large transforms: P256 at {LARGE_N} points by three radix-2 routes, 2x and 4x "
+          f"round trips")
     check_large_transforms(kernels, device, f256, rng)
 
+    phase(f"the P256 LDEs of {LARGE_N} and {4 * LARGE_N} points on the digit route and on the "
+          f"radix-2 route, in this one call")
+    route_times = check_route_times(kernels, device, f256, smi_line)
+
+    phase("kernel 1 at every level of a 2^20-point LDE (R^-1) over 2^64 - 2^32 + 1 and P224")
+    for field in wide_digit[:2]:
+        n = 2 ** 20
+        check_dft_chain(device, field, DftPlan(
+            field, field.device_field(device), n, field.get_root_of_unity(n),
+            field.inv(field.params.R_mod % field.modulus)),
+            f"p{field.modulus.bit_length()} LDE 2^20 (R^-1)", results)
+
     phase(f"kernels vs plain versions at the {LARGEST_STEPS}-step path's largest shapes "
-          f"(Ne = {4 * LARGE_N}, [2, 16, Ne] operands)")
+          f"(Ne = {4 * LARGE_N}, [2, 16, Ne] operands; kernel 1 at every level of the LDE and "
+          f"the iNTT of the {LARGE_STEPS}- and {LARGEST_STEPS}-step paths)")
     t0 = time.monotonic()
-    check_largest_shapes(device, f256, 4 * LARGE_N, results)
+    mimc256_times = check_largest_shapes(device, f256, 4 * LARGE_N, results, rates,
+                                         ladder_plans(f256, dev256, (LARGE_STEPS, LARGEST_STEPS)))
+    print(json.dumps({"mimc256_kernel_times": {
+        k: {"ms": v[0], "device_ms": v[1], "bound_ms": v[2], "bound_by": v[3]}
+        for k, v in mimc256_times.items()}, "device": smi_line}), flush=True)
     print(f"largest-shape checks {time.monotonic() - t0:.1f} s", flush=True)
+
+    phase(f"kernels vs plain versions at the mimc64-2^18 path's shapes (P64, Ne = {LARGE_N}, "
+          f"[2, 4, Ne] operands: kernel 8's bit-reversed pass and the stage passes)")
+    t0 = time.monotonic()
+    f64 = all_fields[1]
+    check_largest_shapes(device, f64, LARGE_N, results)
+    print(f"mimc64 shape checks {time.monotonic() - t0:.1f} s", flush=True)
 
     phase(f"kernels vs plain versions at the MiMC-128 ladder's largest shapes (Ne = "
           f"{16 * LADDER_STEPS[-1]}, [2, 8, Ne] operands; kernel 1 at every level of the "
@@ -2638,8 +2763,7 @@ def main() -> int:
     div_stark, data = prove_div(64, device)
     div_launches = dict(kernels.launch_counts)
     div_products = div_launches["field_ew"]
-    missing = [k for k in DIV_KERNELS if div_launches[k] == 0]
-    require(not missing, f"division AIR: kernels of the path never launched: {missing}")
+    check_launches("division AIR", div_launches, DIV_KERNELS)
     require_native(div_stark, "division AIR")
     div_assertions = toy_assertions(div_stark, 16)
     verify_proof(div_stark, div_assertions, data, None, "division AIR")
@@ -2656,15 +2780,20 @@ def main() -> int:
     require(plain == data, "division AIR proof != plain MiMC's over the same constants")
     require(div_products > kernels.launch_counts["field_ew"],
             "the division AIR's prove launched no more products than plain MiMC's")
-    for modulus, options, pin in ((P256, None, P256_64_PIN), (P64, TOY, P64_64_PIN)):
+    for label, modulus, options, pin, required in (
+            ("p256", P256, None, P256_64_PIN, ("dft_level",)),
+            ("p64", P64, TOY, P64_64_PIN, ("butterfly",)),
+            ("goldilocks", GOLDILOCKS, TOY, GOLDILOCKS_64_PIN, ("dft_level",))):
+        kernels.reset_launch_counts()
         stark, data = prove_mimc(64, device, modulus=modulus, options=options)
+        launches = dict(kernels.launch_counts)
         require_native(stark, "toy")
         got = proof_digest(data)
-        print(f"p{modulus.bit_length()} secret-input pin: {got[0]} bytes sha256 {got[1]}",
-              flush=True)
-        require(got == pin, f"p{modulus.bit_length()} proof differs from its pin {pin}")
-        verify_proof(stark, toy_assertions(stark, 64), data, None,
-                     f"p{modulus.bit_length()} secret-input pin")
+        print(f"{label} secret-input pin: {got[0]} bytes sha256 {got[1]}; transform launches "
+              f"{ {k: launches[k] for k in ('dft_level',) + RADIX2_KERNELS} }", flush=True)
+        require(got == pin, f"{label} proof differs from its pin {pin}")
+        check_launches(f"{label} toy", launches, required)
+        verify_proof(stark, toy_assertions(stark, 64), data, None, f"{label} secret-input pin")
 
     def mimc_path(steps, modulus=P128):
         stark, constants = make_mimc_stark(steps, device, modulus=modulus)
@@ -2674,10 +2803,11 @@ def main() -> int:
     bench_launches, _, bench_totals = run_main_path(
         kernels, *mimc_path(BENCH_STEPS), BENCH_PIN, BENCH_KERNELS, "bench", sync_log)
 
-    phase(f"MiMC-256: P256, {BENCH_STEPS} steps, secret input 3 (radix-2 path)")
+    phase(f"MiMC-256: P256, {BENCH_STEPS} steps, secret input 3 (the digit route, L = 16)")
+    digit256 = {"mimc256": {}, "mimc256-2^18": {}}
     mimc256_launches, _, mimc256_totals = run_main_path(
-        kernels, *mimc_path(BENCH_STEPS, P256), MIMC256_PIN, MIMC256_KERNELS, "mimc256",
-        sync_log)
+        kernels, *mimc_path(BENCH_STEPS, P256), MIMC256_PIN, BENCH_KERNELS, "mimc256",
+        sync_log, stats=digit256["mimc256"])
 
     phase("the reference's Merkle-proof configurations (compiled from AirScript) and "
           "point multiplication (AirAssembly)")
@@ -2688,9 +2818,9 @@ def main() -> int:
             ("poseidon-merkle-16", lambda: poseidon_torch.branch_case(16, 42, None, device),
              POSEIDON16_PIN, MERKLE_KERNELS),
             ("lib224-merkle-8", lambda: merkle_import_torch.merkle_proof_case(
-                8, 42, None, device), LIB224_PIN, P224_KERNELS),
+                8, 42, None, device), LIB224_PIN, MERKLE_KERNELS),
             ("pointmul", lambda: elliptic_torch.pointmul_case(None, device) + (None,),
-             POINTMUL_PIN, P224_KERNELS)):
+             POINTMUL_PIN, MERKLE_KERNELS)):
         stark, assertions, inputs, public = case()
         print(f"{label}: {stark.air.trace_register_count} registers, "
               f"{stark.air.secret_input_count} secret inputs, "
@@ -2726,7 +2856,7 @@ def main() -> int:
     for label, case, pin, required in (
             ("bench", lambda: mimc_path(BENCH_STEPS) + (None,), BENCH_PIN, STAGED_DIGIT),
             ("mimc256", lambda: mimc_path(BENCH_STEPS, P256) + (None,), MIMC256_PIN,
-             STAGED_RADIX2),
+             STAGED_DIGIT),
             ("rescue-merkle-16", lambda: rescue_torch.branch_case(16, 42, None, device),
              RESCUE16_PIN, STAGED_DIGIT),
             ("fibonacci", demo_cases["fibonacci"], FIB_PIN, STAGED_DIGIT),
@@ -2743,20 +2873,34 @@ def main() -> int:
           "plain path (tolerance 0)")
     check_public_ntt(kernels, device, rng, smi_line)
 
-    phase(f"MiMC-256: P256, {LARGE_STEPS} steps (Ne = {16 * LARGE_STEPS}: direct route)")
+    phase(f"MiMC-256: P256, {LARGE_STEPS} steps (Ne = {16 * LARGE_STEPS}: the digit route, "
+          f"levels {dft_levels(16 * LARGE_STEPS)})")
     large_launches, large_data, large_totals = run_main_path(
-        kernels, *mimc_path(LARGE_STEPS, P256), LARGE_PIN, LARGE_KERNELS, "mimc256-2^18",
-        sync_log, spread=10)
+        kernels, *mimc_path(LARGE_STEPS, P256), LARGE_PIN, BENCH_KERNELS, "mimc256-2^18",
+        sync_log, spread=10, stats=digit256["mimc256-2^18"])
+    del large_data
     torch.cuda.empty_cache()
     print(json.dumps({"path_kernel_totals": {
         label: {short: [us / 1e3, n] for short, (us, n) in totals.items()
                 if short in ("digest_limbs_kernel", "outer_table_kernel")}
         for label, totals in (("bench", bench_totals), ("mimc256", mimc256_totals),
                               ("mimc256-2^18", large_totals))}}), flush=True)
-    four = four_step_proof(device, LARGE_STEPS)
-    print(f"mimc256-2^18 through the four-step route: {proof_digest(four)}", flush=True)
-    require(four == large_data, "mimc256-2^18: the direct and four-step routes disagree")
-    del four, large_data
+
+    phase(f"MiMC over P64, {LARGE_STEPS} steps (Ne = {16 * LARGE_STEPS}: the direct radix-2 "
+          f"route), one-fetch, staged and four-step")
+    stark, assertions, inputs = mimc_path(LARGE_STEPS, P64)
+    mimc64_launches, mimc64_data, _ = run_main_path(
+        kernels, stark, assertions, inputs, MIMC64_18_PIN, RADIX2_LARGE_KERNELS, "mimc64-2^18",
+        sync_log, spread=10)
+    mimc64_staged, stats = run_staged(
+        kernels, stark, assertions, inputs, MIMC64_18_PIN, STAGED_RADIX2, "mimc64-2^18",
+        sync_log, smi_line, reps=3)
+    print(json.dumps({"mimc64-2^18 staged": stats, "device": smi_line}), flush=True)
+    del stark
+    four = four_step_proof(device, LARGE_STEPS, P64)
+    print(f"mimc64-2^18 through the four-step route: {proof_digest(four)}", flush=True)
+    require(four == mimc64_data, "mimc64-2^18: the direct and four-step routes disagree")
+    del four, mimc64_data
     torch.cuda.empty_cache()
 
     phase("the public ntt of 2^20 p128 points: its rate on the card")
@@ -2799,12 +2943,18 @@ def main() -> int:
     del stark, data
     torch.cuda.empty_cache()
 
-    phase(f"MiMC-256: P256, {LARGEST_STEPS} steps (Ne = {16 * LARGEST_STEPS})")
+    phase(f"MiMC-256: P256, {LARGEST_STEPS} steps (Ne = {16 * LARGEST_STEPS}: the digit "
+          f"route, levels {dft_levels(16 * LARGEST_STEPS)})")
     stark, assertions, _ = mimc_path(LARGEST_STEPS, P256)
-    largest_launches, _, _ = run_largest(kernels, stark, assertions, LARGE_KERNELS,
-                                         "mimc256-2^20", sync_log)
+    largest_launches, _, digit256["mimc256-2^20"] = run_largest(
+        kernels, stark, assertions, BENCH_KERNELS, "mimc256-2^20", sync_log)
     del stark
     torch.cuda.empty_cache()
+    print(json.dumps({"mimc256_digit_route": {
+        label: {k: v.get(k) for k in ("best_s", "median_s", "busy_pct", "device_ms",
+                                       "profiled_wall_ms", "peak_bytes", "port_kernels_ms")}
+        for label, v in digit256.items()}, "routes": route_times, "device": smi_line}),
+        flush=True)
 
     _, stark, _, _ = ladder_path(LADDER_STEPS[2])
     del stark
@@ -2817,7 +2967,8 @@ def main() -> int:
           f"{sum(tracegen.build_seconds.values()):.3f} s in all "
           f"({ {k: round(v, 3) for k, v in tracegen.build_seconds.items()} })", flush=True)
     launches = {k: bench_launches[k] + mimc256_launches[k] + large_launches[k]
-                + largest_launches[k] + sum(m[k] for m in merkle_launches)
+                + largest_launches[k] + mimc64_launches[k] + mimc64_staged[k]
+                + sum(m[k] for m in merkle_launches)
                 + sum(m[k] for m in ladder_launches)
                 + sum(m[k] for m in demo_launches)
                 + sum(st["launches"][k] for st in staged.values())

@@ -14,17 +14,21 @@
 // products of one (k, j) pair sum into 2D-1 int32 diagonals, exactly as the
 // TPU kernel's s8 x s8 -> s32 matmuls do.
 //
+// Instantiated for every limb count of a modulus the host's solinas_spec
+// takes (ntt/dft.py): L = 2 (p32), 4 (2^64 - 2^32 + 1), 8 (p128), 14 (p224)
+// and 16 (p256), as the TPU kernel is generic in L.
+//
 // What bounds it on this card: the digit multiply-adds, m * D^2 per output
-// (18,496 at m = 64, D = 17), which the int8 tensor cores run at 1,979
-// TOP/s; the level's bytes are a few MB.  Design:
+// (18,496 at m = 64, D = 17; 69,696 at D = 33), which the int8 tensor cores
+// run at 1,979 TOP/s; the level's bytes are a few MB.  Design:
 //   - a block owns 16 rows k (one mma M tile) by 32 columns (4 warps, one
 //     16 x 8 tile each); it stages the D W-digit planes of its rows (16-byte
 //     cp.async) and the D x-digit planes of its columns in shared memory,
 //     x transposed to [col][j] while staging (the mma's B operand wants K
 //     contiguous per column, and sm_90 has no 8-bit ldmatrix.trans), j in
-//     slices of 64, zero-padded below 16 rows, 32 j and past the last
-//     column.  Rows of shared memory are 16 bytes longer than the slice, so
-//     the fragment reads of a warp hit 32 distinct banks;
+//     slices of 64 (32 at L >= 14, dft_slice), zero-padded below 16 rows, 32
+//     j and past the last column.  Rows of shared memory are 16 bytes longer
+//     than the slice, so the fragment reads of a warp hit 32 distinct banks;
 //   - for each diagonal d a warp accumulates sum_i W_i x_{d-i} with
 //     mma.sync.m16n8k32.row.col.s32.s8.s8.s32 (no .satfinite: the s32 sums
 //     stay exact, |S_d| < 2^30) and folds the sum at once into lazy 16-bit
@@ -32,10 +36,14 @@
 //     accumulators are taken in turn (four mma chains in flight) and added
 //     before the fold;
 //   - registers: the A fragments of the block's 16 rows stay there for the
-//     slice, so a product reads only its B fragment from shared memory; a
-//     diagonal folds into a window of three limbs an output, and each limb
-//     leaves the window once a slice for the lazy limbs in shared memory
-//     (4 outputs x N_LAZY words a thread).  No spills at L = 2 or 8;
+//     slice (4 * D words a k step of 32), so a product reads only its B
+//     fragment from shared memory; a diagonal folds into a window of three
+//     limbs an output, and each limb leaves the window once a slice for the
+//     lazy limbs in shared memory (4 outputs x N_LAZY words a thread).  At
+//     L >= 14 two k steps would hold 232 or 264 words of fragments, past the
+//     255 registers a thread has, so those limb counts stage slices of 32
+//     (one k step, 116 or 132 words) and run one block an SM (their shared
+//     memory is 130-148 KB).  No spills at any L;
 //   - the epilogue reduces the wide integer in L-limb chunks with the
 //     32-bit-word product (field.cuh mont_mul_w) and applies the twiddle
 //     with it.
@@ -60,7 +68,9 @@ constexpr int kMaxChunks = 5;
 constexpr int kDftRows = 16;      // rows k of a block: one mma M tile
 constexpr int kDftCols = 32;      // columns of a block: 4 warps x 8
 constexpr int kDftThreads = 128;
-constexpr int kDftSlice = 64;     // j staged at once (kernels.DFT_SLICE)
+
+// j staged at once (kernels.dft_slice): two k steps of 32, one at L >= 14
+__host__ __device__ constexpr int dft_slice(int L) { return L >= 14 ? 32 : 64; }
 
 struct DftEpilogue {
   uint32_t corr[kMaxL];                 // (-n_slices * BIAS * sum_k 2^(8k)) mod p, limbs
@@ -173,10 +183,11 @@ __device__ __forceinline__ void lazy_to_words(const uint32_t (&lz)[DftShape<L>::
   }
 }
 
-// KS: k steps of 32 a slice (1 for m <= 32, else 2), fixed at compile time
-// so the mma loop has no predicates and its loads can be scheduled ahead.
+// KS: k steps of 32 a slice (1 for m <= 32 or L >= 14, else 2), fixed at
+// compile time so the mma loop has no predicates and its loads can be
+// scheduled ahead.
 template <int L, int KS>
-__global__ void __launch_bounds__(kDftThreads, 2)
+__global__ void __launch_bounds__(kDftThreads, L >= 14 ? 1 : 2)
 dft_level_kernel(DftArgs a, FieldW f, DftEpilogue epi) {
   using S = DftShape<L>;
   constexpr int D = S::D;
@@ -210,7 +221,7 @@ dft_level_kernel(DftArgs a, FieldW f, DftEpilogue epi) {
   }
 
   for (int sl = 0; sl < a.n_slices; ++sl) {
-    const int j0 = sl * kDftSlice;
+    const int j0 = sl * kp;
     const int jn = min(kp, a.m - j0);
     __syncthreads();                                 // the last slice's reads are done
     for (int i = tid * 16; i < total; i += kDftThreads * 16)
@@ -392,7 +403,19 @@ cudaError_t launch_ks(const DftArgs& a, const FieldW& f, const DftEpilogue& epi,
 template <int L>
 cudaError_t launch(const DftArgs& a, const FieldW& f, const DftEpilogue& epi,
                    cudaStream_t stream) {
-  return a.m <= 32 ? launch_ks<L, 1>(a, f, epi, stream) : launch_ks<L, 2>(a, f, epi, stream);
+  if constexpr (dft_slice(L) == 32) {
+    return launch_ks<L, 1>(a, f, epi, stream);
+  } else {
+    return a.m <= 32 ? launch_ks<L, 1>(a, f, epi, stream) : launch_ks<L, 2>(a, f, epi, stream);
+  }
+}
+
+template <int L>
+cudaError_t launch_checked(const DftArgs& a, const FieldW& f, const DftEpilogue& epi,
+                           int n_chunk_consts, cudaStream_t stream) {
+  if (n_chunk_consts != DftShape<L>::N_CH - 1) return cudaErrorInvalidValue;
+  if (a.n_slices != (a.m + dft_slice(L) - 1) / dft_slice(L)) return cudaErrorInvalidValue;
+  return launch<L>(a, f, epi, stream);
 }
 
 }  // namespace gs
@@ -409,8 +432,7 @@ extern "C" int gs_dft_level(int L, const void* w8, const void* x, const long lon
                             const uint32_t* epi_words, int n_chunk_consts, void* stream) {
   if (n_chunk_consts > gs::kMaxChunks || m < 1 || cols < 1 || arest < 1 || rest < 1)
     return cudaErrorInvalidValue;
-  if (n_slices != (m + gs::kDftSlice - 1) / gs::kDftSlice || (m + 15) / 16 > 65535)
-    return cudaErrorInvalidValue;
+  if ((m + 15) / 16 > 65535) return cudaErrorInvalidValue;
   if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
   gs::DftArgs a = {};
   a.w8 = static_cast<const int8_t*>(w8);
@@ -438,12 +460,11 @@ extern "C" int gs_dft_level(int L, const void* w8, const void* x, const long lon
       epi.chunk[c][w] = epi_words[L + c * L + 2 * w] | (epi_words[L + c * L + 2 * w + 1] << 16);
   auto st = static_cast<cudaStream_t>(stream);
   switch (L) {
-    case 2:
-      if (n_chunk_consts != gs::DftShape<2>::N_CH - 1) return cudaErrorInvalidValue;
-      return gs::launch<2>(a, f, epi, st);
-    case 8:
-      if (n_chunk_consts != gs::DftShape<8>::N_CH - 1) return cudaErrorInvalidValue;
-      return gs::launch<8>(a, f, epi, st);
+    case 2: return gs::launch_checked<2>(a, f, epi, n_chunk_consts, st);
+    case 4: return gs::launch_checked<4>(a, f, epi, n_chunk_consts, st);
+    case 8: return gs::launch_checked<8>(a, f, epi, n_chunk_consts, st);
+    case 14: return gs::launch_checked<14>(a, f, epi, n_chunk_consts, st);
+    case 16: return gs::launch_checked<16>(a, f, epi, n_chunk_consts, st);
     default:
       return cudaErrorInvalidValue;
   }

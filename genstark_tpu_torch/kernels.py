@@ -208,9 +208,18 @@ def _field_l(dev) -> int:
 
 
 # ----------------------------------------------------------------- kernel 1
-# Contraction depth kernel 1 stages at once (csrc/dft_level.cu kDftSlice):
-# each slice adds its own bias per diagonal, which the correction cancels.
-DFT_SLICE = 64
+# The limb counts kernel 1 is built for: every L of a modulus that
+# ntt.dft.solinas_spec takes among the port's fields (p32, 2^64 - 2^32 + 1,
+# p128, p224, p256).
+DFT_LS = (2, 4, 8, 14, 16)
+
+
+def dft_slice(L: int) -> int:
+    """Contraction depth kernel 1 stages at once (csrc/dft_level.cu
+    dft_slice): each slice adds its own bias per diagonal, which the
+    correction cancels.  32 at L >= 14, where two k steps of A fragments
+    would not fit a thread's registers."""
+    return 32 if L >= 14 else 64
 
 
 def dft_level(dev, w8, x, m: int, rest: int, tw, out_digits: bool):
@@ -220,6 +229,8 @@ def dft_level(dev, w8, x, m: int, rest: int, tw, out_digits: bool):
     their digits), any strides; col = b * r + q for the 4-D views."""
     from .ntt.dft import bias_correction, epilogue_constants
     L = dev.L
+    if L not in DFT_LS:
+        raise ValueError(f"dft_level takes L in {DFT_LS}, not {L}")
     D = 2 * L + 1
     _require(w8, "w8", torch.int8, (D, m, m))
     if x.device.type != "cuda":
@@ -261,7 +272,7 @@ def dft_level(dev, w8, x, m: int, rest: int, tw, out_digits: bool):
                       device=x.device)
     if cols == 0:
         return out
-    n_slices = -(-m // DFT_SLICE)
+    n_slices = -(-m // dft_slice(L))
     _, consts = epilogue_constants(dev.p)
     epi = np.ascontiguousarray(np.concatenate(
         [bias_correction(dev.p, n_slices), consts.reshape(-1)]).astype(np.uint32))

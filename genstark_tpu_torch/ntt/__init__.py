@@ -1,10 +1,15 @@
-"""NTT / iNTT: chained digit-matmul DFT levels (p32, p128) or the radix-2
-path (every other field).
+"""NTT / iNTT: chained digit-matmul DFT levels (every solinas field: p32,
+2^64 - 2^32 + 1, p128, p224, p256) or the radix-2 path (P64, the demo field
+96769 and any other modulus).
 
-`make_plan` picks the route per field, as the JAX package's
-`ntt_core_table` (:493) does: the digit DFT for the solinas fields with a
-ported DFT kernel, the radix-2 plan of ``ntt/radix2.py`` (kernel 8, the
-four-step split) for the others.  `transform` runs either plan.  The
+`make_plan` picks the route per field by the JAX package's rule,
+`mxu_applicable` (genstark_tpu/ntt/__init__.py:248): the digit DFT for every
+modulus `dft.solinas_spec` takes (kernel 1 is built for each of their limb
+counts), the radix-2 plan of ``ntt/radix2.py`` (kernel 8, the four-step
+split, the stage passes) for the others.  The JAX rule's size floor
+(`_mxu_min_n`, 2^13) and its level cost model are tuned to the TPU's
+measured rates (`_MXU_RATE`), which the port leaves out: the digit route
+runs at every size.  `transform` runs either plan.  The
 layer-level API of the JAX package, `ntt`, `intt` and `low_degree_extend`
 (genstark_tpu/ntt/__init__.py:583-607), runs `transform` on canonical plans
 kept by the values' DeviceField (one per modulus and device), per size and
@@ -12,8 +17,8 @@ direction.
 
 The digit route is the counterpart of the multi-level transform in
 ``genstark_tpu/ntt/__init__.py`` (`mxu_table_specs` :255, `MxuPlan` :291,
-`mxu_transform_core` :353): every transform over p32 or p128 runs through
-the DFT level of ``ntt/dft.py`` at every size.
+`mxu_transform_core` :353): every transform over a solinas field runs
+through the DFT level of ``ntt/dft.py`` at every size.
 
 An n-point transform is split into q levels of size m_1 * ... * m_q = n
 (Bailey / 4-step generalized).  Natural order in and out.  Level 1's digit
@@ -35,6 +40,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import kernels
 from ..field.device import DeviceField
 from . import dft, radix2
 from .radix2 import Radix2Plan
@@ -87,8 +93,11 @@ def table_specs(field, n: int, root: int, scale: int = 1):
 
 
 def digit_dft_field(field) -> bool:
-    """True for the fields the digit DFT takes (p32, p128)."""
-    return dft.solinas_spec(field.modulus) is not None and field.params.L in (2, 8)
+    """True for the fields the digit DFT takes: `dft.solinas_spec` accepts
+    the modulus and kernel 1 is built for its limb count (p32, 2^64 - 2^32
+    + 1, p128, p224, p256)."""
+    return (dft.solinas_spec(field.modulus) is not None
+            and field.params.L in kernels.DFT_LS)
 
 
 class DftPlan:
@@ -99,8 +108,8 @@ class DftPlan:
     def __init__(self, field, dev: DeviceField, n: int, root: int, scale: int = 1):
         if not digit_dft_field(field):
             raise NotImplementedError(
-                "the digit DFT takes p32 and p128 only; make_plan gives the "
-                "radix-2 plan for the other fields")
+                "the digit DFT takes the solinas fields only (see "
+                "digit_dft_field); make_plan gives the radix-2 plan for the others")
         self.n = n
         self.levels = dft_levels(n)
         w8_roots, tws = table_specs(field, n, root, scale)
@@ -127,7 +136,7 @@ class DftPlan:
 
 def make_plan(field, dev: DeviceField, n: int, root: int, scale: int = 1):
     """The transform plan for one (field, n, root, scale): a DftPlan for
-    p32 and p128, a Radix2Plan for any other field."""
+    every solinas field (`digit_dft_field`), a Radix2Plan for any other."""
     if digit_dft_field(field):
         return DftPlan(field, dev, n, root, scale)
     return Radix2Plan(field, dev, n, root, scale)
@@ -162,8 +171,8 @@ def ntt(field, values: torch.Tensor, n: int = None) -> torch.Tensor:
     """Forward NTT (the JAX `ntt.ntt`, genstark_tpu/ntt/__init__.py:583):
     evaluations of the polynomial with coefficients `values` [..., L, n]
     (Montgomery int32 limbs, on any device) at the powers of the canonical
-    n-th root of unity.  The digit route (kernel 1) for p32 and p128, the
-    radix-2 route (kernels 8, 7/9, 5) for every other field."""
+    n-th root of unity.  The digit route (kernel 1) for the solinas fields,
+    the radix-2 route (kernels 8, 7/9, 5) for every other field."""
     return _canonical(field, values, n or values.shape[-1], False)
 
 

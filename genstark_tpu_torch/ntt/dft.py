@@ -6,9 +6,10 @@ of `cols` length-m columns,
     out[k, col] = (sum_j W[k, j] * x[j, col]) * w_l^(k * (col % rest))  mod p
 
 with W = scale * root^(k*j).  W and x arrive as D = 2L+1 balanced base-256
-int8 digit planes (17 for p128, 5 for p32), so the D^2 digit products sum
-exactly in int32 into 2D-1 diagonals (|S_k| <= D * m * 2^14 < 2^30 for
-m <= 2048).  The epilogue recombines the diagonals into one wide integer
+int8 digit planes (5 for p32, 9 for 2^64 - 2^32 + 1, 17 for p128, 29 for
+p224, 33 for p256), so the D^2 digit products sum exactly in int32 into 2D-1
+diagonals (|S_k| <= D * m * 2^14 < 2^30 for m <= `max_m(L)`).  The epilogue
+recombines the diagonals into one wide integer
 (biased by 2^30 per diagonal; a precomputed constant cancels the bias mod
 p) and reduces it mod p.  The level twiddle is none (rest == 1), a direct
 panel P[k, c] = w_l^(k*c) for c < rest, or a factored pair
@@ -36,15 +37,28 @@ from ..field.device import DeviceField
 from ..field.limbs import LIMB_BITS, LIMB_MASK, int_to_limbs, power_series_mont_np
 
 DIGIT_BITS = 8
-BIAS = 1 << 30               # |S_k| <= D * m * 2^14 < 2^30 for m <= 2048
-MAX_M = 2048                 # int32-accumulator + bias bound (see above)
+BIAS = 1 << 30               # |S_k| <= D * m * 2^14 < 2^30 for m <= max_m(L)
+MAX_M = 2048                 # the JAX package's level bound (ntt/mxu.py MAX_M)
+
+
+def max_m(L: int) -> int:
+    """The largest level (a power of two <= MAX_M) whose diagonal sums
+    keep |S_k| <= D * m * 2^14 below the 2^30 bias, D = 2L+1: 2048 up to
+    L = 15, 1024 at p256 (D = 33)."""
+    m = MAX_M
+    while (2 * L + 1) * m * (1 << 14) >= BIAS:
+        m //= 2
+    return m
 
 
 @lru_cache(maxsize=None)
 def solinas_spec(modulus: int):
     """(L 16-bit limbs, D signed base-256 digits, n_diags, u, a) for a
     modulus p = 2^(16L) - t with t + 1 = u * 2^(16a), u < 2^16, else None
-    (copy of the JAX package's ``ntt/mxu.py`` solinas_spec: p128 and p32)."""
+    (copy of the JAX package's ``ntt/mxu.py`` solinas_spec).  Of the port's
+    fields it takes p32 (u = 1536, a = 1), p128 (9, 2), p224 (1, 6), p256
+    (351, 2) and 2^64 - 2^32 + 1 (1, 2); it refuses P64, whose u = 21 * 2^14
+    is not below 2^16, and the demo field 96769 (three bytes)."""
     eb = (modulus.bit_length() + 7) // 8
     if eb % 2 or (1 << (8 * eb)) < modulus:
         return None
@@ -139,11 +153,12 @@ def epilogue_constants(modulus: int):
 
 
 def w_digits(field, m: int, root: int, scale: int = 1) -> np.ndarray:
-    if solinas_spec(field.modulus) is None:
+    spec = solinas_spec(field.modulus)
+    if spec is None:
         raise NotImplementedError(
-            "the digit DFT needs a solinas-foldable modulus (p32, p128)")
-    if m > MAX_M:
-        raise ValueError(f"m={m} exceeds the int32 accumulator bound ({MAX_M})")
+            "the digit DFT needs a solinas-foldable modulus (see solinas_spec)")
+    if m > max_m(spec[0]):
+        raise ValueError(f"m={m} exceeds the int32 accumulator bound ({max_m(spec[0])})")
     return _w_digits_np(field.modulus, m, root % field.modulus,
                         scale % field.modulus)
 
@@ -230,20 +245,20 @@ def run_dft_level_ref(dev: DeviceField, w8: torch.Tensor, x8: torch.Tensor,
     [L, m, s]} (int32 Montgomery).  Returns int32[L, m, cols] or, with
     out_digits, int8[D, m, cols].
 
-    All D x D digit-plane products run as ONE float64 matrix product
-    (exact: every partial sum is below m * 2^14 < 2^53).  The field
-    arithmetic is the plain field's (`mont_mul_ref`, `add_ref`), so on the
-    card this launches no kernel of the port."""
+    The digit-plane products run as one float64 matrix product per W
+    plane i, against all D x planes at once (exact: every partial sum is
+    below m * 2^14 < 2^53), so at most D + 2D - 1 values an element are
+    live.  The field arithmetic is the plain field's (`mont_mul_ref`,
+    `add_ref`), so on the card this launches no kernel of the port."""
     L = dev.L
     D = 2 * L + 1
     x8 = digit_planes(x8, m)
     cols = x8.shape[2]
-    W = w8.to(torch.float64).reshape(D * m, m)
     X = x8.to(torch.float64).permute(1, 0, 2).reshape(m, D * cols)
-    P = (W @ X).reshape(D, m, D, cols)                 # P[i, k, j, col]
     acc = torch.zeros((2 * D - 1, m, cols), dtype=torch.float64, device=x8.device)
     for i in range(D):
-        acc[i:i + D] += P[i].permute(1, 0, 2)
+        P = (w8[i].to(torch.float64) @ X).reshape(m, D, cols)   # P[k, j, col]
+        acc[i:i + D] += P.permute(1, 0, 2)
     out = diags_to_limbs(dev, acc.to(torch.int64))     # [L, m, cols]
     if rest > 1:
         if "p" in tw:
@@ -266,8 +281,8 @@ def run_dft_level(dev: DeviceField, w8: torch.Tensor, x8: torch.Tensor,
     """One DFT level (contract of run_dft_level_ref: digits or limbs in,
     flat or as the transform's strided view).  CPU tensors run the plain
     version; CUDA tensors launch kernel 1 or raise."""
-    if m > MAX_M or m & (m - 1):
-        raise ValueError(f"level size {m} must be a power of two <= {MAX_M}")
+    if m > max_m(dev.L) or m & (m - 1):
+        raise ValueError(f"level size {m} must be a power of two <= {max_m(dev.L)}")
     if x8.device.type == "cpu":
         return run_dft_level_ref(dev, w8, x8, m, rest, tw, out_digits)
     return kernels.dft_level(dev, w8, x8, m, rest, tw, out_digits)

@@ -1,5 +1,6 @@
-"""Radix-2 NTT for the fields the digit DFT does not take (P64, P224, P256):
-kernels 7, 8 and 9 of the port and their plain versions.
+"""Radix-2 NTT for the fields the digit DFT does not take (P64, the demo
+field 96769: any modulus `dft.solinas_spec` refuses): kernels 7, 8 and 9 of
+the port and their plain versions.
 
 Counterpart of the JAX package's non-MXU transform: `ntt_core_table`
 (`genstark_tpu/ntt/__init__.py:493`), its local four-step split

@@ -13,8 +13,8 @@ n = n1 * n2, the values viewed as A[i1, i2] (position i1*n2 + i2):
   4. n2-point transforms along i2, giving X[k1 + n1*k2] for the rank's k1.
 
 The local transforms are the port's `ntt.transform` on plans of the local
-sizes (kernel 1 for p32 and p128; kernel 8, or the four-step, for the
-other fields), made by `ntt.make_plan` from the roots w^n2 and w^n1 (the
+sizes (kernel 1 for the solinas fields; kernel 8, or the four-step, for
+the others), made by `ntt.make_plan` from the roots w^n2 and w^n1 (the
 JAX package picks them out of the whole table instead, :169-171); the
 first carries the plan's scale.
 

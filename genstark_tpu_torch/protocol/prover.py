@@ -29,9 +29,10 @@ package's one-program default path does (`prove`, fused.py:1280-1361).
    the JAX package's fallback) and counts it in `host_fallbacks`.  The
    bytes are the same either way.
 
-Every transform is a chain of DFT levels (kernel 1) for p32 and p128, and
-the radix-2 path (kernels 8 and 5, plus the stage kernels 7 and 9 above
-2^21 points) for the other fields (ntt/__init__.py).
+Every transform is a chain of DFT levels (kernel 1) for the solinas fields
+(p32, 2^64 - 2^32 + 1, p128, p224, p256), and the radix-2 path (kernels 8
+and 5, plus the stage kernels 7 and 9 above 2^21 points) for the others,
+P64 among them (ntt/__init__.py `make_plan`).
 
 Large domains (the JAX package's split mode, `fused.py:203-224`, from
 Ne = 2^22): the stages drop each full-domain tensor as soon as nothing

@@ -11,6 +11,12 @@ from __future__ import annotations
 
 from .field.limbs import ints_to_limbs
 
+# 2^64 - 2^32 + 1 (Plonky2's "Goldilocks" prime): of solinas form (u = 1, a
+# = 2), so the digit route takes it at L = 4, where P64 takes the radix-2
+# route.  No example of the reference runs over it; the checks of kernel 1
+# at L = 4 and chip_smoke.py's toy prove do.
+GOLDILOCKS = 2 ** 64 - 2 ** 32 + 1
+
 
 def edge_values(field) -> list:
     """0, 1, 2, p - 1, p - 2, R mod p (the Montgomery one) and p >> 1: the

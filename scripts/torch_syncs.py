@@ -10,7 +10,7 @@ archive`: its `genstark_tpu_torch` and `examples` are imported, and its
 kernels built in its own `_build/`.  The instrument is this checkout's
 `chip_smoke.py` (`count_syncs`, `profile_run`, `host_fallbacks`), so two
 trees run in turns are measured alike.  Per path, after two warm-up
-proves: the port kernel launches of one prove, prove seconds (best of 5, 3
+proves: the port kernel launches of one prove (by kernel), prove seconds (best of 5, 3
 at 2^20 steps and more) and their peak device memory, the synchronizing calls of one prove (all of them, and
 those after its first port kernel) with the host milliseconds spent in the
 runtime's synchronizing calls, and one profiled prove's device kernel
@@ -33,7 +33,7 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATHS = ("bench", "mimc256", "rescue-merkle-16", "poseidon-merkle-16", "lib224-merkle-8",
          "pointmul", "fibonacci", "demo-static", "mimc256-2^18", "mimc256-2^20",
-         "mimc128-2^17", "mimc128-2^20", "mimc128-2^21")
+         "mimc64-2^18", "mimc128-2^17", "mimc128-2^20", "mimc128-2^21")
 # Paths of 2^20 steps and more: best of 3, not 5.
 LONG_PATHS = ("mimc256-2^20", "mimc128-2^20", "mimc128-2^21")
 
@@ -50,10 +50,11 @@ def make_path(label: str, device, smoke):
     """(stark, assertions, inputs) of one main path, as chip_smoke.py
     drives it."""
     from examples import elliptic_torch, merkle_import_torch, poseidon_torch, rescue_torch
-    from genstark_tpu_torch.field import P128, P256
+    from genstark_tpu_torch.field import P64, P128, P256
     from mimc_torch import make_mimc_stark
     mimc = {"bench": (2 ** 13, P128), "mimc256": (2 ** 13, P256),
             "mimc256-2^18": (2 ** 18, P256), "mimc256-2^20": (2 ** 20, P256),
+            "mimc64-2^18": (2 ** 18, P64),
             "mimc128-2^17": (2 ** 17, P128), "mimc128-2^20": (2 ** 20, P128),
             "mimc128-2^21": (2 ** 21, P128)}
     if label in mimc:
@@ -90,7 +91,7 @@ def measure(label: str, device, smoke, kernels) -> dict:
     kernels.reset_launch_counts()
     prove()
     torch.cuda.synchronize()
-    port_launches = sum(kernels.launch_counts.values())
+    launches = {k: n for k, n in kernels.launch_counts.items() if n}
     times = []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3 if label in LONG_PATHS else 5):
@@ -103,7 +104,8 @@ def measure(label: str, device, smoke, kernels) -> dict:
     by_name, stages, wall_ms = smoke.profile_run(prove)
     device_ms = sum(us for us, _ in by_name.values()) / 1e3
     out = {"path": label, "prove_s_best": min(times), "prove_s": times,
-           "peak_bytes": peak, "port_launches": port_launches,
+           "peak_bytes": peak, "port_launches": sum(launches.values()),
+           "launches": launches,
            "device_launches": sum(n for _, n in by_name.values()),
            "device_ms": device_ms, "profiled_wall_ms": wall_ms,
            "stages_ms": {k: us / 1e3 for k, us in stages.items()},

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
-from genstark_tpu_torch.testing import edge_input, edge_pairs, edge_values
+from genstark_tpu_torch.testing import GOLDILOCKS, edge_input, edge_pairs, edge_values
 
 pytestmark = pytest.mark.cuda
 
@@ -28,7 +28,8 @@ def _elements(rng, modulus, L, n):
     return limbs.astype(np.uint32)
 
 
-@pytest.mark.parametrize("modulus", [P32, P128], ids=["p32", "p128"])
+@pytest.mark.parametrize("modulus", [P32, GOLDILOCKS, P128, P224, P256],
+                         ids=["p32", "goldilocks", "p128", "p224", "p256"])
 @pytest.mark.parametrize("n", [64, 2 ** 12])
 def test_dft_levels_kernel_equals_plain(device, modulus, n):
     from genstark_tpu_torch import kernels
@@ -611,7 +612,9 @@ def test_direct_route_equals_four_step_on_card(device, modulus, monkeypatch):
     assert torch.equal(got, radix2.transform_ref(dev, x, direct))
 
 
-DFT_FIELDS = pytest.mark.parametrize("modulus", [P32, P128], ids=["p32", "p128"])
+# every limb count kernel 1 is built for
+DFT_FIELDS = pytest.mark.parametrize("modulus", [P32, GOLDILOCKS, P128, P224, P256],
+                                     ids=["p32", "goldilocks", "p128", "p224", "p256"])
 
 
 @DFT_FIELDS
@@ -619,10 +622,10 @@ DFT_FIELDS = pytest.mark.parametrize("modulus", [P32, P128], ids=["p32", "p128"]
 @pytest.mark.parametrize("mode", ["none", "direct", "factored"])
 def test_dft_level_kernel_inputs_and_modes(device, modulus, m, mode):
     """Kernel 1 (int8 tensor cores) at every level size the plans use, and
-    m = 128 (two staged slices of j), with a ragged last column tile, in
-    every twiddle mode: digits in and limbs in (the kernel encodes them),
-    flat and as the transform's strided view, limbs and digits out; one
-    launch each, equal to the plain level."""
+    m = 128 (two staged slices of j, four at L >= 14), with a ragged last
+    column tile, in every twiddle mode: digits in and limbs in (the kernel
+    encodes them), flat and as the transform's strided view, limbs and
+    digits out; one launch each, equal to the plain level."""
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.ntt import dft
     field = create_prime_field(modulus)

@@ -221,10 +221,14 @@ def test_direct_route_stage_sequence(direct, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["p256", "p64"])
-def test_proofs_through_direct_route_equal_pins(case, direct):
+def test_proofs_through_direct_route_equal_pins(case, direct, monkeypatch):
     """The 64-step MiMC proofs with every transform of 64 points or more on
-    the direct route equal the JAX package's pinned bytes."""
+    the direct route equal the JAX package's pinned bytes.  The prover's
+    plans are `Radix2Plan`s built directly: `make_plan` gives P256 the
+    digit route."""
     from examples.mimc_torch import prove_mimc
+    from genstark_tpu_torch.protocol import prover
+    monkeypatch.setattr(prover, "make_plan", Radix2Plan)
     direct(32)
     modulus, options, pin = {"p256": (P256, None, P256_64_PIN),
                              "p64": (P64, TOY, P64_64_PIN)}[case]

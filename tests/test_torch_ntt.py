@@ -1,5 +1,7 @@
 """The port's DFT level (plain version of kernel 1) and multi-level
-transform against the JAX package, exactly (tolerance 0)."""
+transform against the JAX package, exactly (tolerance 0).  The level tests
+run at every limb count kernel 1 is built for: p32, 2^64 - 2^32 + 1, p128,
+p224 and p256, the fields the JAX package's `solinas_spec` takes."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,10 +12,13 @@ from genstark_tpu import ntt as jax_ntt
 from genstark_tpu.field import create_prime_field as jax_field
 from genstark_tpu.ntt.mxu import _run_dft_level_ref
 from genstark_tpu_torch import kernels
-from genstark_tpu_torch.field import P32, P128, create_prime_field
+from genstark_tpu_torch.field import P32, P128, P224, P256, create_prime_field
 from genstark_tpu_torch.ntt import DftPlan, dft, dft_levels, transform
+from genstark_tpu_torch.testing import GOLDILOCKS
 
 FIELDS = pytest.mark.parametrize("modulus", [P32, P128], ids=["p32", "p128"])
+LEVEL_FIELDS = pytest.mark.parametrize("modulus", [P32, GOLDILOCKS, P128, P224, P256],
+                                       ids=["p32", "goldilocks", "p128", "p224", "p256"])
 
 
 def _elements(rng, modulus, n):
@@ -46,7 +51,7 @@ def _level_inputs(modulus, m, rest, mode, seed):
     return field, dev, w8, x8, tw
 
 
-@FIELDS
+@LEVEL_FIELDS
 @pytest.mark.parametrize("mode,rest", [("none", 1), ("direct", 4), ("factored", 16)])
 @pytest.mark.parametrize("out_digits", [False, True], ids=["limbs", "digits"])
 def test_dft_level_matches_jax(modulus, mode, rest, out_digits):
@@ -64,7 +69,7 @@ def test_dft_level_matches_jax(modulus, mode, rest, out_digits):
     assert np.array_equal(got.numpy().astype(want.dtype), want)
 
 
-@FIELDS
+@LEVEL_FIELDS
 @pytest.mark.parametrize("mode,rest", [("none", 1), ("direct", 4), ("factored", 16)])
 def test_dft_level_limbs_in_equals_digits_in(modulus, mode, rest):
     """The level's limbs-in mode (the transform's first level, whose digits

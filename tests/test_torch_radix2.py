@@ -1,7 +1,9 @@
 """The port's radix-2 transform (ntt/radix2.py: the plain version of kernel
 8, the four-step split, the folded scale) against the JAX package, exactly
-(tolerance 0), for the fields the digit DFT does not take (P64, P224,
-P256).  Inputs are numpy limbs from fixed seeds.
+(tolerance 0), over P64 (the field `make_plan` gives the radix-2 route) and
+over P224 and P256 on `Radix2Plan`s built directly (`make_plan` gives them
+the digit route, as the JAX package's `mxu_applicable` does).  Inputs are
+numpy limbs from fixed seeds.
 
 The four-step threshold is `radix2.LOCAL_MAX`: the tests lower it to 16
 points so that both sides of it run at sizes whose JAX transforms compile
@@ -18,6 +20,7 @@ from genstark_tpu.ntt import _bitrev_indices, get_plan
 from genstark_tpu.ntt import pallas_kernels
 from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
 from genstark_tpu_torch.ntt import DftPlan, Radix2Plan, make_plan, radix2, transform
+from genstark_tpu_torch.testing import GOLDILOCKS
 
 WIDE = [P64, P224, P256]
 WIDE_IDS = ["p64", "p224", "p256"]
@@ -117,11 +120,13 @@ def test_butterfly_ref_matches_pallas_multistage(modulus):
 
 
 def test_plan_factory_and_split(local_max):
-    """make_plan keeps the digit DFT for p32 and p128 and gives the radix-2
-    plan to every other field; the split follows LOCAL_MAX, and a size the
-    four-step cannot cover takes the direct route."""
-    for modulus, kind in ((P32, DftPlan), (P128, DftPlan), (P64, Radix2Plan),
-                          (P224, Radix2Plan), (P256, Radix2Plan)):
+    """make_plan gives the digit DFT to every field solinas_spec takes (p32,
+    2^64 - 2^32 + 1, p128, p224, p256) and the radix-2 plan to P64 and the
+    demo field 96769; the split follows LOCAL_MAX, and a size the four-step
+    cannot cover takes the direct route."""
+    for modulus, kind in ((P32, DftPlan), (GOLDILOCKS, DftPlan), (P128, DftPlan),
+                          (P224, DftPlan), (P256, DftPlan), (P64, Radix2Plan),
+                          (96769, Radix2Plan)):
         field = create_prime_field(modulus)
         plan = make_plan(field, field.device_field("cpu"), 64, field.get_root_of_unity(64))
         assert isinstance(plan, kind)

@@ -77,11 +77,13 @@ def test_transform_edges_meet_at_the_first_butterfly(modulus):
 
 def test_word_kernel_names_match_their_mangling():
     """chip_smoke.WORD_KERNELS names each instantiation by its mangled part:
-    30 of them, none inside another, each found in a register report of the
-    nvcc -Xptxas -v form."""
+    38 of them (kernel 5's 15, kernels 8, 7/9 and 10 at five L, kernel 1's
+    8: KS = 1 and 2 at L = 2, 4, 8, KS = 1 at L = 14, 16), none inside
+    another, each found in a register report of the nvcc -Xptxas -v form."""
     assert chip_smoke.mangled("field_ew_kernel", 8, 0) == "15field_ew_kernelILi8ELi0EE"
+    assert chip_smoke.mangled("dft_level_kernel", 16, 1) == "16dft_level_kernelILi16ELi1EE"
     parts = chip_smoke.WORD_KERNELS
-    assert len(set(parts)) == len(parts) == 15 + 5 + 5 + 5
+    assert len(set(parts)) == len(parts) == 15 + 5 + 5 + 5 + 8
     assert not [(a, b) for a in parts for b in parts if a != b and a in b]
     log = "\n".join(
         f"ptxas info    : Function properties for _ZN2gs{part}Ev6EwArgsNS_6FieldWE\n"
