@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch port: builds the CUDA kernels (the field
 kernels on field.cuh's one word product with no register spill), checks
 each against its plain torch version on the card, the field kernels at
-every limb count with 0, 1 and p - 1 among their inputs (and the batched
+every limb count (L = 2, 4, 6, 8, 10, 12, 14, 16) with 0, 1 and p - 1
+among their inputs (and the batched
 inverse, built on kernel 5, against its plain version), and every kernel
 of the large paths at their largest shapes (MiMC-256 at Ne = 2^24, L = 16,
 with kernel 1 at every level of the 2^22- and 2^24-point LDEs; MiMC-128 at
@@ -10,12 +11,17 @@ LDEs and of the 2^20- and 2^21-point iNTTs; MiMC over P64 at Ne = 2^22, L =
 4, with kernel 8 and the stage passes); times the P256 LDE transforms of
 2^22 and 2^24 points on the digit route and on the radix-2 route; measures the card's
 ceilings with the two probe kernels; proves the pinned toy proofs (the
-division AIR among them, and MiMC over 2^64 - 2^32 + 1, kernel 1 at L = 4),
+division AIR among them, and MiMC over 2^64 - 2^32 + 1 and the solinas
+moduli of 96, 160 and 192 bits, kernel 1 at L = 4, 6, 10 and 12),
 the bench configuration (MiMC-128, 2^13 steps, secret input 3), MiMC-256 at
 2^13, 2^18 and 2^20 steps (the digit route at L = 16, as the JAX package
 routes every solinas field), MiMC over P64 at 2^18 steps (the large-domain
 radix-2 path: the direct route with the stage kernels, one-fetch, staged
-and four-step), MiMC-128 up the JAX package's ladder on the digit route (2^17
+and four-step), MiMC over the solinas moduli of 96, 160 and 192 bits at
+2^18 steps (the digit route at L = 6, 10 and 12: one-fetch, staged, and
+forced onto the radix-2 route, all one proof; the 192-bit one against the
+port's CPU pin, after every kernel at its shapes and its 2^22-point LDE on
+both routes), MiMC-128 up the JAX package's ladder on the digit route (2^17
 steps against the port's CPU pin; 2^20 steps, the north star, whose
 one-fetch, staged and sharded proofs must agree; 2^21 steps, Ne = 2^25, five
 DFT levels of 32), the reference's Rescue and Poseidon Merkle-proof
@@ -84,6 +90,13 @@ P64_64_PIN = (4614, "8f2cc12a4eea675682570374637c919519eb1c5628201c0d5b99a9a5892
 # (tests/test_torch_digit_wide.py holds the port to it; its slow test
 # recomputes it).
 GOLDILOCKS_64_PIN = (5094, "90fc6d5ed4e181f7164c64d1cfc3c79bb7c377a25e512823e1a6d79bc5ec4b74")
+# The same toy proof over the solinas moduli of 96, 160 and 192 bits
+# (testing.SOLINAS96 / 160 / 192: the digit route at L = 6, 10 and 12): the
+# JAX package's proofs on the CPU (tests/test_torch_mid_limbs.py holds the
+# port to them; its slow test recomputes them).
+SOLINAS96_64_PIN = (6101, "2ab4b85fdfbb65d0860ca092931d6551945551ac0a6b61e7b588d1172e746676")
+SOLINAS160_64_PIN = (8582, "53b22224ff9817c671d7ce40852df4e1faa91cec951a5fe00314197c4f76a4b2")
+SOLINAS192_64_PIN = (9638, "47211d573e672cf92074c65644983ea1754c9ba1291645b484365b91e51501f9")
 # The division AIR (examples/mimc_torch.make_div_stark: a constraint that
 # divides by a register), P128, 64 steps, the toy options, seed 3: the JAX
 # package's proof on the CPU (tests/test_torch_inv.py recomputes it); equal to
@@ -105,6 +118,13 @@ LARGE_PIN = (197428, "77ac03bf41603b6dc55ee72ec00680901a5d0d8929cf792f2b7a61268c
 # examples.mimc_torch 262144 cpu P64`; tests/test_torch_digit_wide.py's slow
 # test recomputes it).
 MIMC64_18_PIN = (148598, "3dfb7dbd57b47a767d57ba35cb708fce4f969ec2d8a30ebce0e9a6e43ad0ed07")
+# MiMC over the 192-bit solinas modulus 2^192 - 49 * 2^32 + 1 (the digit
+# route at L = 12) at 2^18 steps, the bench options, secret input 3: the
+# port's proof from its plain versions on the CPU (`python -m
+# examples.mimc_torch 262144 cpu '2^192 - 49*2^32 + 1'`: 1,077 s and 16.9 GiB
+# peak RSS on 8 CPU cores; tests/test_torch_mid_limbs.py's slow test
+# recomputes it).
+MIMC192_18_PIN = (181813, "72bd9bad6311b708bd92dff965bab9af9a4c1c4e6351ae6bb9ec187f03cf5dd8")
 # One more rung at 2^20 steps (Ne = 2^24): no pin; each kernel it launches is
 # held against its plain version at its largest shapes, and three proves
 # must agree.
@@ -187,8 +207,14 @@ RADIX2_LARGE_KERNELS = ("bfly_stage", "bfly_stage_split", "butterfly", "field_ew
 # of these, one that requires kernel 8 launches no kernel 1.
 RADIX2_KERNELS = ("butterfly", "bfly_stage", "bfly_stage_split")
 PROBE_KERNELS = ("mont_chain", "u32_chain")
-# The limb counts of the port's fields (P32, P64, P128, P224, P256).
-FIELD_LIMBS = (2, 4, 8, 14, 16)
+# The limb counts of the port's fields (P32, P64, P128, P224, P256, and the
+# solinas moduli of 96, 160 and 192 bits at L = 6, 10, 12):
+# kernels.FIELD_LS.
+FIELD_LIMBS = (2, 4, 6, 8, 10, 12, 14, 16)
+# Kernel 1's k steps a slice at L (kernels.dft_slice, csrc/dft_level.cu
+# dft_ks): two while their A fragments, 4 words a digit plane and step, fit
+# 160 words, else one; a level of m <= 32 runs one k step at every L.
+DFT_KS = {L: (1, 2) if 4 * (2 * L + 1) * 2 <= 160 else (1,) for L in FIELD_LIMBS}
 
 
 def mangled(name: str, *args: int) -> str:
@@ -200,15 +226,14 @@ def mangled(name: str, *args: int) -> str:
 # Every instantiation moved to the word product in one piece: kernel 5 at K
 # = L/2 for mul, add and sub, kernels 8 and 7/9 at L, kernel 10 at K.  And
 # kernel 1 at every limb count (k steps KS = 1 and 2 a slice, KS = 1 alone
-# at L >= 14, csrc/dft_level.cu), whose A fragments stay in registers.  Each
-# must be in the build's register report, without a spill.
+# from L = 10 on, DFT_KS), whose A fragments stay in registers.  Each must
+# be in the build's register report, without a spill.
 WORD_KERNELS = tuple(
     [mangled("field_ew_kernel", L // 2, op) for L in FIELD_LIMBS for op in (0, 1, 2)]
     + [mangled(k, L) for k in ("butterfly_kernel", "butterfly_stages_kernel")
        for L in FIELD_LIMBS]
     + [mangled("mont_chain_kernel", L // 2) for L in FIELD_LIMBS]
-    + [mangled("dft_level_kernel", L, ks) for L in FIELD_LIMBS
-       for ks in ((1,) if L >= 14 else (1, 2))])
+    + [mangled("dft_level_kernel", L, ks) for L in FIELD_LIMBS for ks in DFT_KS[L]])
 # The Merkle paths (p128) and the P224 paths (lib224-merkle-8, pointmul).
 MERKLE_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
                   "sample_queries")
@@ -1569,45 +1594,48 @@ def check_large_transforms(kernels, device, field, rng) -> None:
         torch.cuda.empty_cache()
 
 
-def check_route_times(kernels, device, field, smi_line: str) -> dict:
-    """The LDE transforms of the mimc256-2^18 and -2^20 paths (LARGE_N and
-    4 LARGE_N P256 points, R^-1 folded, one [1, L, n] polynomial) on both
-    routes in this one call: the plan `make_plan` gives (the digit route,
-    kernel 1) and a `Radix2Plan` built directly (the direct route: kernel
-    8 and the stage passes).  Both equal; each timed by CUDA events (the
-    wrapper's torch ops included) and by its port kernels' device time
-    (`large_ms`).  Prints and returns {"2^k": {route: {...}}}."""
+def check_route_times(kernels, device, field, sizes, smi_line: str) -> dict:
+    """The LDE transforms of `sizes` points (R^-1 folded, one [1, L, n]
+    polynomial) on both routes in this one call: the plan `make_plan` gives
+    (the digit route, kernel 1) and a `Radix2Plan` built directly (the
+    direct route: kernel 8 and the stage passes).  For P256 the LDEs of the
+    mimc256-2^18 and -2^20 paths (LARGE_N and 4 LARGE_N points); for the
+    192-bit solinas field that of mimc192-2^18 (LARGE_N).  Both equal; each
+    timed by CUDA events (the wrapper's torch ops included) and by its port
+    kernels' device time (`large_ms`).  Prints and returns {"2^k": {route:
+    {...}}}."""
     import torch
     from genstark_tpu_torch.ntt import DftPlan, make_plan, radix2, transform
     dev = field.device_field(device)
     L, p = dev.L, field.modulus
+    name = f"p{p.bit_length()}"
     r_inv = field.inv(field.params.R_mod % p)
     out = {}
-    for n in (LARGE_N, 4 * LARGE_N):
+    for n in sizes:
         root = field.get_root_of_unity(n)
         plans = {"digit": make_plan(field, dev, n, root, r_inv),
                  "radix2": radix2.Radix2Plan(field, dev, n, root, r_inv)}
         require(isinstance(plans["digit"], DftPlan),
-                f"make_plan gave P256 a {type(plans['digit']).__name__}")
+                f"make_plan gave {name} a {type(plans['digit']).__name__}")
         x = device_elements(device, 70 + n.bit_length(), p, L, 1, n).transpose(0, 1).contiguous()
         e = max_abs_err(transform(dev, x, plans["digit"]), transform(dev, x, plans["radix2"]))
-        require(e == 0, f"P256 {n}-point LDE: the digit and radix-2 routes disagree")
+        require(e == 0, f"{name} {n}-point LDE: the digit and radix-2 routes disagree")
         row = {"max_abs_err": e}
-        for name, plan in plans.items():
+        for route, plan in plans.items():
             kernels.reset_launch_counts()
             transform(dev, x, plan)
             torch.cuda.synchronize()
             launches = {k: v for k, v in kernels.launch_counts.items() if v}
             em, dm = large_ms(lambda: transform(dev, x, plan))
-            shape = list(plan.levels) if name == "digit" else [plan.route, plan.passes]
-            row[name] = {"ms": em, "device_ms": dm, "launches": launches, "shape": shape}
-            print(f"P256 {n}-point LDE (R^-1 folded) on the {name} route {shape}: events "
-                  f"{em:.4f} ms, port kernels' device time {fmt_ms(dm)}; launches {launches}",
-                  flush=True)
+            shape = list(plan.levels) if route == "digit" else [plan.route, plan.passes]
+            row[route] = {"ms": em, "device_ms": dm, "launches": launches, "shape": shape}
+            print(f"{name} (L = {L}) {n}-point LDE (R^-1 folded) on the {route} route {shape}: "
+                  f"events {em:.4f} ms, port kernels' device time {fmt_ms(dm)}; launches "
+                  f"{launches}", flush=True)
         out[f"2^{n.bit_length() - 1}"] = row
         del plans, x
         torch.cuda.empty_cache()
-    print(json.dumps({"p256_routes": out, "device": smi_line}), flush=True)
+    print(json.dumps({f"{name}_routes": out, "device": smi_line}), flush=True)
     return out
 
 
@@ -1649,7 +1677,8 @@ def ladder_plans(field, dev, steps=LADDER_STEPS[1:]):
     return plans
 
 
-def check_largest_shapes(device, field, Ne: int, results, rates=None, dft_plans=()):
+def check_largest_shapes(device, field, Ne: int, results, rates=None, dft_plans=(),
+                         radix2_too: bool = False):
     """Each kernel of a large path against its plain version at that path's
     largest shapes, Ne evaluation points at the field's L: the [2, L, Ne]
     evaluation vectors hold 2^29 elements (2^31 bytes) both for MiMC-256 at
@@ -1662,14 +1691,16 @@ def check_largest_shapes(device, field, Ne: int, results, rates=None, dft_plans=
     prover's split s; kernel B at the path's query sets (48 positions over
     Ne, 24 over each FRI layer's Ne/4^k).  On the digit route (every
     solinas field), kernel 1 at every level of each plan of `dft_plans`
-    ((label, DftPlan): `check_dft_chain`); on the radix-2 route, kernel 8's
-    bit-reversed pass and the direct route's stage passes over [2, L, Ne].
+    ((label, DftPlan): `check_dft_chain`); on the radix-2 route (and with
+    `radix2_too` on a digit field as well), kernel 8's bit-reversed pass and
+    the direct route's stage passes over [2, L, Ne].
     The plain versions
     run on column (or block) chunks where an output column reads only its
     own input columns; kernel 6's and the stages' plain versions run whole.
-    With `rates`, the time of kernels 1-6 at these shapes, whose operands
-    lie far past the card's 50 MB L2, beside their bounds (`large_ms`):
-    returns {kernel: (events ms, device ms, bound ms, bound by)}."""
+    With `rates`, the time of kernels 1-6 (and of 8 and 7/9 on the radix-2
+    route) at these shapes, whose operands lie far past the card's 50 MB L2,
+    beside their bounds (`large_ms`): returns {kernel: (events ms, device
+    ms, bound ms, bound by)}."""
     import torch
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.hash import create_hash, digest_rows_ref, elements_to_words
@@ -1778,7 +1809,7 @@ def check_largest_shapes(device, field, Ne: int, results, rates=None, dft_plans=
                 print(f"dft_level {label}: events {chain[0]:.4f} ms, device {fmt_ms(chain[1])} "
                       f"over its {len(plan.levels)} levels against a bound of {chain[2]:.4f} ms",
                       flush=True)
-    else:
+    if radix2_too or not digit_dft_field(field):
         local = radix2.LOCAL_MAX
         table = rnd(local // 2)
         blocks = lambda t: t.view(2, L, Ne // local, local).permute(0, 2, 1, 3)
@@ -1789,6 +1820,12 @@ def check_largest_shapes(device, field, Ne: int, results, rates=None, dft_plans=
             dev, blocks(e_std)[:, g0:g0 + gc], table, bitrev_in=True))
             for g0 in range(0, Ne // local, gc))
         note("butterfly", err, f"bit-reversed entry over [2, {L}, {Ne}] in blocks of {local}")
+        # [2, L, Ne] read and written once, the table read; (local/2)
+        # log2(local) products a block
+        timed("butterfly", lambda: kernels.butterfly(dev, blocks(got), table, out=blocks(got),
+                                                     bitrev_in=True),
+              {"bytes": 2 * 2 * L * 4 * Ne + L * 4 * (local // 2),
+               "work": [(("mont", L), 2 * (Ne // 2) * (local.bit_length() - 1))]})
         del got
         table = rnd(Ne // 2).t().contiguous()                           # [Ne/2, L]
         for m, k in radix2.stage_passes(Ne, local, radix2.PASS_DEPTH):
@@ -1797,6 +1834,12 @@ def check_largest_shapes(device, field, Ne: int, results, rates=None, dft_plans=
             note(row, max_abs_err(got, radix2.butterfly_stages_ref(dev, e_std.clone(), table,
                                                                    m, k)),
                  f"stages m = {m} .. {m << (k - 1)} over [2, {L}, {Ne}]")
+            # the array read and written once, the last stage's m << (k - 1)
+            # twiddles read; k * Ne/2 products a vector
+            timed(f"{row} m = {m}, k = {k}",
+                  lambda: kernels.butterfly_stages(dev, got, table, m, k),
+                  {"bytes": 2 * 2 * L * 4 * Ne + L * 4 * (m << (k - 1)),
+                   "work": [(("mont", L), 2 * k * (Ne // 2))]})
             del got
         del table
     del a, c, e_std, ev
@@ -2088,6 +2131,86 @@ def four_step_proof(device, steps: int, modulus: int) -> bytes:
     require("direct" not in routes.values(), f"four-step prove took the direct route: {routes}")
     print(f"four-step routes: {routes}", flush=True)
     return data
+
+
+def radix2_route_proof(kernels, device, steps: int, modulus: int, label: str):
+    """The same MiMC proof (the bench options, secret input 3) on a fresh
+    Stark whose transforms all take the radix-2 route: `ntt.digit_dft_field`
+    answers no while its plans are made (at the first prove), so a solinas
+    field runs kernels 8 and 7/9 where the prover would run kernel 1.  The
+    launch counts set to 0 before the prove and read after it; no plain
+    version may run, no kernel-1 launch.  Returns (launches, bytes)."""
+    import torch
+    from mimc_torch import make_mimc_stark
+    from genstark_tpu_torch import ntt
+    from genstark_tpu_torch.ntt import Radix2Plan
+    stark, constants = make_mimc_stark(steps, device, modulus=modulus)
+    dev = stark.air.field.device_field(device)
+    saved, saved_plans = ntt.digit_dft_field, dev.plans
+    ntt.digit_dft_field = lambda field: False
+    dev.plans = {}
+    kernels.reset_launch_counts()
+    try:
+        with plain_calls() as plain:
+            data = stark.serialize(stark.prove(mimc_assertions(stark, constants, steps), [[3]]))
+            torch.cuda.synchronize()
+    finally:
+        ntt.digit_dft_field, dev.plans = saved, saved_plans
+    launches = dict(kernels.launch_counts)
+    require_native(stark, f"{label} radix-2")
+    plans = next(iter(stark._provers.values()))._get_plans()
+    routes = {k: (type(p).__name__, p.route) for k, p in plans.items()}
+    print(f"{label} forced onto the radix-2 route: {routes}; launches {launches}; "
+          f"plain-version calls {plain or 0}; proof {proof_digest(data)}", flush=True)
+    require(all(isinstance(p, Radix2Plan) for p in plans.values()),
+            f"{label}: a plan left the radix-2 route: {routes}")
+    require(not plain, f"{label} radix-2: the prove on the card ran plain versions {plain}")
+    require(launches["dft_level"] == 0, f"{label} radix-2: kernel 1 launched")
+    check_launches(f"{label} radix-2", launches, RADIX2_LARGE_KERNELS)
+    return launches, data
+
+
+def run_mid_limb_paths(kernels, device, sync_log: dict, smi_line: str,
+                       steps: int = LARGE_STEPS):
+    """MiMC over the solinas moduli of 96, 160 and 192 bits (the digit route
+    at L = 6, 10 and 12) at `steps` steps, the bench options, secret input
+    3: `run_largest` (three one-fetch proves, the 192-bit one against
+    MIMC192_18_PIN), `run_staged` (its bytes), then `radix2_route_proof`
+    (the same bytes with every transform on kernels 8 and 7/9).  Returns
+    ({label: stats}, [launches of each run])."""
+    import torch
+    from mimc_torch import make_mimc_stark
+    from genstark_tpu_torch.field import create_prime_field
+    from genstark_tpu_torch.ntt import dft_levels
+    from genstark_tpu_torch.testing import SOLINAS96, SOLINAS160, SOLINAS192
+    paths, all_launches = {}, []
+    for modulus, pin in ((SOLINAS96, None), (SOLINAS160, None), (SOLINAS192, MIMC192_18_PIN)):
+        label = f"mimc{modulus.bit_length()}-2^{steps.bit_length() - 1}"
+        phase(f"{label}: MiMC over the solinas modulus of {modulus.bit_length()} bits (L = "
+              f"{create_prime_field(modulus).params.L}), {steps} steps (Ne = {16 * steps}: the "
+              f"digit route, levels {dft_levels(16 * steps)}), one-fetch, staged and forced "
+              f"onto the radix-2 route")
+        t0 = time.monotonic()
+        stark, constants = make_mimc_stark(steps, device, modulus=modulus)
+        assertions = mimc_assertions(stark, constants, steps)
+        launches, data, stats = run_largest(kernels, stark, assertions, BENCH_KERNELS, label,
+                                            sync_log, pin=pin)
+        all_launches.append(launches)
+        launches, stats["staged"] = run_staged(
+            kernels, stark, assertions, [[3]], proof_digest(data), STAGED_DIGIT, label,
+            sync_log, smi_line, reps=2)
+        all_launches.append(launches)
+        del stark
+        launches, forced = radix2_route_proof(kernels, device, steps, modulus, label)
+        all_launches.append(launches)
+        require(forced == data, f"{label}: the digit and radix-2 routes gave different bytes")
+        stats["radix2_launches"] = launches
+        paths[label] = stats
+        del data, forced
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        print(f"{label} phase {time.monotonic() - t0:.1f} s", flush=True)
+    return paths, all_launches
 
 
 def run_largest(kernels, stark, assertions, required, label: str, sync_log: dict, pin=None):
@@ -2607,7 +2730,7 @@ def main() -> int:
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
     from genstark_tpu_torch.ntt import DftPlan, dft_levels
-    from genstark_tpu_torch.testing import GOLDILOCKS
+    from genstark_tpu_torch.testing import GOLDILOCKS, SOLINAS96, SOLINAS160, SOLINAS192
     sys.path.insert(0, os.path.join(HERE, "examples"))
     from mimc_torch import make_mimc_stark, prove_div, prove_mimc, round_constants
     from examples import (demo_static_torch, elliptic_torch, fibonacci_torch,
@@ -2666,14 +2789,17 @@ def main() -> int:
     dev128, dev32 = f128.device_field(device), f32.device_field(device)
     check_dft(dev128, f128, rng, results)
     check_dft(dev32, f32, rng, results)
-    wide_digit = [create_prime_field(m) for m in (GOLDILOCKS, P224, P256)]
-    for field in wide_digit:          # kernel 1 at L = 4, 14 and 16
+    wide_digit = [create_prime_field(m)
+                  for m in (GOLDILOCKS, SOLINAS96, SOLINAS160, SOLINAS192, P224, P256)]
+    for field in wide_digit:          # kernel 1 at L = 4, 6, 10, 12, 14 and 16
         check_dft(field.device_field(device), field, rng, results)
     check_hash_words(dev128, rng, results)
     check_hash_limbs(dev128, f128, rng, results)
     check_tail(dev128, f128, rng, results)
-    all_fields = [create_prime_field(m) for m in (P32, P64, P128, P224, P256)]
-    f256 = all_fields[-1]
+    # every limb count: L = 2, 4, 8, 6, 10, 12, 14, 16 (P256 last)
+    all_fields = [create_prime_field(m) for m in (P32, P64, P128, SOLINAS96, SOLINAS160,
+                                                  SOLINAS192, P224, P256)]
+    f64, f192, f256 = all_fields[1], all_fields[5], all_fields[-1]
     dev256 = f256.device_field(device)
     check_field_ew(device, all_fields, rng, results)
     check_outer(device, all_fields, rng, results)
@@ -2707,10 +2833,15 @@ def main() -> int:
 
     phase(f"the P256 LDEs of {LARGE_N} and {4 * LARGE_N} points on the digit route and on the "
           f"radix-2 route, in this one call")
-    route_times = check_route_times(kernels, device, f256, smi_line)
+    route_times = check_route_times(kernels, device, f256, (LARGE_N, 4 * LARGE_N), smi_line)
 
-    phase("kernel 1 at every level of a 2^20-point LDE (R^-1) over 2^64 - 2^32 + 1 and P224")
-    for field in wide_digit[:2]:
+    phase(f"the {LARGE_N}-point LDE over the 192-bit solinas field (L = 12) on the digit route "
+          f"and on the radix-2 route")
+    route_times["p192"] = check_route_times(kernels, device, f192, (LARGE_N,), smi_line)
+
+    phase("kernel 1 at every level of a 2^20-point LDE (R^-1) over 2^64 - 2^32 + 1, the "
+          "solinas moduli of 96, 160 and 192 bits, and P224")
+    for field in wide_digit[:5]:
         n = 2 ** 20
         check_dft_chain(device, field, DftPlan(
             field, field.device_field(device), n, field.get_root_of_unity(n),
@@ -2731,9 +2862,20 @@ def main() -> int:
     phase(f"kernels vs plain versions at the mimc64-2^18 path's shapes (P64, Ne = {LARGE_N}, "
           f"[2, 4, Ne] operands: kernel 8's bit-reversed pass and the stage passes)")
     t0 = time.monotonic()
-    f64 = all_fields[1]
     check_largest_shapes(device, f64, LARGE_N, results)
     print(f"mimc64 shape checks {time.monotonic() - t0:.1f} s", flush=True)
+
+    phase(f"kernels vs plain versions at the mimc192-2^18 path's shapes (L = 12, Ne = "
+          f"{LARGE_N}, [2, 12, Ne] operands; kernel 1 at every level of its LDE and iNTT, "
+          f"kernel 8's bit-reversed pass and the stage passes of the radix-2 route)")
+    t0 = time.monotonic()
+    mid_times = check_largest_shapes(device, f192, LARGE_N, results, rates,
+                                     ladder_plans(f192, f192.device_field(device),
+                                                  (LARGE_STEPS,)), radix2_too=True)
+    print(json.dumps({"mimc192_kernel_times": {
+        k: {"ms": v[0], "device_ms": v[1], "bound_ms": v[2], "bound_by": v[3]}
+        for k, v in mid_times.items()}, "device": smi_line}), flush=True)
+    print(f"mimc192 shape checks {time.monotonic() - t0:.1f} s", flush=True)
 
     phase(f"kernels vs plain versions at the MiMC-128 ladder's largest shapes (Ne = "
           f"{16 * LADDER_STEPS[-1]}, [2, 8, Ne] operands; kernel 1 at every level of the "
@@ -2783,7 +2925,10 @@ def main() -> int:
     for label, modulus, options, pin, required in (
             ("p256", P256, None, P256_64_PIN, ("dft_level",)),
             ("p64", P64, TOY, P64_64_PIN, ("butterfly",)),
-            ("goldilocks", GOLDILOCKS, TOY, GOLDILOCKS_64_PIN, ("dft_level",))):
+            ("goldilocks", GOLDILOCKS, TOY, GOLDILOCKS_64_PIN, ("dft_level",)),
+            ("p96", SOLINAS96, TOY, SOLINAS96_64_PIN, ("dft_level",)),
+            ("p160", SOLINAS160, TOY, SOLINAS160_64_PIN, ("dft_level",)),
+            ("p192", SOLINAS192, TOY, SOLINAS192_64_PIN, ("dft_level",))):
         kernels.reset_launch_counts()
         stark, data = prove_mimc(64, device, modulus=modulus, options=options)
         launches = dict(kernels.launch_counts)
@@ -2903,6 +3048,9 @@ def main() -> int:
     del four, mimc64_data
     torch.cuda.empty_cache()
 
+    mid_paths, mid_launches = run_mid_limb_paths(kernels, device, sync_log, smi_line)
+    print(json.dumps({"mid_limb_paths": mid_paths, "device": smi_line}), flush=True)
+
     phase("the public ntt of 2^20 p128 points: its rate on the card")
     check_ntt_rate(kernels, device, smi_line)
 
@@ -2970,6 +3118,7 @@ def main() -> int:
                 + largest_launches[k] + mimc64_launches[k] + mimc64_staged[k]
                 + sum(m[k] for m in merkle_launches)
                 + sum(m[k] for m in ladder_launches)
+                + sum(m[k] for m in mid_launches)
                 + sum(m[k] for m in demo_launches)
                 + sum(st["launches"][k] for st in staged.values())
                 + div_launches[k] + rates["launches"].get(k, 0)

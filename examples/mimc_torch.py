@@ -3,13 +3,16 @@
 fri=24; the 128-bit field by default, or any field of the port such as
 P256, the reference's mimc256), importing only genstark_tpu_torch.
 
-    python -m examples.mimc_torch [steps] [device] [modulus name]
+    python -m examples.mimc_torch [steps] [device] [modulus]
 
-e.g. `python -m examples.mimc_torch 8192 cuda P256`, or the large-domain
-path `python -m examples.mimc_torch 262144 cuda P256` (Ne = 2^22).  It
-prints the proof's size and sha256 with the seconds it took and the peak
-host memory.  `make_div_stark` / `prove_div` build and prove the same
-recurrence with a constraint that divides by a register.
+The modulus is a field name (P32, P64, P128, P224, P256) or an integer
+expression of +, -, *, ** or ^ and parentheses, e.g. `python -m
+examples.mimc_torch 8192 cuda P256`, the large-domain path `python -m
+examples.mimc_torch 262144 cuda P256` (Ne = 2^22), or `python -m
+examples.mimc_torch 262144 cuda '2^192 - 49*2^32 + 1'`.  It prints the
+proof's size and sha256 with the seconds it took and the peak host memory.
+`make_div_stark` / `prove_div` build and prove the same recurrence with a
+constraint that divides by a register.
 """
 
 from __future__ import annotations
@@ -115,6 +118,28 @@ def prove_div(steps: int, device, seed_value: int = 3, **kwargs):
     return stark, stark.serialize(stark.prove(assertions, [], [seed_value]))
 
 
+def parse_modulus(text: str) -> int:
+    """A field name of genstark_tpu_torch.field (P32 ... P256, any case) or
+    an integer expression of +, -, *, ** (or ^) and parentheses."""
+    import ast
+    import operator
+    named = getattr(fields, text.strip().upper(), None)
+    if isinstance(named, int):
+        return named
+    ops = {ast.Add: operator.add, ast.Sub: operator.sub, ast.Mult: operator.mul,
+           ast.Pow: operator.pow}
+
+    def value(node):
+        if isinstance(node, ast.Constant) and type(node.value) is int:
+            return node.value
+        if isinstance(node, ast.BinOp) and type(node.op) in ops:
+            return ops[type(node.op)](value(node.left), value(node.right))
+        if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.USub):
+            return -value(node.operand)
+        raise ValueError(f"not a field name or an integer expression: {text!r}")
+    return value(ast.parse(text.replace("^", "**"), mode="eval").body)
+
+
 if __name__ == "__main__":
     import hashlib
     import resource
@@ -122,8 +147,8 @@ if __name__ == "__main__":
     from genstark_tpu_torch.utils import Logger
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 2 ** 13
     dev = sys.argv[2] if len(sys.argv) > 2 else "cuda"
-    name = sys.argv[3].upper() if len(sys.argv) > 3 else "P128"
-    modulus = getattr(fields, name)
+    name = sys.argv[3] if len(sys.argv) > 3 else "P128"
+    modulus = parse_modulus(name)
     log = Logger().start(f"MiMC over {name}, {n} steps, on {dev}")
     _, data = prove_mimc(n, dev, modulus=modulus)
     log(f"proof {len(data)} bytes, sha256 {hashlib.sha256(data).hexdigest()}, peak host RSS "

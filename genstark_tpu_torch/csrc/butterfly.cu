@@ -55,7 +55,7 @@
 // Input and output are strided views [B, G, L, n], so the four-step split
 // around the kernel (ntt/radix2.py) needs no transposes.  Shared memory bounds
 // the local size: 1.5 x L x n int32 words per block at C = 1
-// (kernels.butterfly_max_n: 2048 points at L = 14 and 16, the port's
+// (kernels.butterfly_max_n: 2048 points at every L up to 16, the port's
 // LOCAL_MAX; the TPU's _MBLK = 2048 butterflies per block was sized for VMEM
 // and is not used).
 #include <cuda_runtime.h>
@@ -313,7 +313,10 @@ extern "C" int gs_butterfly(int L, const void* x, const long long* x_strides, vo
   switch (L) {
     case 2: return gs::launch_butterfly<2>(a, transforms, f, st);
     case 4: return gs::launch_butterfly<4>(a, transforms, f, st);
+    case 6: return gs::launch_butterfly<6>(a, transforms, f, st);
     case 8: return gs::launch_butterfly<8>(a, transforms, f, st);
+    case 10: return gs::launch_butterfly<10>(a, transforms, f, st);
+    case 12: return gs::launch_butterfly<12>(a, transforms, f, st);
     case 14: return gs::launch_butterfly<14>(a, transforms, f, st);
     case 16: return gs::launch_butterfly<16>(a, transforms, f, st);
     default: return cudaErrorInvalidValue;

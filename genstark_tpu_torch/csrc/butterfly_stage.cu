@@ -184,7 +184,10 @@ extern "C" int gs_butterfly_stages(int L, void* x, const void* tw, int batch, in
   switch (L) {
     case 2: return gs::launch_stages<2>(d, t, batch, log_n, log_m, k, f, st);
     case 4: return gs::launch_stages<4>(d, t, batch, log_n, log_m, k, f, st);
+    case 6: return gs::launch_stages<6>(d, t, batch, log_n, log_m, k, f, st);
     case 8: return gs::launch_stages<8>(d, t, batch, log_n, log_m, k, f, st);
+    case 10: return gs::launch_stages<10>(d, t, batch, log_n, log_m, k, f, st);
+    case 12: return gs::launch_stages<12>(d, t, batch, log_n, log_m, k, f, st);
     case 14: return gs::launch_stages<14>(d, t, batch, log_n, log_m, k, f, st);
     case 16: return gs::launch_stages<16>(d, t, batch, log_n, log_m, k, f, st);
     default: return cudaErrorInvalidValue;

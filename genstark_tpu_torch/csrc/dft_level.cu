@@ -14,9 +14,11 @@
 // products of one (k, j) pair sum into 2D-1 int32 diagonals, exactly as the
 // TPU kernel's s8 x s8 -> s32 matmuls do.
 //
-// Instantiated for every limb count of a modulus the host's solinas_spec
-// takes (ntt/dft.py): L = 2 (p32), 4 (2^64 - 2^32 + 1), 8 (p128), 14 (p224)
-// and 16 (p256), as the TPU kernel is generic in L.
+// Instantiated for every limb count of a modulus up to 256 bits, so for
+// every modulus the host sends to the digit route (ntt.digit_dft_field: a
+// solinas_spec whose L is the field's): L = 2 (p32), 4 (2^64 - 2^32 + 1), 6,
+// 8 (p128), 10, 12, 14 (p224) and 16 (p256), as the TPU kernel is generic
+// in L.
 //
 // What bounds it on this card: the digit multiply-adds, m * D^2 per output
 // (18,496 at m = 64, D = 17; 69,696 at D = 33), which the int8 tensor cores
@@ -26,7 +28,7 @@
 //     cp.async) and the D x-digit planes of its columns in shared memory,
 //     x transposed to [col][j] while staging (the mma's B operand wants K
 //     contiguous per column, and sm_90 has no 8-bit ldmatrix.trans), j in
-//     slices of 64 (32 at L >= 14, dft_slice), zero-padded below 16 rows, 32
+//     slices of 64 (32 at L >= 10, dft_slice), zero-padded below 16 rows, 32
 //     j and past the last column.  Rows of shared memory are 16 bytes longer
 //     than the slice, so the fragment reads of a warp hit 32 distinct banks;
 //   - for each diagonal d a warp accumulates sum_i W_i x_{d-i} with
@@ -39,11 +41,13 @@
 //     slice (4 * D words a k step of 32), so a product reads only its B
 //     fragment from shared memory; a diagonal folds into a window of three
 //     limbs an output, and each limb leaves the window once a slice for the
-//     lazy limbs in shared memory (4 outputs x N_LAZY words a thread).  At
-//     L >= 14 two k steps would hold 232 or 264 words of fragments, past the
-//     255 registers a thread has, so those limb counts stage slices of 32
-//     (one k step, 116 or 132 words) and run one block an SM (their shared
-//     memory is 130-148 KB).  No spills at any L;
+//     lazy limbs in shared memory (4 outputs x N_LAZY words a thread).  Two
+//     k steps a slice while their fragments fit kDftFragmentWords (L <= 8:
+//     at most 136 words); from L = 10 on they would hold 168 to 264 words
+//     of the 255 registers a thread has, so those limb counts stage slices
+//     of 32 (one k step, 84 to 132 words, dft_ks).  Two blocks an SM where
+//     their shared memory fits (L <= 12: at most 110 KB a block), one at L
+//     >= 14 (130-148 KB).  No spills at any L;
 //   - the epilogue reduces the wide integer in L-limb chunks with the
 //     32-bit-word product (field.cuh mont_mul_w) and applies the twiddle
 //     with it.
@@ -69,8 +73,14 @@ constexpr int kDftRows = 16;      // rows k of a block: one mma M tile
 constexpr int kDftCols = 32;      // columns of a block: 4 warps x 8
 constexpr int kDftThreads = 128;
 
-// j staged at once (kernels.dft_slice): two k steps of 32, one at L >= 14
-__host__ __device__ constexpr int dft_slice(int L) { return L >= 14 ? 32 : 64; }
+// Words of A fragments a thread may hold (kernels.DFT_FRAGMENT_WORDS): 4 a
+// digit plane and k step of 32.  k steps a slice: two while they fit, else
+// one; j staged at once (kernels.dft_slice): 32 per k step.
+constexpr int kDftFragmentWords = 160;
+__host__ __device__ constexpr int dft_ks(int L) {
+  return 4 * (2 * L + 1) * 2 <= kDftFragmentWords ? 2 : 1;
+}
+__host__ __device__ constexpr int dft_slice(int L) { return 32 * dft_ks(L); }
 
 struct DftEpilogue {
   uint32_t corr[kMaxL];                 // (-n_slices * BIAS * sum_k 2^(8k)) mod p, limbs
@@ -150,6 +160,14 @@ __host__ __device__ constexpr int dft_smem_bytes(int staged_depth) {
          4 * DftShape<L>::N_LAZY * kDftThreads * 4;
 }
 
+// Blocks an SM (the launch bound): two where two blocks' shared memory at
+// the slice depth, and the 1 KB the card reserves for each, fit the SM's 228
+// KB; else one.
+template <int L>
+__host__ __device__ constexpr int dft_blocks_per_sm() {
+  return 2 * (dft_smem_bytes<L>(dft_slice(L)) + 1024) <= 228 * 1024 ? 2 : 1;
+}
+
 // Lazy limbs -> canonical words of the residue mod p.
 template <int L>
 __device__ __forceinline__ void lazy_to_words(const uint32_t (&lz)[DftShape<L>::N_LAZY],
@@ -183,11 +201,11 @@ __device__ __forceinline__ void lazy_to_words(const uint32_t (&lz)[DftShape<L>::
   }
 }
 
-// KS: k steps of 32 a slice (1 for m <= 32 or L >= 14, else 2), fixed at
-// compile time so the mma loop has no predicates and its loads can be
-// scheduled ahead.
+// KS: k steps of 32 a slice (1 for m <= 32 or where dft_ks(L) is 1, else
+// 2), fixed at compile time so the mma loop has no predicates and its loads
+// can be scheduled ahead.
 template <int L, int KS>
-__global__ void __launch_bounds__(kDftThreads, L >= 14 ? 1 : 2)
+__global__ void __launch_bounds__(kDftThreads, dft_blocks_per_sm<L>())
 dft_level_kernel(DftArgs a, FieldW f, DftEpilogue epi) {
   using S = DftShape<L>;
   constexpr int D = S::D;
@@ -403,7 +421,7 @@ cudaError_t launch_ks(const DftArgs& a, const FieldW& f, const DftEpilogue& epi,
 template <int L>
 cudaError_t launch(const DftArgs& a, const FieldW& f, const DftEpilogue& epi,
                    cudaStream_t stream) {
-  if constexpr (dft_slice(L) == 32) {
+  if constexpr (dft_ks(L) == 1) {
     return launch_ks<L, 1>(a, f, epi, stream);
   } else {
     return a.m <= 32 ? launch_ks<L, 1>(a, f, epi, stream) : launch_ks<L, 2>(a, f, epi, stream);
@@ -462,7 +480,10 @@ extern "C" int gs_dft_level(int L, const void* w8, const void* x, const long lon
   switch (L) {
     case 2: return gs::launch_checked<2>(a, f, epi, n_chunk_consts, st);
     case 4: return gs::launch_checked<4>(a, f, epi, n_chunk_consts, st);
+    case 6: return gs::launch_checked<6>(a, f, epi, n_chunk_consts, st);
     case 8: return gs::launch_checked<8>(a, f, epi, n_chunk_consts, st);
+    case 10: return gs::launch_checked<10>(a, f, epi, n_chunk_consts, st);
+    case 12: return gs::launch_checked<12>(a, f, epi, n_chunk_consts, st);
     case 14: return gs::launch_checked<14>(a, f, epi, n_chunk_consts, st);
     case 16: return gs::launch_checked<16>(a, f, epi, n_chunk_consts, st);
     default:

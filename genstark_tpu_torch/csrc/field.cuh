@@ -7,7 +7,7 @@
 // element is L 16-bit limbs, little-endian, limb-major int32 [L, n] (the JAX
 // layout); a kernel packs them into K = L/2 32-bit words in registers.  Word
 // w of an element is its limb pair (2w, 2w+1): w = limb[2w] | limb[2w+1] <<
-// 16.  Every L the port takes (2, 4, 8, 14, 16) is even, so R = 2^(32K) =
+// 16.  Every L the port takes (2 to 16) is even, so R = 2^(32K) =
 // 2^(16L): the Montgomery radix is the JAX package's, and every Montgomery
 // table, constant and R mod p of the port holds unchanged.  Every function
 // returns the canonical representative (< p), so a kernel built on these

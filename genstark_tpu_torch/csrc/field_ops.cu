@@ -414,7 +414,10 @@ extern "C" int gs_field_ew(int op, int L, const void* a, const long long* a_str,
   switch (L) {
     case 2: return gs::launch_ew<1>(op, e, f, st);
     case 4: return gs::launch_ew<2>(op, e, f, st);
+    case 6: return gs::launch_ew<3>(op, e, f, st);
     case 8: return gs::launch_ew<4>(op, e, f, st);
+    case 10: return gs::launch_ew<5>(op, e, f, st);
+    case 12: return gs::launch_ew<6>(op, e, f, st);
     case 14: return gs::launch_ew<7>(op, e, f, st);
     case 16: return gs::launch_ew<8>(op, e, f, st);
     default: return cudaErrorInvalidValue;
@@ -433,7 +436,10 @@ extern "C" int gs_outer_table(int L, const void* outer, int nj, const void* inne
   switch (L) {
     case 2: return gs::launch_outer<1>(o, nj, in, s, t, f, st);
     case 4: return gs::launch_outer<2>(o, nj, in, s, t, f, st);
+    case 6: return gs::launch_outer<3>(o, nj, in, s, t, f, st);
     case 8: return gs::launch_outer<4>(o, nj, in, s, t, f, st);
+    case 10: return gs::launch_outer<5>(o, nj, in, s, t, f, st);
+    case 12: return gs::launch_outer<6>(o, nj, in, s, t, f, st);
     case 14: return gs::launch_outer<7>(o, nj, in, s, t, f, st);
     case 16: return gs::launch_outer<8>(o, nj, in, s, t, f, st);
     default: return cudaErrorInvalidValue;
@@ -456,7 +462,10 @@ extern "C" int gs_mont_inv(int L, const void* a, void* out, long long n, const u
   switch (L) {
     case 2: return gs::launch_inv<1>(x, o, n, ia, f, st);
     case 4: return gs::launch_inv<2>(x, o, n, ia, f, st);
+    case 6: return gs::launch_inv<3>(x, o, n, ia, f, st);
     case 8: return gs::launch_inv<4>(x, o, n, ia, f, st);
+    case 10: return gs::launch_inv<5>(x, o, n, ia, f, st);
+    case 12: return gs::launch_inv<6>(x, o, n, ia, f, st);
     case 14: return gs::launch_inv<7>(x, o, n, ia, f, st);
     case 16: return gs::launch_inv<8>(x, o, n, ia, f, st);
     default: return cudaErrorInvalidValue;

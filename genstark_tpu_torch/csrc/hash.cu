@@ -311,7 +311,10 @@ cudaError_t launch_limbs_algo(int L, const uint32_t* base, int n_vec, bool rows,
   switch (L) {
     case 2: return launch_limbs<ALGO, 2>(base, n_vec, rows, batch, out, st);
     case 4: return launch_limbs<ALGO, 4>(base, n_vec, rows, batch, out, st);
+    case 6: return launch_limbs<ALGO, 6>(base, n_vec, rows, batch, out, st);
     case 8: return launch_limbs<ALGO, 8>(base, n_vec, rows, batch, out, st);
+    case 10: return launch_limbs<ALGO, 10>(base, n_vec, rows, batch, out, st);
+    case 12: return launch_limbs<ALGO, 12>(base, n_vec, rows, batch, out, st);
     case 14: return launch_limbs<ALGO, 14>(base, n_vec, rows, batch, out, st);
     case 16: return launch_limbs<ALGO, 16>(base, n_vec, rows, batch, out, st);
     default: return cudaErrorInvalidValue;

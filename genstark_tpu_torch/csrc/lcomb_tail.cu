@@ -34,7 +34,7 @@
 //     positions;
 //   - the small factored tables (dom, incr) stay in device memory, read
 //     through the read-only cache.
-// Any L in {2, 4, 8, 14, 16} (p32 to p256), any Ne and s, B >= 0, and any
+// Any even L from 2 to 16 (p32 to p256), any Ne and s, B >= 0, and any
 // ext whose constants, (1 + nb + nl + ext) elements of L/2 words, fit in a
 // block's shared memory (kernels.lcomb_tail raises ValueError otherwise).
 #include <cuda_runtime.h>
@@ -293,7 +293,10 @@ extern "C" int gs_lcomb_tail(int L, void* const* ptrs, const long long* dims,
   switch (L) {
     case 2: return gs::launch_tail<1>(a, f, st);
     case 4: return gs::launch_tail<2>(a, f, st);
+    case 6: return gs::launch_tail<3>(a, f, st);
     case 8: return gs::launch_tail<4>(a, f, st);
+    case 10: return gs::launch_tail<5>(a, f, st);
+    case 12: return gs::launch_tail<6>(a, f, st);
     case 14: return gs::launch_tail<7>(a, f, st);
     case 16: return gs::launch_tail<8>(a, f, st);
     default: return cudaErrorInvalidValue;

@@ -93,7 +93,10 @@ extern "C" int gs_mont_chain(int L, const void* x, void* out, long long n, int d
   switch (L) {
     case 2: return gs::launch_mont_chain<1>(a, o, n, depth, f, st);
     case 4: return gs::launch_mont_chain<2>(a, o, n, depth, f, st);
+    case 6: return gs::launch_mont_chain<3>(a, o, n, depth, f, st);
     case 8: return gs::launch_mont_chain<4>(a, o, n, depth, f, st);
+    case 10: return gs::launch_mont_chain<5>(a, o, n, depth, f, st);
+    case 12: return gs::launch_mont_chain<6>(a, o, n, depth, f, st);
     case 14: return gs::launch_mont_chain<7>(a, o, n, depth, f, st);
     case 16: return gs::launch_mont_chain<8>(a, o, n, depth, f, st);
     default: return cudaErrorInvalidValue;

@@ -35,9 +35,10 @@ _SOURCES = ("dft_level.cu", "hash.cu", "lcomb_tail.cu", "field_ops.cu", "butterf
 _HEADERS = ("field.cuh",)
 _LIB_NAME = "libgenstark_kernels.so"
 
-# Limb counts the field kernels are instantiated for (p32, p64, p128, p224,
-# p256).
-FIELD_LS = (2, 4, 8, 14, 16)
+# Limb counts the field kernels are instantiated for: every L of a modulus
+# up to 256 bits (twice its 32-bit words; p32, p64, p128, p224, p256 and the
+# moduli of 65-96, 129-160 and 161-192 bits).
+FIELD_LS = (2, 4, 6, 8, 10, 12, 14, 16)
 # Elementwise kernel: batch dimensions after coalescing.
 EW_MAX_DIMS = 4
 # Shared memory a block may opt in to (227 KB): kernel 8 holds a whole local
@@ -208,18 +209,23 @@ def _field_l(dev) -> int:
 
 
 # ----------------------------------------------------------------- kernel 1
-# The limb counts kernel 1 is built for: every L of a modulus that
-# ntt.dft.solinas_spec takes among the port's fields (p32, 2^64 - 2^32 + 1,
-# p128, p224, p256).
-DFT_LS = (2, 4, 8, 14, 16)
+# The limb counts kernel 1 is built for: every field L up to 256 bits, so
+# every modulus that ntt.digit_dft_field sends to the digit route (a
+# solinas_spec whose L is the field's: p32, 2^64 - 2^32 + 1, p128, p224,
+# p256, and the solinas moduli of 89-96, 153-160 and 185-192 bits).
+DFT_LS = FIELD_LS
+# Words of A fragments a thread may hold for two k steps (csrc/dft_level.cu
+# dft_ks): above it a slice is one k step of 32.
+DFT_FRAGMENT_WORDS = 160
 
 
 def dft_slice(L: int) -> int:
     """Contraction depth kernel 1 stages at once (csrc/dft_level.cu
     dft_slice): each slice adds its own bias per diagonal, which the
-    correction cancels.  32 at L >= 14, where two k steps of A fragments
-    would not fit a thread's registers."""
-    return 32 if L >= 14 else 64
+    correction cancels.  Two k steps (64) while their A fragments, 4 words
+    per digit plane and step, fit DFT_FRAGMENT_WORDS (L <= 8), else one (32:
+    L >= 10)."""
+    return 64 if 4 * (2 * L + 1) * 2 <= DFT_FRAGMENT_WORDS else 32
 
 
 def dft_level(dev, w8, x, m: int, rest: int, tw, out_digits: bool):

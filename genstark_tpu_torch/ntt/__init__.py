@@ -1,12 +1,14 @@
-"""NTT / iNTT: chained digit-matmul DFT levels (every solinas field: p32,
-2^64 - 2^32 + 1, p128, p224, p256) or the radix-2 path (P64, the demo field
-96769 and any other modulus).
+"""NTT / iNTT: chained digit-matmul DFT levels (every solinas field whose
+spec counts the field's limbs: p32, 2^64 - 2^32 + 1, p128, p224, p256, and
+the solinas moduli of 89-96, 153-160 and 185-192 bits) or the radix-2 path
+(P64, the demo field 96769 and any other modulus).
 
 `make_plan` picks the route per field by the JAX package's rule,
 `mxu_applicable` (genstark_tpu/ntt/__init__.py:248): the digit DFT for every
-modulus `dft.solinas_spec` takes (kernel 1 is built for each of their limb
-counts), the radix-2 plan of ``ntt/radix2.py`` (kernel 8, the four-step
-split, the stage passes) for the others.  The JAX rule's size floor
+modulus `dft.solinas_spec` takes with the field's own limb count
+(`digit_dft_field`; kernel 1 is built for every L up to 16), the radix-2
+plan of ``ntt/radix2.py`` (kernel 8, the four-step split, the stage passes)
+for the others.  The JAX rule's size floor
 (`_mxu_min_n`, 2^13) and its level cost model are tuned to the TPU's
 measured rates (`_MXU_RATE`), which the port leaves out: the digit route
 runs at every size.  `transform` runs either plan.  The
@@ -94,9 +96,18 @@ def table_specs(field, n: int, root: int, scale: int = 1):
 
 def digit_dft_field(field) -> bool:
     """True for the fields the digit DFT takes: `dft.solinas_spec` accepts
-    the modulus and kernel 1 is built for its limb count (p32, 2^64 - 2^32
-    + 1, p128, p224, p256)."""
-    return (dft.solinas_spec(field.modulus) is not None
+    the modulus, counts the field's own limbs (its L equals
+    `field.params.L`), and kernel 1 is built for that limb count (p32,
+    2^64 - 2^32 + 1, p128, p224, p256, and the solinas moduli of 89-96,
+    153-160 and 185-192 bits).
+
+    The spec counts limbs from the modulus's bytes, the field from its
+    32-bit words, so the two differ when the byte count is 2 mod 4 (9-16,
+    41-48, 73-80, 105-112, 137-144, 169-176, 201-208 and 233-240 bits):
+    the spec's digit planes would then miss the field's top limb.  Those
+    moduli take the radix-2 route, which computes the same transform."""
+    spec = dft.solinas_spec(field.modulus)
+    return (spec is not None and spec[0] == field.params.L
             and field.params.L in kernels.DFT_LS)
 
 

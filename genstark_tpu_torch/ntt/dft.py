@@ -58,7 +58,13 @@ def solinas_spec(modulus: int):
     (copy of the JAX package's ``ntt/mxu.py`` solinas_spec).  Of the port's
     fields it takes p32 (u = 1536, a = 1), p128 (9, 2), p224 (1, 6), p256
     (351, 2) and 2^64 - 2^32 + 1 (1, 2); it refuses P64, whose u = 21 * 2^14
-    is not below 2^16, and the demo field 96769 (three bytes)."""
+    is not below 2^16, and the demo field 96769 (three bytes).
+
+    L here is half the modulus's byte count, while the field's L is twice
+    its 32-bit word count: for a byte count of 2 mod 4 (0xfffffffa0001:
+    spec L = 3, field L = 4) the spec's L is one less than the field's.
+    `ntt.digit_dft_field` sends only moduli whose two counts agree to the
+    digit route; the others take the radix-2 route."""
     eb = (modulus.bit_length() + 7) // 8
     if eb % 2 or (1 << (8 * eb)) < modulus:
         return None

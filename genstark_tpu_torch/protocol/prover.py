@@ -30,7 +30,8 @@ package's one-program default path does (`prove`, fused.py:1280-1361).
    bytes are the same either way.
 
 Every transform is a chain of DFT levels (kernel 1) for the solinas fields
-(p32, 2^64 - 2^32 + 1, p128, p224, p256), and the radix-2 path (kernels 8
+(p32, 2^64 - 2^32 + 1, p128, p224, p256 and the others whose solinas_spec
+counts the field's limbs), and the radix-2 path (kernels 8
 and 5, plus the stage kernels 7 and 9 above 2^21 points) for the others,
 P64 among them (ntt/__init__.py `make_plan`).
 

@@ -17,6 +17,19 @@ from .field.limbs import ints_to_limbs
 # at L = 4 and chip_smoke.py's toy prove do.
 GOLDILOCKS = 2 ** 64 - 2 ** 32 + 1
 
+# The smallest u of p = 2^(32k) - u 2^32 + 1 that is prime, at 96, 160 and
+# 192 bits: solinas moduli (u < 2^16, a = 2) whose field L (6, 10, 12)
+# equals the spec's, so the digit route takes them; each has 2-adicity 32.
+SOLINAS96 = 2 ** 96 - 2 ** 32 + 1
+SOLINAS160 = 2 ** 160 - 21 * 2 ** 32 + 1
+SOLINAS192 = 2 ** 192 - 49 * 2 ** 32 + 1
+# Primes of the same form at 80, 144 and 176 bits (field L = 6, 10, 12):
+# their byte count is 2 mod 4, so `solinas_spec` counts one limb fewer than
+# the field and they take the radix-2 route (`ntt.digit_dft_field`).
+SPLIT80 = 2 ** 80 - 111 * 2 ** 32 + 1
+SPLIT144 = 2 ** 144 - 99 * 2 ** 32 + 1
+SPLIT176 = 2 ** 176 - 373 * 2 ** 32 + 1
+
 
 def edge_values(field) -> list:
     """0, 1, 2, p - 1, p - 2, R mod p (the Montgomery one) and p >> 1: the

@@ -2,7 +2,7 @@
 `cuda`: each test skips where torch sees no card (this decision is taken in
 the fixture, never at import).  On the machine with the card:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -p no:xdist
+    python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -m cuda
 """
 
 import numpy as np
@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
-from genstark_tpu_torch.testing import GOLDILOCKS, edge_input, edge_pairs, edge_values
+from genstark_tpu_torch.testing import (GOLDILOCKS, SOLINAS96, SOLINAS160, SOLINAS192,
+                                        edge_input, edge_pairs, edge_values)
 
 pytestmark = pytest.mark.cuda
 
@@ -28,8 +29,9 @@ def _elements(rng, modulus, L, n):
     return limbs.astype(np.uint32)
 
 
-@pytest.mark.parametrize("modulus", [P32, GOLDILOCKS, P128, P224, P256],
-                         ids=["p32", "goldilocks", "p128", "p224", "p256"])
+@pytest.mark.parametrize("modulus", [P32, GOLDILOCKS, SOLINAS96, P128, SOLINAS160, SOLINAS192,
+                                     P224, P256],
+                         ids=["p32", "goldilocks", "p96", "p128", "p160", "p192", "p224", "p256"])
 @pytest.mark.parametrize("n", [64, 2 ** 12])
 def test_dft_levels_kernel_equals_plain(device, modulus, n):
     from genstark_tpu_torch import kernels
@@ -94,8 +96,26 @@ def test_pins_on_card(device):
         7329, "3fa3bc9f84d3505912258df9974587b18b35619116a2787786b3beacd3cc4917")
 
 
-ALL_FIELDS = pytest.mark.parametrize("modulus", [P32, P64, P128, P224, P256],
-                                     ids=["p32", "p64", "p128", "p224", "p256"])
+ALL_FIELDS = pytest.mark.parametrize(
+    "modulus", [P32, P64, SOLINAS96, P128, SOLINAS160, SOLINAS192, P224, P256],
+    ids=["p32", "p64", "p96", "p128", "p160", "p192", "p224", "p256"])
+
+
+@pytest.mark.parametrize("modulus,pin", [(SOLINAS96, "SOLINAS96_64_PIN"),
+                                         (SOLINAS160, "SOLINAS160_64_PIN"),
+                                         (SOLINAS192, "SOLINAS192_64_PIN")],
+                         ids=["p96", "p160", "p192"])
+def test_mid_limb_toy_pins_on_card(device, modulus, pin):
+    """MiMC over the solinas moduli of 96, 160 and 192 bits (kernel 1 at L
+    = 6, 10 and 12), the toy options with blake2s256: the JAX package's
+    bytes."""
+    import hashlib
+    import chip_smoke
+    from examples.mimc_torch import prove_mimc
+    opts = {"hash_algorithm": "blake2s256", "extension_factor": 4, "exe_query_count": 8,
+            "fri_query_count": 6}
+    _, data = prove_mimc(64, device, modulus=modulus, options=opts)
+    assert (len(data), hashlib.sha256(data).hexdigest()) == getattr(chip_smoke, pin)
 
 
 def _pm1(field, n):
@@ -224,8 +244,8 @@ def test_hash_limbs_raises_on_unsupported_layouts(device):
     before = dict(kernels.launch_counts)
     with pytest.raises(ValueError, match="N % 4"):
         kernels.hash_limbs("sha256", torch.zeros((8, 6), dtype=torch.int32, device=device), True)
-    with pytest.raises(ValueError, match="L in"):
-        kernels.hash_limbs("sha256", torch.zeros((2, 6, 8), dtype=torch.int32, device=device),
+    with pytest.raises(ValueError, match="L in"):     # L = 18: above 256 bits
+        kernels.hash_limbs("sha256", torch.zeros((2, 18, 8), dtype=torch.int32, device=device),
                            False)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.hash_limbs("sha256", torch.zeros((2, 8, 8), dtype=torch.int32,
@@ -613,8 +633,9 @@ def test_direct_route_equals_four_step_on_card(device, modulus, monkeypatch):
 
 
 # every limb count kernel 1 is built for
-DFT_FIELDS = pytest.mark.parametrize("modulus", [P32, GOLDILOCKS, P128, P224, P256],
-                                     ids=["p32", "goldilocks", "p128", "p224", "p256"])
+DFT_FIELDS = pytest.mark.parametrize(
+    "modulus", [P32, GOLDILOCKS, SOLINAS96, P128, SOLINAS160, SOLINAS192, P224, P256],
+    ids=["p32", "goldilocks", "p96", "p128", "p160", "p192", "p224", "p256"])
 
 
 @DFT_FIELDS
@@ -622,7 +643,7 @@ DFT_FIELDS = pytest.mark.parametrize("modulus", [P32, GOLDILOCKS, P128, P224, P2
 @pytest.mark.parametrize("mode", ["none", "direct", "factored"])
 def test_dft_level_kernel_inputs_and_modes(device, modulus, m, mode):
     """Kernel 1 (int8 tensor cores) at every level size the plans use, and
-    m = 128 (two staged slices of j, four at L >= 14), with a ragged last
+    m = 128 (two staged slices of j, four at L >= 10), with a ragged last
     column tile, in every twiddle mode: digits in and limbs in (the kernel
     encodes them), flat and as the transform's strided view, limbs and
     digits out; one launch each, equal to the plain level."""
@@ -752,8 +773,7 @@ def test_lcomb_tail_kernel_cases(device, modulus, case):
     assert torch.equal(got, lcomb_tail_ref(*args))
 
 
-@pytest.mark.parametrize("modulus", [P32, P64, P128, P224, P256],
-                         ids=["p32", "p64", "p128", "p224", "p256"])
+@ALL_FIELDS
 def test_mont_inv_kernel_equals_plain(device, modulus):
     """Kernel A against mont_pow_ref(x, p - 2): one element (inv's use) and
     300, zero, one and p - 1 among them; one launch a call."""

@@ -139,7 +139,9 @@ def test_field_kernels_refuse_unsupported_limb_counts():
     from genstark_tpu_torch import kernels
     dev = create_prime_field(2 ** 61 - 1).device_field("cpu")    # L = 4 is taken
     assert dev.L == 4
-    odd = create_prime_field(2 ** 89 - 1).device_field("cpu")    # L = 6 is not
+    assert create_prime_field(2 ** 89 - 1).params.L in kernels.FIELD_LS   # so is L = 6
+    odd = create_prime_field(2 ** 521 - 1).device_field("cpu")   # L = 34 is not
+    assert odd.L == 34
     x = torch.zeros((odd.L, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="L in"):
         kernels.field_ew(odd, "mul", x, x)

@@ -20,11 +20,15 @@ import pytest
 
 from genstark_tpu_torch import kernels
 from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
+from genstark_tpu_torch.testing import SOLINAS96, SOLINAS160, SOLINAS192
 
 M32 = 0xFFFFFFFF
 STEPS = kernels.GCD_STEPS
 FIELDS = [P32, P64, P128, P224, P256, 96769]
 IDS = ["p32", "p64", "p128", "p224", "p256", "p96769"]
+# K = 3, 5 and 6 words (L = 6, 10, 12)
+MID = [SOLINAS96, SOLINAS160, SOLINAS192]
+MID_IDS = ["p96", "p160", "p192"]
 
 
 def _words(v, k):
@@ -140,7 +144,7 @@ def model_inv(x, p, L):
     return _value(v) * _value([int(w) for w in c]) * pow(R, -1, p) % p
 
 
-@pytest.mark.parametrize("modulus", FIELDS, ids=IDS)
+@pytest.mark.parametrize("modulus", FIELDS + MID, ids=IDS + MID_IDS)
 def test_binary_gcd_model_equals_the_plain_inverse(modulus):
     field = create_prime_field(modulus)
     p, L = field.modulus, field.params.L

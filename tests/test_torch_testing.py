@@ -77,13 +77,17 @@ def test_transform_edges_meet_at_the_first_butterfly(modulus):
 
 def test_word_kernel_names_match_their_mangling():
     """chip_smoke.WORD_KERNELS names each instantiation by its mangled part:
-    38 of them (kernel 5's 15, kernels 8, 7/9 and 10 at five L, kernel 1's
-    8: KS = 1 and 2 at L = 2, 4, 8, KS = 1 at L = 14, 16), none inside
-    another, each found in a register report of the nvcc -Xptxas -v form."""
+    60 of them (kernel 5's 24, kernels 8, 7/9 and 10 at eight L, kernel 1's
+    12: KS = 1 and 2 at L = 2, 4, 6, 8, KS = 1 at L = 10 to 16, the k steps
+    kernels.dft_slice gives), none inside another, each found in a register
+    report of the nvcc -Xptxas -v form."""
     assert chip_smoke.mangled("field_ew_kernel", 8, 0) == "15field_ew_kernelILi8ELi0EE"
     assert chip_smoke.mangled("dft_level_kernel", 16, 1) == "16dft_level_kernelILi16ELi1EE"
+    assert chip_smoke.FIELD_LIMBS == kernels.FIELD_LS
+    assert {L: max(ks) for L, ks in chip_smoke.DFT_KS.items()} == {
+        L: kernels.dft_slice(L) // 32 for L in kernels.DFT_LS}
     parts = chip_smoke.WORD_KERNELS
-    assert len(set(parts)) == len(parts) == 15 + 5 + 5 + 5 + 8
+    assert len(set(parts)) == len(parts) == 24 + 8 + 8 + 8 + 12
     assert not [(a, b) for a in parts for b in parts if a != b and a in b]
     log = "\n".join(
         f"ptxas info    : Function properties for _ZN2gs{part}Ev6EwArgsNS_6FieldWE\n"
@@ -107,3 +111,20 @@ def test_build_reads_the_report_of_a_library_built_before(tmp_path, monkeypatch)
     assert kernels.build() == os.path.join(str(out_dir), kernels._LIB_NAME)
     assert kernels.build_info["log"].endswith("Used 40 registers\n")
     assert kernels.build_info["seconds"] == 0.0
+
+
+def test_dft_fragment_budget_is_one_rule():
+    """kernels.DFT_FRAGMENT_WORDS is the csrc/dft_level.cu constant that
+    scripts/torch_dft_registers.py rewrites, and the k steps it gives are
+    kernels.dft_slice's."""
+    import importlib.util
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_dft_registers", os.path.join(root, "scripts", "torch_dft_registers.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    with open(os.path.join(root, "genstark_tpu_torch", "csrc", "dft_level.cu")) as fh:
+        src = fh.read()
+    assert script.SHIPPED in src
+    assert script.SHIPPED == f"constexpr int kDftFragmentWords = {kernels.DFT_FRAGMENT_WORDS};"
+    assert [kernels.dft_slice(L) for L in kernels.DFT_LS] == [64, 64, 64, 64, 32, 32, 32, 32]

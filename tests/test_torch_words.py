@@ -20,13 +20,15 @@ import pytest
 import torch
 
 from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
+from genstark_tpu_torch.testing import SOLINAS96, SOLINAS160, SOLINAS192
 
 MASK = np.uint64(0xFFFFFFFF)
 S32 = np.uint64(32)
 # the demo-static field (L = 2: one word, p < 2^17 far below R = 2^32)
 DEMO = 96769
-FIELDS = pytest.mark.parametrize("modulus", [DEMO, P32, P64, P128, P224, P256],
-                                 ids=["p96769", "p32", "p64", "p128", "p224", "p256"])
+FIELDS = pytest.mark.parametrize(
+    "modulus", [DEMO, P32, P64, P128, P224, P256, SOLINAS96, SOLINAS160, SOLINAS192],
+    ids=["p96769", "p32", "p64", "p128", "p224", "p256", "p96", "p160", "p192"])
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "genstark_tpu_torch", "csrc")
 
