@@ -211,10 +211,14 @@ PROBE_KERNELS = ("mont_chain", "u32_chain")
 # solinas moduli of 96, 160 and 192 bits at L = 6, 10, 12):
 # kernels.FIELD_LS.
 FIELD_LIMBS = (2, 4, 6, 8, 10, 12, 14, 16)
-# Kernel 1's k steps a slice at L (kernels.dft_slice, csrc/dft_level.cu
-# dft_ks): two while their A fragments, 4 words a digit plane and step, fit
-# 160 words, else one; a level of m <= 32 runs one k step at every L.
-DFT_KS = {L: (1, 2) if 4 * (2 * L + 1) * 2 <= 160 else (1,) for L in FIELD_LIMBS}
+
+
+def dft_ks() -> dict:
+    """Kernel 1's k steps a slice at each L, as kernels.dft_slice gives them
+    (the host mirror of csrc/dft_level.cu dft_ks): a level of m <= 32 runs
+    one k step at every L, a larger one the slice's."""
+    from genstark_tpu_torch import kernels
+    return {L: (1, 2) if kernels.dft_slice(L) == 64 else (1,) for L in FIELD_LIMBS}
 
 
 def mangled(name: str, *args: int) -> str:
@@ -223,17 +227,21 @@ def mangled(name: str, *args: int) -> str:
     return f"{len(name)}{name}I" + "".join(f"Li{a}E" for a in args) + "E"
 
 
-# Every instantiation moved to the word product in one piece: kernel 5 at K
-# = L/2 for mul, add and sub, kernels 8 and 7/9 at L, kernel 10 at K.  And
-# kernel 1 at every limb count (k steps KS = 1 and 2 a slice, KS = 1 alone
-# from L = 10 on, DFT_KS), whose A fragments stay in registers.  Each must
-# be in the build's register report, without a spill.
-WORD_KERNELS = tuple(
-    [mangled("field_ew_kernel", L // 2, op) for L in FIELD_LIMBS for op in (0, 1, 2)]
-    + [mangled(k, L) for k in ("butterfly_kernel", "butterfly_stages_kernel")
-       for L in FIELD_LIMBS]
-    + [mangled("mont_chain_kernel", L // 2) for L in FIELD_LIMBS]
-    + [mangled("dft_level_kernel", L, ks) for L in FIELD_LIMBS for ks in DFT_KS[L]])
+def word_kernels() -> tuple:
+    """Every instantiation moved to the word product in one piece: kernel 5
+    at K = L/2 for mul, add and sub, kernels 8 and 7/9 at L, kernel 10 at K.
+    And kernel 1 at every limb count and k step of dft_ks(), whose A
+    fragments stay in registers.  Each must be in the build's register
+    report, without a spill."""
+    ks = dft_ks()
+    return tuple(
+        [mangled("field_ew_kernel", L // 2, op) for L in FIELD_LIMBS for op in (0, 1, 2)]
+        + [mangled(k, L) for k in ("butterfly_kernel", "butterfly_stages_kernel")
+           for L in FIELD_LIMBS]
+        + [mangled("mont_chain_kernel", L // 2) for L in FIELD_LIMBS]
+        + [mangled("dft_level_kernel", L, k) for L in FIELD_LIMBS for k in ks[L]])
+
+
 # The Merkle paths (p128) and the P224 paths (lib224-merkle-8, pointmul).
 MERKLE_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
                   "sample_queries")
@@ -1762,8 +1770,8 @@ def check_largest_shapes(device, field, Ne: int, results, rates=None, dft_plans=
     note("hash_limbs", err, f"{Ne} leaves of [2, {L}, {Ne}], {M} stride-4 rows")
     timed("hash_limbs", lambda: h.merge_element_rows(e_std, elem), limbs_cost(2, L, Ne))
     timed("hash_limbs rows", lambda: h.digest_stride_rows(a, elem), limbs_cost(4, L, M))
-    # [16, Ne/2] words: a's limbs where L >= 8, else 8 / L fresh vectors
-    words = (a if L >= 8 else rnd(8 // L, Ne)).reshape(-1)[:16 * (Ne // 2)].view(16, Ne // 2)
+    # [16, Ne/2] words: a's limbs where L >= 8, else ceil(8 / L) fresh vectors
+    words = (a if L >= 8 else rnd(-(-8 // L), Ne)).reshape(-1)[:16 * (Ne // 2)].view(16, Ne // 2)
     note("hash_words", chunked_err(kernels.hash_words(algo, words, 64),
                                    lambda i0, i1: digest_rows_ref(algo, words[:, i0:i1], 64),
                                    Ne // 2, chunk), f"{Ne // 2} 64-byte pairs")
@@ -2747,7 +2755,7 @@ def main() -> int:
     # there is a fault (K words need fewer registers than the 2L + 1
     # accumulators of a 16-bit-limb product); so is one in kernel 1, whose
     # A fragments must stay in registers at every L
-    for part in WORD_KERNELS:
+    for part in word_kernels():
         found = [report for name, report in reports if part in name]
         require(found, f"{part} is not in the build's register report")
         require(all(r.endswith((", 0 bytes spilled", ", no spills")) for r in found),
@@ -2799,7 +2807,7 @@ def main() -> int:
     # every limb count: L = 2, 4, 8, 6, 10, 12, 14, 16 (P256 last)
     all_fields = [create_prime_field(m) for m in (P32, P64, P128, SOLINAS96, SOLINAS160,
                                                   SOLINAS192, P224, P256)]
-    f64, f192, f256 = all_fields[1], all_fields[5], all_fields[-1]
+    f64, f96, f160, f192, f256 = (all_fields[i] for i in (1, 3, 4, 5, -1))
     dev256 = f256.device_field(device)
     check_field_ew(device, all_fields, rng, results)
     check_outer(device, all_fields, rng, results)
@@ -2865,17 +2873,21 @@ def main() -> int:
     check_largest_shapes(device, f64, LARGE_N, results)
     print(f"mimc64 shape checks {time.monotonic() - t0:.1f} s", flush=True)
 
-    phase(f"kernels vs plain versions at the mimc192-2^18 path's shapes (L = 12, Ne = "
-          f"{LARGE_N}, [2, 12, Ne] operands; kernel 1 at every level of its LDE and iNTT, "
-          f"kernel 8's bit-reversed pass and the stage passes of the radix-2 route)")
-    t0 = time.monotonic()
-    mid_times = check_largest_shapes(device, f192, LARGE_N, results, rates,
-                                     ladder_plans(f192, f192.device_field(device),
-                                                  (LARGE_STEPS,)), radix2_too=True)
+    for field in (f96, f160, f192):
+        L, bits = field.params.L, field.modulus.bit_length()
+        phase(f"kernels vs plain versions at the mimc{bits}-2^18 path's shapes (L = {L}, Ne = "
+              f"{LARGE_N}, [2, {L}, Ne] operands; kernel 1 at every level of its LDE and iNTT, "
+              f"kernel 8's bit-reversed pass and the stage passes of the radix-2 route"
+              f"{'; timed' if field is f192 else ''})")
+        t0 = time.monotonic()
+        mid_times = check_largest_shapes(device, field, LARGE_N, results,
+                                         rates if field is f192 else None,
+                                         ladder_plans(field, field.device_field(device),
+                                                      (LARGE_STEPS,)), radix2_too=True)
+        print(f"mimc{bits} shape checks {time.monotonic() - t0:.1f} s", flush=True)
     print(json.dumps({"mimc192_kernel_times": {
         k: {"ms": v[0], "device_ms": v[1], "bound_ms": v[2], "bound_by": v[3]}
         for k, v in mid_times.items()}, "device": smi_line}), flush=True)
-    print(f"mimc192 shape checks {time.monotonic() - t0:.1f} s", flush=True)
 
     phase(f"kernels vs plain versions at the MiMC-128 ladder's largest shapes (Ne = "
           f"{16 * LADDER_STEPS[-1]}, [2, 8, Ne] operands; kernel 1 at every level of the "

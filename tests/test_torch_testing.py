@@ -76,7 +76,7 @@ def test_transform_edges_meet_at_the_first_butterfly(modulus):
 
 
 def test_word_kernel_names_match_their_mangling():
-    """chip_smoke.WORD_KERNELS names each instantiation by its mangled part:
+    """chip_smoke.word_kernels() names each instantiation by its mangled part:
     60 of them (kernel 5's 24, kernels 8, 7/9 and 10 at eight L, kernel 1's
     12: KS = 1 and 2 at L = 2, 4, 6, 8, KS = 1 at L = 10 to 16, the k steps
     kernels.dft_slice gives), none inside another, each found in a register
@@ -84,9 +84,7 @@ def test_word_kernel_names_match_their_mangling():
     assert chip_smoke.mangled("field_ew_kernel", 8, 0) == "15field_ew_kernelILi8ELi0EE"
     assert chip_smoke.mangled("dft_level_kernel", 16, 1) == "16dft_level_kernelILi16ELi1EE"
     assert chip_smoke.FIELD_LIMBS == kernels.FIELD_LS
-    assert {L: max(ks) for L, ks in chip_smoke.DFT_KS.items()} == {
-        L: kernels.dft_slice(L) // 32 for L in kernels.DFT_LS}
-    parts = chip_smoke.WORD_KERNELS
+    parts = chip_smoke.word_kernels()
     assert len(set(parts)) == len(parts) == 24 + 8 + 8 + 8 + 12
     assert not [(a, b) for a in parts for b in parts if a != b and a in b]
     log = "\n".join(
@@ -114,17 +112,11 @@ def test_build_reads_the_report_of_a_library_built_before(tmp_path, monkeypatch)
 
 
 def test_dft_fragment_budget_is_one_rule():
-    """kernels.DFT_FRAGMENT_WORDS is the csrc/dft_level.cu constant that
-    scripts/torch_dft_registers.py rewrites, and the k steps it gives are
-    kernels.dft_slice's."""
-    import importlib.util
+    """kernels.DFT_FRAGMENT_WORDS mirrors csrc/dft_level.cu's budget, and
+    the slices kernels.dft_slice gives from it are two k steps up to L = 8,
+    one from L = 10 on."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "torch_dft_registers", os.path.join(root, "scripts", "torch_dft_registers.py"))
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
     with open(os.path.join(root, "genstark_tpu_torch", "csrc", "dft_level.cu")) as fh:
         src = fh.read()
-    assert script.SHIPPED in src
-    assert script.SHIPPED == f"constexpr int kDftFragmentWords = {kernels.DFT_FRAGMENT_WORDS};"
+    assert f"constexpr int kDftFragmentWords = {kernels.DFT_FRAGMENT_WORDS};" in src
     assert [kernels.dft_slice(L) for L in kernels.DFT_LS] == [64, 64, 64, 64, 32, 32, 32, 32]
