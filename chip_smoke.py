@@ -1439,7 +1439,9 @@ def count_syncs(kernels, fn) -> dict:
         text = str(message)
         if "synchroniz" in text and "prototype" not in text:
             # the innermost frame of the port (torch names its C++ source)
-            frames = [f for f in traceback.extract_stack() if "genstark_tpu_torch" in f.filename]
+            # that is not tracing's sync helper
+            frames = [f for f in traceback.extract_stack() if "genstark_tpu_torch" in f.filename
+                      and os.path.basename(f.filename) != "tracing.py"]
             site = (f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno} "
                     f"{frames[-1].name}" if frames else f"{filename}:{lineno}")
             records.append((launched() - start, site))

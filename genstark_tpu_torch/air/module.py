@@ -23,13 +23,13 @@ with cf = 2^ceil(log2(max constraint degree)).
 
 from __future__ import annotations
 
-import time
 from functools import cached_property
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..field.limbs import ints_to_limbs, limbs_to_ints
 from ..native import NativeUnavailable, native_trace_fn
 from .ir import (AirSchema, CyclicRegister, InputRegister, MaskRegister,
@@ -241,7 +241,8 @@ class ProvingContext(_ContextBase):
         self._trace_std = None
         self._trace = None
         # "native" or "python": which generator made this context's trace,
-        # and its host seconds (the g++ build of a new schema included)
+        # and its host seconds, the `air.trace` span's (the g++ build of a
+        # new schema included)
         self.trace_source = None
         self.trace_seconds = None
 
@@ -302,14 +303,14 @@ class ProvingContext(_ContextBase):
         native generator runs unless no C++ compiler exists; any other
         failure of it raises."""
         if self._trace_std is None:
-            t0 = time.monotonic()
-            try:
-                self._trace_std = self._generate_trace_native()
-                self.trace_source = "native"
-            except NativeUnavailable:
-                self._trace_std = self._generate_trace_pyhost()
-                self.trace_source = "python"
-            self.trace_seconds = time.monotonic() - t0
+            with tracing.span("air.trace") as span:
+                try:
+                    self._trace_std = self._generate_trace_native()
+                    self.trace_source = "native"
+                except NativeUnavailable:
+                    self._trace_std = self._generate_trace_pyhost()
+                    self.trace_source = "python"
+            self.trace_seconds = span.seconds
         return self._trace_std
 
     def _statics_struct(self):

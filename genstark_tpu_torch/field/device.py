@@ -42,7 +42,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, tracing
 from .limbs import LIMB_BITS, LIMB_MASK, MontParams, int_to_limbs, ints_to_limbs, limbs_to_ints
 
 _I64 = torch.int64
@@ -58,8 +58,7 @@ class DeviceField:
         self.p = params.modulus
         self.n0p = params.n0p
         self.device = torch.device(device)
-        self._p64 = torch.as_tensor(params.p_limbs.astype(np.int64),
-                                    device=self.device)
+        self._p64 = tracing.upload(params.p_limbs.astype(np.int64), _I64, self.device)
         self._consts = {}
         self.plans = {}      # the public NTT's plans (ntt._plan), per (n, inverse)
 
@@ -78,7 +77,7 @@ class DeviceField:
 
     def to_numpy(self, t: torch.Tensor) -> np.ndarray:
         """int32 limb tensor -> numpy u32 (the JAX package's layout)."""
-        return t.detach().cpu().numpy().astype(np.uint32)
+        return tracing.fetch(t.detach()).numpy().astype(np.uint32)
 
     def from_ints(self, values: Sequence[int], to_mont: bool = True) -> torch.Tensor:
         arr = self.from_numpy(ints_to_limbs(values, self.L))

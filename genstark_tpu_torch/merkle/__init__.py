@@ -22,6 +22,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from .. import tracing
 from ..hash import Hash, digests_to_bytes  # noqa: F401  (re-exported, as in the JAX package)
 
 
@@ -164,7 +165,7 @@ class MerkleTree:
         if n < 1 or n & (n - 1):
             raise ValueError("leaf count must be a power of 2")
         flat = build_tree_flat(hash_, leaves, n)
-        root = flat[:, -1].cpu().numpy().astype("<u4").tobytes()
+        root = tracing.fetch(flat[:, -1]).numpy().astype("<u4").tobytes()
         return cls(hash_, n.bit_length() - 1, flat_dev=flat, root=root)
 
     @classmethod
@@ -187,9 +188,9 @@ class MerkleTree:
         if self._flat is None:
             return [self._levels[level][idx] for level, idx in coords]
         n = self.leaf_count
-        offsets = torch.as_tensor([level_offset(n, level) + idx for level, idx in coords],
-                                  dtype=torch.int64, device=self._flat.device)
-        rows = self._flat.index_select(1, offsets).T.contiguous().cpu().numpy()
+        offsets = tracing.upload([level_offset(n, level) + idx for level, idx in coords],
+                                 torch.int64, self._flat.device)
+        rows = tracing.fetch(self._flat.index_select(1, offsets).T.contiguous()).numpy()
         raw = rows.astype("<u4").tobytes()
         return [raw[32 * i:32 * (i + 1)] for i in range(len(coords))]
 

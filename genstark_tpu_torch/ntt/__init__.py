@@ -42,7 +42,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, tracing
 from ..field.device import DeviceField
 from . import dft, radix2
 from .radix2 import Radix2Plan
@@ -125,7 +125,7 @@ class DftPlan:
         self.levels = dft_levels(n)
         w8_roots, tws = table_specs(field, n, root, scale)
         params = field.params
-        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev.device)
+        to_dev = lambda a: tracing.upload(np.ascontiguousarray(a), None, dev.device)
         self.w8s = [to_dev(dft.w_digits(field, m, r, scale if lvl == 0 else 1))
                     for lvl, (m, r) in enumerate(zip(self.levels, w8_roots))]
         self.tws = []

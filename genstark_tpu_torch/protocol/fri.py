@@ -25,6 +25,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import tracing
 from ..field.limbs import limbs_to_ints
 from ..merkle import BatchMerkleProof, MerkleTree
 from .proof import FriComponent, LowDegreeProof
@@ -124,7 +125,7 @@ class LowDegreeProver:
         dev = field.device_field(values.device)
         N = values.shape[-1]
         if N <= MAX_REMAINDER_LENGTH:
-            remainder = limbs_to_ints(v_std.cpu().numpy().astype(np.uint32))
+            remainder = limbs_to_ints(tracing.fetch(v_std).numpy().astype(np.uint32))
             verify_remainder(field, self.idx_generator.extension_factor, remainder,
                              max_degree_plus1,
                              field.exp(self.context.root_of_unity, 4 ** depth))
@@ -184,9 +185,9 @@ class LowDegreeProver:
         """Bytes of stride rows r: elements r, r+M, r+2M, r+3M (LE), all
         rows gathered and fetched at once."""
         elem = self.field.element_size
-        idx = torch.as_tensor([r + j * row_count for r in rows for j in range(4)],
-                              dtype=torch.int64, device=v_std.device)
-        ints = limbs_to_ints(v_std.index_select(1, idx).cpu().numpy().astype(np.uint32))
+        idx = tracing.upload([r + j * row_count for r in rows for j in range(4)], torch.int64,
+                             v_std.device)
+        ints = limbs_to_ints(tracing.fetch(v_std.index_select(1, idx)).numpy().astype(np.uint32))
         return [b"".join(v.to_bytes(elem, "little") for v in ints[4 * i:4 * i + 4])
                 for i in range(len(rows))]
 

@@ -54,8 +54,8 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..field.limbs import limbs_to_ints, power_series_mont_np
 from ..merkle import assemble_batch, build_tree_flat, level_offset, plan_batch, tree_row_count
 from ..ntt import make_plan, transform
@@ -185,7 +185,8 @@ class Prover:
         """A device tensor (or tuple) made at the first prove and kept: a
         warm prove uploads nothing after its inputs."""
         if key not in self._kept:
-            self._kept[key] = make()
+            with tracing.span("prover.keep"):
+                self._kept[key] = make()
         return self._kept[key]
 
     def _tree_sizes(self) -> List[int]:
@@ -247,8 +248,8 @@ class Prover:
             static_polys = self._transform(statics, "w_T_inv")
             if self.secret_idx:
                 # a device index: indexing by a list would upload it, a sync
-                idx = self._keep("secret_idx", lambda: torch.as_tensor(
-                    self.secret_idx, dtype=torch.int64, device=dev.device))
+                idx = self._keep("secret_idx", lambda: tracing.upload(
+                    self.secret_idx, torch.int64, dev.device))
                 e_vectors.append(self._lde(static_polys.index_select(0, idx), Ne, "w_Ne_std"))
         e_std = torch.cat(e_vectors).contiguous()                    # [V, L, Ne]
         del e_vectors
@@ -298,16 +299,17 @@ class Prover:
                         if static_polys is not None else [])
         p_evals = self._lde(p_polys, Nc, "w_Nc")
         n_evals = self._next_evals(p_evals, Nc // T)
-        q_evals = context.evaluate_transition_constraints_over(
-            dev, p_evals, n_evals, [static_evals[k] for k in range(len(static_evals))])
-        qa = [q_evals[i] for i in range(q_evals.shape[0])]
-        for gi, group in enumerate(c_poly.constraint_groups):
-            if group["degree"] == c_poly.combination_degree:
-                continue
-            powers = self._table(f"adj{gi}")
-            for i in group["indexes"]:
-                qa.append(dev.mont_mul(qa[i], powers))
-        qc = dev.combine_many_mont(qa, d_coeffs)                    # [L, Nc] std
+        with tracing.span("lcomb.constraints"):
+            q_evals = context.evaluate_transition_constraints_over(
+                dev, p_evals, n_evals, [static_evals[k] for k in range(len(static_evals))])
+            qa = [q_evals[i] for i in range(q_evals.shape[0])]
+            for gi, group in enumerate(c_poly.constraint_groups):
+                if group["degree"] == c_poly.combination_degree:
+                    continue
+                powers = self._table(f"adj{gi}")
+                for i in group["indexes"]:
+                    qa.append(dev.mont_mul(qa[i], powers))
+            qc = dev.combine_many_mont(qa, d_coeffs)                # [L, Nc] std
         del qa, q_evals, p_evals, n_evals, static_evals
         qc_poly = self._transform(qc, "w_Nc_inv")
         del qc
@@ -315,24 +317,26 @@ class Prover:
         del qc_poly
 
         # boundary quotients, extended to the evaluation domain
-        i_polys_mont = self._keep("i_polys", lambda: _to_mont_batch(
-            dev, dev.from_numpy(c_poly.b_poly.i_polys_std())))
-        bdiv = [[(self._table(f"bc{b}_{j}"), self._table(f"bci{b}_{j}"))
-                 for j in range(len(c["xs"]))]
-                for b, c in enumerate(c_poly.b_poly.polys.values())]
-        b_stack = torch.stack(c_poly.b_poly.evaluate_all_tables(
-            dev, p_polys, i_polys_mont, bdiv, lambda x: self._lde(x, Ne, "w_Ne")))
+        with tracing.span("lcomb.boundary"):
+            i_polys_mont = self._keep("i_polys", lambda: _to_mont_batch(
+                dev, dev.from_numpy(c_poly.b_poly.i_polys_std())))
+            bdiv = [[(self._table(f"bc{b}_{j}"), self._table(f"bci{b}_{j}"))
+                     for j in range(len(c["xs"]))]
+                    for b, c in enumerate(c_poly.b_poly.polys.values())]
+            b_stack = torch.stack(c_poly.b_poly.evaluate_all_tables(
+                dev, p_polys, i_polys_mont, bdiv, lambda x: self._lde(x, Ne, "w_Ne")))
 
         # the pointwise tail (kernel 4)
-        z = c_poly.z_poly
-        inv_series = self._inv_series()                             # [L, ext]
-        b_inc = c_poly.composition_degree - T > 0
-        ps_inc = self.l_comb.ps_incremental_degree > 0
-        incr_parts = self._parts("incr") if (b_inc or ps_inc) else None
-        # the tail is the last reader of qe and b_stack: they go with this frame
-        return lcomb_tail(dev, qe, b_stack, e_std, self._parts("dom_fwd"), incr_parts,
-                          inv_series, z.x_at_last_step, b_coeffs, l_coeffs,
-                          b_inc, ps_inc, context.extension_factor)
+        with tracing.span("lcomb.tail"):
+            z = c_poly.z_poly
+            inv_series = self._inv_series()                         # [L, ext]
+            b_inc = c_poly.composition_degree - T > 0
+            ps_inc = self.l_comb.ps_incremental_degree > 0
+            incr_parts = self._parts("incr") if (b_inc or ps_inc) else None
+            # the tail is the last reader of qe and b_stack: they go with this frame
+            return lcomb_tail(dev, qe, b_stack, e_std, self._parts("dom_fwd"), incr_parts,
+                              inv_series, z.x_at_last_step, b_coeffs, l_coeffs,
+                              b_inc, ps_inc, context.extension_factor)
 
     def _stage_fri(self, l_evals: torch.Tensor):
         """The fold-by-4 FRI chain with a committed tree per layer (the
@@ -358,30 +362,31 @@ class Prover:
 
     # ------------------------------------------------------------------ prove
     def prove(self, trace_std: np.ndarray) -> StarkProof:
-        """commit -> lcomb -> FRI -> tail -> ONE fetch -> host check ->
-        `_assemble`.  The stages run under torch.profiler ranges named
-        prove.<stage> (free when no profiler is recording)."""
+        """upload -> commit -> lcomb -> FRI -> tail -> ONE fetch -> host
+        check -> `_assemble`, each stage a `tracing.span` named
+        prove.<stage>."""
         dev = self.dev
-        statics_std = self.context.statics_std()
-        # the inputs go up asynchronously: the one fetch is the prove's only
-        # synchronization
-        trace = dev.from_numpy(trace_std)
-        statics = dev.from_numpy(statics_std) if statics_std.shape[0] else None
-        with record_function("prove.commit"):
+        with tracing.span("prove.upload"):
+            statics_std = self.context.statics_std()
+            # the inputs go up asynchronously: the one fetch is the prove's
+            # only synchronization
+            trace = dev.from_numpy(trace_std)
+            statics = dev.from_numpy(statics_std) if statics_std.shape[0] else None
+        with tracing.span("prove.commit"):
             p_polys, static_polys, e_std, e_flat, e_root = self._stage_commit(trace, statics)
         del trace, statics
-        with record_function("prove.lcomb"):
+        with tracing.span("prove.lcomb"):
             l_evals = self._stage_lcomb(p_polys, static_polys, e_std, e_root)
         del p_polys, static_polys
-        with record_function("prove.fri"):
+        with tracing.span("prove.fri"):
             flats, layers, roots = self._stage_fri(l_evals)
         del l_evals
-        with record_function("prove.tail"):
+        with tracing.span("prove.tail"):
             fri_cat, vals_cat = torch.cat(flats, dim=1), torch.cat(layers, dim=1)
             del flats, layers
             packed = self._packed_tail(e_flat, fri_cat, vals_cat, e_std, e_root, roots)
-            packed = np.ascontiguousarray(packed.cpu().numpy()).view(np.uint32)
-        with record_function("prove.assemble"):
+            packed = np.ascontiguousarray(tracing.fetch(packed).numpy()).view(np.uint32)
+        with tracing.span("prove.assemble"):
             proof = self._assemble_device_sampled(packed)
             if proof is not None:
                 return proof
@@ -429,7 +434,7 @@ class Prover:
         D = max(depths)
         col_offsets = np.cumsum([0] + all_layers)
         rem_base = int(col_offsets[-2])
-        i64 = lambda v: torch.as_tensor(np.asarray(v, dtype=np.int64), device=self.dev.device)
+        i64 = lambda v: tracing.upload(v, torch.int64, self.dev.device)
         return {
             "counts": i64([c for c, _, _, _ in specs]),
             "row_masks": i64([m // 4 - 1 for _, m, _, _ in specs]),
@@ -608,13 +613,13 @@ class Prover:
         def idx(values, cap):
             out = np.zeros(cap, dtype=np.int64)
             out[:len(values)] = values
-            return torch.as_tensor(out, device=dev_)
+            return tracing.upload(out, torch.int64, dev_)
 
         capRe, capRf, capC, capE = self._caps
         packed = self._gather_sections(e_flat, idx(hp["rows_e"], capRe), fri_cat,
                                        idx(hp["rows_f"], capRf), vals_cat,
                                        idx(hp["val_idx"], capC), e_std, idx(hp["e_idx"], capE))
-        return np.ascontiguousarray(packed.cpu().numpy()).view(np.uint32)
+        return np.ascontiguousarray(tracing.fetch(packed).numpy()).view(np.uint32)
 
     def _gather_sections(self, e_flat, rows_e, fri_cat, rows_f, vals_cat, cols, e_std,
                          e_idx) -> torch.Tensor:

@@ -21,7 +21,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import ntt
+from .. import ntt, tracing
 from ..field.limbs import limbs_to_ints
 from ..hash import HASH_ALGORITHMS, create_hash
 from ..merkle import MerkleTree
@@ -104,25 +104,30 @@ class Stark:
     def prove(self, assertions: Sequence[Assertion], inputs: Optional[Sequence] = None,
               seed: Optional[Sequence[int]] = None) -> StarkProof:
         """The one-fetch prover (protocol/prover.py); logs the JAX `prove`'s
-        lines (stark.py:108-128)."""
-        log = self.logger.start("Starting STARK computation")
-        if not assertions:
-            raise TypeError("At least one assertion must be provided")
-        context = self.air.init_proving_context(inputs, seed, dev=self.dev)
-        self.last_context = context      # its trace_source and trace_seconds
-        log("Set up evaluation context")
-        try:
-            trace_std = context.generate_execution_trace_std()
-            self._validate_assertions(context, trace_std, assertions)
-        except StarkError:
-            raise
-        except Exception as error:
-            raise StarkError("Failed to generate the execution trace") from error
-        log("Generated execution trace")
-        proof = self._prover(context, assertions).prove(trace_std)
-        log("Computed STARK proof (fused single-program pipeline)")
-        self.logger.done(log, "STARK computed")
-        return proof
+        lines (stark.py:108-128).  A `tracing` root span, `stark.prove`."""
+        with tracing.span("stark.prove"):
+            log = self.logger.start("Starting STARK computation")
+            if not assertions:
+                raise TypeError("At least one assertion must be provided")
+            with tracing.span("stark.context"):
+                context = self.air.init_proving_context(inputs, seed, dev=self.dev)
+            self.last_context = context      # its trace_source and trace_seconds
+            log("Set up evaluation context")
+            try:
+                trace_std = context.generate_execution_trace_std()
+                with tracing.span("stark.assertions"):
+                    self._validate_assertions(context, trace_std, assertions)
+            except StarkError:
+                raise
+            except Exception as error:
+                raise StarkError("Failed to generate the execution trace") from error
+            log("Generated execution trace")
+            with tracing.span("stark.prover"):
+                prover = self._prover(context, assertions)
+            proof = prover.prove(trace_std)
+            log("Computed STARK proof (fused single-program pipeline)")
+            self.logger.done(log, "STARK computed")
+            return proof
 
     def prove_staged(self, assertions: Sequence[Assertion],
                      inputs: Optional[Sequence] = None,
@@ -296,8 +301,9 @@ class Stark:
                tuple((a.step, a.register, a.value) for a in assertions))
         prover = self._provers.get(key)
         if prover is None:
-            prover = (Prover(self, context, assertions, self.dev) if self.mesh is None else
-                      ShardedProver(self, context, assertions, self.dev, self.mesh))
+            with tracing.span("prover.new"):
+                prover = (Prover(self, context, assertions, self.dev) if self.mesh is None else
+                          ShardedProver(self, context, assertions, self.dev, self.mesh))
             self._provers[key] = prover
         else:
             prover.context = context
@@ -327,8 +333,8 @@ class Stark:
         fetch."""
         registers, _, steps = trace.shape
         self._check_assertion_ranges(registers, steps, assertions)
-        idx = torch.as_tensor([[a.register, a.step] for a in assertions], dtype=torch.int64,
-                              device=trace.device)
+        idx = tracing.upload([[a.register, a.step] for a in assertions], torch.int64,
+                             trace.device)
         cols = trace[idx[:, 0], :, idx[:, 1]].T                      # [L, A]
         values = self.dev.to_ints(cols.contiguous())
         for a, v in zip(assertions, values):
@@ -343,8 +349,8 @@ class Stark:
         form, all positions in one gather and one fetch."""
         elem = self.air.field.element_size
         V, L, _ = vectors_std.shape
-        idx = torch.as_tensor(positions, dtype=torch.int64, device=vectors_std.device)
-        picked = vectors_std.index_select(2, idx).cpu().numpy().astype(np.uint32)
+        idx = tracing.upload(positions, torch.int64, vectors_std.device)
+        picked = tracing.fetch(vectors_std.index_select(2, idx)).numpy().astype(np.uint32)
         ints = limbs_to_ints(np.moveaxis(picked, 1, 0).reshape(L, -1))   # v-major
         n = len(positions)
         return [b"".join(ints[v * n + i].to_bytes(elem, "little") for v in range(V))
@@ -354,4 +360,6 @@ class Stark:
         return size_of(proof, self.air.field.element_size, self.hash.digest_size)["total"]
 
     def serialize(self, proof: StarkProof) -> bytes:
-        return self.serializer.serialize_proof(proof)
+        """The proof's bytes; a `tracing` root span, `stark.serialize`."""
+        with tracing.span("stark.serialize"):
+            return self.serializer.serialize_proof(proof)
