@@ -100,21 +100,21 @@ class BoundaryConstraints:
             out.append(ntt.low_degree_extend(field, n_coeffs, domain_size))
         return out
 
-    def evaluate_all_tables(self, dev, p_polys: torch.Tensor, i_polys_mont: torch.Tensor,
-                            bdiv, lde) -> List[torch.Tensor]:
-        """p_polys [R, L, T] trace polynomials (Montgomery); i_polys_mont
-        [B, L, T_pad]; bdiv[b][j] = (powers of x_j, powers of x_j^-1) [L, T]
-        Montgomery tables; lde(coeffs [L, T]) -> evaluations [L, Ne].
-        Returns the B(x) evaluation vectors [L, Ne] (Montgomery) in register
-        insertion order.  B = (P - I) / Z is the exact polynomial quotient
-        (synthetic division by each linear factor), extended once."""
+    def evaluate_all_tables(self, dev, p_polys: torch.Tensor, bdiv, lde) -> List[torch.Tensor]:
+        """p_polys [R, L, T] trace polynomials (Montgomery); bdiv[b][j] =
+        (powers of x_j, powers of x_j^-1) [L, T] Montgomery tables; lde(coeffs
+        [L, T]) -> evaluations [L, Ne].  Returns the B(x) evaluation vectors
+        [L, Ne] (Montgomery) in register insertion order, each extended once.
+        B = (P - I) / Z is computed as the floor quotient of P by Z
+        (synthetic division by each linear factor, each remainder dropped):
+        the floor quotient is linear and I's degree is below Z's, so
+        floor((P - I) / Z) = floor(P / Z), which is the exact quotient where
+        P meets the assertions.  Only the asserted steps are read, and no
+        interpolant is made or uploaded."""
         f = self.field.host
         out = []
         for b, (register, c) in enumerate(self.polys.items()):
-            coeffs = p_polys[register]                         # [L, T]
-            T = coeffs.shape[-1]
-            i_dev = torch.nn.functional.pad(i_polys_mont[b], (0, T - i_polys_mont.shape[-1]))
-            n_coeffs = dev._sub(coeffs, i_dev)
+            n_coeffs = p_polys[register]                       # [L, T]
             for j, root in enumerate(c["xs"]):
                 n_coeffs = _synthetic_divide(dev, f, n_coeffs, root, bdiv[b][j])
             out.append(lde(n_coeffs))

@@ -44,8 +44,12 @@ Power tables longer than 4096 entries are uploaded factored — outer powers
 of seed^s and inner powers of seed — and regenerated on the device by one
 outer-table multiply (kernel 6; or consumed factored by kernel 4).  Every
 other field op is one elementwise kernel launch (kernel 5).  Tables, plans,
-the interpolants, the zerofier's inverse numerators and the tail's index
-structure are uploaded at a Prover's first prove and kept.
+the zerofier's inverse numerators and the tail's index structure are
+uploaded at a Prover's first prove and kept.  None of them reads an
+asserted value: the boundary quotients are the floor quotients of the trace
+polynomials by the zerofiers, which the interpolants I(x) do not move (see
+`BoundaryConstraints.evaluate_all_tables`), so one Prover proves every
+statement with the same asserted steps and registers.
 """
 
 from __future__ import annotations
@@ -75,7 +79,9 @@ def _to_mont_batch(dev, x_std: torch.Tensor) -> torch.Tensor:
 
 
 class Prover:
-    """One instance per (Stark, proving-context shape, assertion values)."""
+    """One instance per (Stark, proving-context shape, asserted steps and
+    registers); `assertions` give the structure, their values are not
+    read."""
 
     # Tables longer than this are uploaded factored (see the module doc).
     _factor_threshold = 4096
@@ -318,13 +324,11 @@ class Prover:
 
         # boundary quotients, extended to the evaluation domain
         with tracing.span("lcomb.boundary"):
-            i_polys_mont = self._keep("i_polys", lambda: _to_mont_batch(
-                dev, dev.from_numpy(c_poly.b_poly.i_polys_std())))
             bdiv = [[(self._table(f"bc{b}_{j}"), self._table(f"bci{b}_{j}"))
                      for j in range(len(c["xs"]))]
                     for b, c in enumerate(c_poly.b_poly.polys.values())]
             b_stack = torch.stack(c_poly.b_poly.evaluate_all_tables(
-                dev, p_polys, i_polys_mont, bdiv, lambda x: self._lde(x, Ne, "w_Ne")))
+                dev, p_polys, bdiv, lambda x: self._lde(x, Ne, "w_Ne")))
 
         # the pointwise tail (kernel 4)
         with tracing.span("lcomb.tail"):

@@ -7,7 +7,7 @@ Counterpart of the mesh mode of ``genstark_tpu/protocol/fused.py``
 and GSPMD places each collective; here every rank runs the same stages on
 its block [r n/D, (r + 1) n/D) of every domain-major tensor and calls each
 collective itself.  Everything that comes from the host is replicated: the
-trace, the statics, the interpolants, the constants and the tables.  Every
+trace, the statics, the constants and the tables.  Every
 rank returns the same StarkProof, byte for byte the single-device one.
 
 Where the collectives are:

@@ -296,14 +296,19 @@ class Stark:
 
     def _prover(self, context, assertions) -> Prover:
         """Provers (device tables and DFT plans) are cached per context
-        shape and assertion values."""
-        key = (context.trace_length, tuple(tuple(s) for s in context.input_shapes),
-               tuple((a.step, a.register, a.value) for a in assertions))
+        shape and assertion structure, the JAX `_fused_prover`'s key
+        (stark.py:131-152): statements that assert other values at the same
+        steps and registers share one.  A Prover is built from the
+        structure alone, every value zero: its boundary quotients read only
+        the asserted steps (`BoundaryConstraints.evaluate_all_tables`)."""
+        structure = tuple((a.step, a.register) for a in assertions)
+        key = (context.trace_length, tuple(tuple(s) for s in context.input_shapes), structure)
         prover = self._provers.get(key)
         if prover is None:
+            points = [Assertion(step, register, 0) for step, register in structure]
             with tracing.span("prover.new"):
-                prover = (Prover(self, context, assertions, self.dev) if self.mesh is None else
-                          ShardedProver(self, context, assertions, self.dev, self.mesh))
+                prover = (Prover(self, context, points, self.dev) if self.mesh is None else
+                          ShardedProver(self, context, points, self.dev, self.mesh))
             self._provers[key] = prover
         else:
             prover.context = context

@@ -82,7 +82,8 @@ def single():
     try:
         return {label: cases.prove_case(None, *args)[1] for label, args in (
             ("p32", (P32, 128, False, 64, cases.SHARDED_OPTS)),
-            ("fri_drop", (P32, 128, False, 64, cases.FRI_DROP_OPTS)))}
+            ("fri_drop", (P32, 128, False, 64, cases.FRI_DROP_OPTS)),
+            ("p32_values", (P32, 128, False, 64, cases.SHARDED_OPTS, (5,))))}
     finally:
         torch.set_num_threads(saved)
 
@@ -159,6 +160,34 @@ def test_sharded_p32_equals_single_and_jax(groups, single, world):
                               options=cases.SHARDED_OPTS)
     assert port.verify([Assertion(a.step, a.register, a.value) for a in assertions],
                        port.parse(data))
+
+
+@pytest.fixture(scope="module")
+def jax_p32_values():
+    """The JAX package's p32 proof of seed 5 at the sharded configuration,
+    on a Stark that proved seed 3 first (its structure-keyed prover cache)."""
+    from examples.mimc import make_mimc_stark as jax_make_mimc_stark
+    from examples.mimc import run_mimc as jax_run_mimc
+    from genstark_tpu.protocol import Assertion as JaxAssertion
+    stark, constants = jax_make_mimc_stark(128, modulus=P32, use_input=False, constant_count=64,
+                                           options=cases.SHARDED_OPTS)
+    for seed in (3, 5):
+        controls = jax_run_mimc(stark.air.field, 128, constants, seed)
+        data = stark.serialize(stark.prove(
+            [JaxAssertion(0, 0, controls[0]), JaxAssertion(127, 0, controls[-1])], [], [seed]))
+    return data
+
+
+@pytest.mark.parametrize("world", [4, 2, 1])
+def test_sharded_new_values_reuse_the_prover(groups, single, jax_p32_values, world):
+    """A second p32 statement, other values at the same steps, on the Stark
+    that proved the first: one ShardedProver, and every rank's bytes are
+    the single-device proof of that statement alone and the JAX package's
+    proof of it after the first."""
+    for rank in _ranks(groups, world):
+        got = rank["p32_values"]
+        assert (got["provers"], got["fallbacks"]) == (1, 0)
+        assert got["bytes"] == single["p32_values"] == jax_p32_values != single["p32"]
 
 
 @pytest.mark.parametrize("world", [8, 4, 2, 1])

@@ -43,7 +43,7 @@ PARENTS = {
                     "lcomb.constraints", "lcomb.boundary", "lcomb.tail"},
 }
 WARM = set(PARENTS) - {"prover.new", "prover.keep"}
-# the sites a fresh statement's Prover adds to a warm prove's one fetch
+# the sites a new assertion structure's Prover adds to a warm prove's one fetch
 FRESH_SITES = {"DftPlan.__init__.<locals>.<lambda>",
                "Prover._stage_commit.<locals>.<lambda>",
                "Prover._tail_static.<locals>.<lambda>"}
@@ -51,6 +51,11 @@ READERS = ("prover_build_ms", "prover_builds_per_proof", "constraints_ms", "seri
            "syncs_per_proof", "idle_unspanned_pct")
 
 _values = itertools.count(1000)
+# last asserted steps that no earlier request asserted: each a new structure
+_new_steps = itertools.count(62, -1)
+# the request after a first one: "fresh" asserts a new step (a new
+# structure), "values" new values at the same steps, "warm" the same statement
+CASES = ("fresh", "values", "warm")
 
 
 @pytest.fixture(scope="module")
@@ -61,12 +66,19 @@ def stark():
     torch.set_num_threads(threads)
 
 
-def request(stark, v=None):
-    """Prove and serialize the statement starting at v (a fresh one by
-    default); returns v."""
+def request(stark, v=None, last=63):
+    """Prove and serialize the statement starting at v (fresh values by
+    default) that asserts steps 0 and `last`; returns v."""
     v = next(_values) if v is None else v
-    stark.serialize(stark.prove([Assertion(0, 0, v), Assertion(63, 0, v + 126)], [[v]]))
+    stark.serialize(stark.prove([Assertion(0, 0, v), Assertion(last, 0, v + 2 * last)], [[v]]))
     return v
+
+
+def again(stark, case, v):
+    """The request of `case` after a request that proved v."""
+    if case == "fresh":
+        return request(stark, last=next(_new_steps))
+    return request(stark, None if case == "values" else v)
 
 
 def traced(fn):
@@ -84,14 +96,15 @@ def by_request(spans):
     return list(out.values())
 
 
-@pytest.mark.parametrize("fresh", [True, False], ids=["fresh", "warm"])
-def test_each_request_is_one_tree(stark, fresh):
+@pytest.mark.parametrize("case", CASES)
+def test_each_request_is_one_tree(stark, case):
+    """Only a new structure builds a Prover (`prover.new`, `prover.keep`)."""
     v = request(stark)
-    spans, _ = traced(lambda: request(stark, None if fresh else v))
+    spans, _ = traced(lambda: again(stark, case, v))
     requests = by_request(spans)
+    builds = {"prover.new", "prover.keep"} if case == "fresh" else set()
     assert [sorted({s.name for s in r}) for r in requests] == [
-        sorted(WARM - {"stark.serialize"} | ({"prover.new", "prover.keep"} if fresh else set())),
-        ["stark.serialize"]]
+        sorted(WARM - {"stark.serialize"} | builds), ["stark.serialize"]]
     for r in requests:
         ids = {s.span: s for s in r}
         for s in r:
@@ -136,11 +149,16 @@ def test_no_profiler_no_record_and_no_range(stark, monkeypatch):
 
 
 def test_a_prover_per_statement(stark):
+    """A Prover per assertion structure: new values at the asserted steps
+    reuse it, a new asserted step builds one."""
+    request(stark)
     spans, _ = traced(lambda: [request(stark) for _ in range(2)])
-    assert sum(s.name == "prover.new" for s in spans) == 2
+    assert sum(s.name == "prover.new" for s in spans) == 0
     v = next(_values)
     spans, _ = traced(lambda: [request(stark, v) for _ in range(2)])
-    assert sum(s.name == "prover.new" for s in spans) == 1
+    assert sum(s.name == "prover.new" for s in spans) == 0
+    spans, _ = traced(lambda: [request(stark, last=next(_new_steps)) for _ in range(2)])
+    assert sum(s.name == "prover.new" for s in spans) == 2
 
 
 def test_syncs_counted_at_their_sites(stark, monkeypatch):
@@ -162,7 +180,9 @@ def test_syncs_counted_at_their_sites(stark, monkeypatch):
     v = request(stark)
     warm, warm_sites = counted(lambda: request(stark, v))
     assert warm == 1 and warm_sites == {"Prover.prove": 1}
-    fresh, fresh_sites = counted(lambda: request(stark))
+    values, values_sites = counted(lambda: request(stark))
+    assert values == 1 and values_sites == {"Prover.prove": 1}
+    fresh, fresh_sites = counted(lambda: again(stark, "fresh", v))
     assert fresh == sum(fresh_sites.values()) > warm
     assert set(fresh_sites - warm_sites) == FRESH_SITES
     assert fresh_sites["Prover.prove"] == 1
@@ -226,22 +246,33 @@ def test_reader_without_the_programs_spans(name, monkeypatch):
 
 
 def test_readers_on_a_traced_cpu_run(stark):
-    """Readers over a real traced window of two fresh requests on the CPU
-    (no device operations: idle_unspanned_pct reads None there)."""
+    """Readers over real traced windows of two requests on the CPU, with
+    new values at the asserted steps and then with new asserted steps (no
+    device operations: idle_unspanned_pct reads None there)."""
     from torch.profiler import record_function
     request(stark)
-    before = tracing.counters["syncs"]
-    tracing.clear()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        for _ in range(2):
-            with record_function("bench.request"):
-                request(stark)
-    syncs = tracing.counters["syncs"] - before
-    run = Run(seed=1, device="cpu")
-    run.profile = Profile.from_profiler(prof)
-    got = {name: cells.metric_reader(name)(run) for name in READERS}
+
+    def window(case):
+        before = tracing.counters["syncs"]
+        tracing.clear()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(2):
+                with record_function("bench.request"):
+                    again(stark, case, None)
+        run = Run(seed=1, device="cpu")
+        run.profile = Profile.from_profiler(prof)
+        got = {name: cells.metric_reader(name)(run) for name in READERS}
+        return got, (tracing.counters["syncs"] - before) / 2, run
+
+    got, syncs, run = window("values")
+    assert got["prover_builds_per_proof"] == 0.0 and got["prover_build_ms"] == 0.0
+    assert got["syncs_per_proof"] == syncs == 1
+    assert got["serialize_ms"] > 0
+    assert 0 < got["constraints_ms"] < run.profile.stage_ms_per_request(("prove.lcomb",))
+    assert got["idle_unspanned_pct"] is None
+    got, syncs, run = window("fresh")
     assert got["prover_builds_per_proof"] == 1.0
-    assert got["syncs_per_proof"] == syncs / 2
+    assert got["syncs_per_proof"] == syncs > 1
     assert got["prover_build_ms"] > 0 and got["serialize_ms"] > 0
     assert 0 < got["constraints_ms"] < run.profile.stage_ms_per_request(("prove.lcomb",))
     assert got["idle_unspanned_pct"] is None

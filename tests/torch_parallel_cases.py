@@ -23,10 +23,11 @@ FRI_DROP_OPTS = {"extension_factor": 16, "exe_query_count": 10, "fri_query_count
 NTT_CASES = [(p_name, n) for p_name in ("P32", "P128") for n in (256, 1024)]
 
 
-def prove_case(mesh, modulus, steps, use_input, count, options):
+def prove_case(mesh, modulus, steps, use_input, count, options, seeds=(3,)):
     """MiMC over the mesh, or on the CPU alone where mesh is None (the
     test_sharded_prover.py statement: seed 3, the first and last control
-    values asserted): (stark, proof bytes, host fallbacks)."""
+    values asserted; each of `seeds` in turn on one Stark): (stark, the
+    last proof's bytes, host fallbacks)."""
     from examples.mimc_torch import make_mimc_stark, run_mimc
     from genstark_tpu_torch.protocol import Assertion
     stark, constants = make_mimc_stark(steps, mesh.device if mesh is not None else "cpu",
@@ -34,9 +35,11 @@ def prove_case(mesh, modulus, steps, use_input, count, options):
                                        constant_count=count, options=options)
     if mesh is not None:
         stark.set_mesh(mesh)
-    controls = run_mimc(stark.air.field, steps, constants, 3)
-    assertions = [Assertion(0, 0, controls[0]), Assertion(steps - 1, 0, controls[-1])]
-    proof = stark.prove(assertions, [[3]]) if use_input else stark.prove(assertions, [], [3])
+    for seed in seeds:
+        controls = run_mimc(stark.air.field, steps, constants, seed)
+        assertions = [Assertion(0, 0, controls[0]), Assertion(steps - 1, 0, controls[-1])]
+        proof = (stark.prove(assertions, [[seed]]) if use_input else
+                 stark.prove(assertions, [], [seed]))
     return stark, stark.serialize(proof), sum(p.host_fallbacks for p in stark._provers.values())
 
 
@@ -137,6 +140,9 @@ def all_cases(mesh):
                         ("p64", (P64, 64, True, 64, TOY))):
         _, data, fallbacks = prove_case(mesh, *args)
         out[label] = {"bytes": data, "fallbacks": fallbacks}
+    # seed 5's statement after seed 3's: other values at the same steps
+    stark, data, fallbacks = prove_case(mesh, P32, 128, False, 64, SHARDED_OPTS, (3, 5))
+    out["p32_values"] = {"bytes": data, "fallbacks": fallbacks, "provers": len(stark._provers)}
     from genstark_tpu_torch.parallel import make_mesh
     from genstark_tpu_torch.parallel.distributed import fetch
     mine = torch.full((2, 5), mesh.rank, dtype=torch.int32)
