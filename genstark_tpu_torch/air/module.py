@@ -337,13 +337,18 @@ class ProvingContext(_ContextBase):
 
     def _generate_trace_native(self) -> np.ndarray:
         """Code-generated C++ recurrence (native/tracegen.py): the u32
-        [R, L, T] upload layout, written by the generated code itself."""
+        [R, L, T] upload layout, written by the generated code itself.
+        Adds the Montgomery products it performed to
+        `tracing.counters["trace_products"]`."""
         schema = self.schema
         run = native_trace_fn(schema.init, schema.transition, self.field.modulus,
                               len(self.seed), len(schema.static_registers))
         struct = self._statics_struct()
         cols = self.static_columns if struct is None else None
-        return run(cols, self.seed, self.trace_length, statics_struct=struct)
+        T = self.trace_length
+        trace = run(cols, self.seed, T, statics_struct=struct)
+        tracing.counters["trace_products"] += run.init_products + run.step_products * (T - 1)
+        return trace
 
     def _generate_trace_pyhost(self) -> np.ndarray:
         """The Python interpreter over big ints (no C++ compiler)."""

@@ -29,6 +29,12 @@ the device transfer:
                        uint64_t T,
                        uint32_t* out)            // [R][L16][T]
 
+The codegen also counts the Montgomery products one ``init`` and one
+``step`` call perform (each emitted ``fmul`` once, each ``finv`` as its
+Fermat ladder's products, ``ladder_products``): the function
+``native_trace_fn`` returns carries them as ``init_products`` and
+``step_products``, fixed per schema.
+
 Shared objects are built with ``g++ -O3 -shared`` into
 ``genstark_tpu_torch/_build/native/``, one per hash of the generated source.
 `NativeUnavailable` is raised only when no C++ compiler exists (the caller
@@ -45,7 +51,7 @@ import shutil
 import subprocess
 import time
 from functools import lru_cache
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -76,9 +82,17 @@ def _fe_literal(value: int, lc: int) -> str:
     return "{" + limbs + "}"
 
 
+def ladder_products(p: int) -> int:
+    """Montgomery products of one `finv` (`fpow_pm2`): a squaring per bit of
+    its 64*LC-bit loop and a product per set bit of p - 2."""
+    lc = max(1, (p.bit_length() + 63) // 64)
+    return 64 * lc + bin(p - 2).count("1")
+
+
 def _emit_exprs(exprs: Sequence[Expr], p: int, lc: int, *, seed_count: int,
-                is_init: bool) -> str:
-    """Generated C++ body computing `exprs` into out[0..R-1] (Montgomery).
+                is_init: bool) -> Tuple[str, int]:
+    """Generated C++ body computing `exprs` into out[0..R-1] (Montgomery),
+    and the Montgomery products one call of it performs.
 
     Scope: cur[] (current trace registers), st[] (static registers at the
     step), sd[] (seed params, init only).  All in Montgomery form.
@@ -87,6 +101,11 @@ def _emit_exprs(exprs: Sequence[Expr], p: int, lc: int, *, seed_count: int,
     names: Dict[int, str] = {}
     consts: Dict[int, str] = {}
     counter = [0]
+    products = [0]
+
+    def fmul(a: str, b: str) -> str:
+        products[0] += 1
+        return f"fmul({a}, {b})"
 
     def const_name(v: int) -> str:
         v %= p
@@ -122,9 +141,11 @@ def _emit_exprs(exprs: Sequence[Expr], p: int, lc: int, *, seed_count: int,
             elif isinstance(expr, Sub):
                 lines.append(f"  fe {name} = fsub({emit(expr.a)}, {emit(expr.b)});")
             elif isinstance(expr, Mul):
-                lines.append(f"  fe {name} = fmul({emit(expr.a)}, {emit(expr.b)});")
+                lines.append(f"  fe {name} = {fmul(emit(expr.a), emit(expr.b))};")
             elif isinstance(expr, Div):
-                lines.append(f"  fe {name} = fmul({emit(expr.a)}, finv({emit(expr.b)}));")
+                num = emit(expr.a)
+                products[0] += ladder_products(p)
+                lines.append(f"  fe {name} = {fmul(num, f'finv({emit(expr.b)})')};")
             elif isinstance(expr, Neg):
                 lines.append(f"  fe {name} = fsub(FE_ZERO, {emit(expr.a)});")
             elif isinstance(expr, Exp):
@@ -143,12 +164,12 @@ def _emit_exprs(exprs: Sequence[Expr], p: int, lc: int, *, seed_count: int,
                                 acc = sq
                             else:
                                 nm = f"v{counter[0]}"; counter[0] += 1
-                                lines.append(f"  fe {nm} = fmul({acc}, {sq});")
+                                lines.append(f"  fe {nm} = {fmul(acc, sq)};")
                                 acc = nm
                         e >>= 1
                         if e:
                             nm = f"v{counter[0]}"; counter[0] += 1
-                            lines.append(f"  fe {nm} = fmul({sq}, {sq});")
+                            lines.append(f"  fe {nm} = {fmul(sq, sq)};")
                             sq = nm
                     name = acc
             else:
@@ -159,19 +180,25 @@ def _emit_exprs(exprs: Sequence[Expr], p: int, lc: int, *, seed_count: int,
     outs = [emit(e) for e in exprs]
     for r, o in enumerate(outs):
         lines.append(f"  out[{r}] = {o};")
-    return "\n".join(lines)
+    return "\n".join(lines), products[0]
 
 
 def _generate_source(init: Sequence[Expr], transition: Sequence[Expr],
-                     p: int, seed_count: int, n_static: int) -> str:
+                     p: int, seed_count: int, n_static: int,
+                     products: Optional[list] = None) -> str:
+    """The translation unit; `products`, where given, is set to [init, step]:
+    the Montgomery products one init and one step call perform."""
     lc = max(1, (p.bit_length() + 63) // 64)
     l16 = 2 * max(1, (p.bit_length() + 31) // 32)   # device 16-bit limb count
     r2 = (1 << (128 * lc)) % p
     one_m = (1 << (64 * lc)) % p
     n0p = (-pow(p, -1, 1 << 64)) % (1 << 64)
     R = len(transition)
-    init_body = _emit_exprs(init, p, lc, seed_count=seed_count, is_init=True)
-    step_body = _emit_exprs(transition, p, lc, seed_count=seed_count, is_init=False)
+    init_body, init_products = _emit_exprs(init, p, lc, seed_count=seed_count, is_init=True)
+    step_body, step_products = _emit_exprs(transition, p, lc, seed_count=seed_count,
+                                           is_init=False)
+    if products is not None:
+        products[:] = [init_products, step_products]
     pm2 = p - 2
 
     return f"""// generated by genstark_tpu_torch.native.tracegen — do not edit
@@ -426,10 +453,15 @@ def native_trace_fn(init: Sequence[Expr], transition: Sequence[Expr], p: int,
     form: per register a (values, span, start_pos) triple with
     column[t] = values[((t + start_pos) mod (len*span)) / span]; when None,
     ``static_cols`` full columns are compressed trivially (ell=T, span=1).
+    ``run.init_products`` and ``run.step_products`` are the Montgomery
+    products one init and one step call perform, so a T-step trace performs
+    ``init_products + step_products * (T - 1)``.
     Raises NativeUnavailable when there is no C++ compiler, and
     NativeCompileError (or the codegen's own error) on any other failure.
     """
-    fn = _entry(_compile(_generate_source(init, transition, p, seed_count, n_static)))
+    products = []
+    fn = _entry(_compile(_generate_source(init, transition, p, seed_count, n_static,
+                                          products)))
     lc = max(1, (p.bit_length() + 63) // 64)
     l16 = 2 * max(1, (p.bit_length() + 31) // 32)
     R = len(transition)
@@ -458,4 +490,5 @@ def native_trace_fn(init: Sequence[Expr], transition: Sequence[Expr], p: int,
             raise NativeCompileError(f"native trace returned {rc}")
         return out
 
+    run.init_products, run.step_products = products
     return run

@@ -21,6 +21,11 @@ serialize paths that makes the host wait for the card, each fetch to the
 host (`fetch`) and each upload from pageable memory (`upload`).  A CPU
 tensor takes the same calls and counts the same, so a CPU run counts what
 the card would wait for.
+
+`counters["trace_products"]` is always on: the Montgomery products of each
+native trace, added inside its `air.trace` span (`init + step * (T - 1)`,
+counted per schema at codegen by native/tracegen.py; the Python fallback
+adds nothing).  It costs one integer add a trace.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from . import kernels
 
 MAX_RECORDS = 1 << 16
 
-counters = {"syncs": 0}
+counters = {"syncs": 0, "trace_products": 0}
 
 Span = collections.namedtuple("Span", "name start_ns end_ns span parent request deltas")
 
