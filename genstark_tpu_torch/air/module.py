@@ -290,12 +290,38 @@ class ProvingContext(_ContextBase):
         return ints_to_limbs(self.static_columns[k], L)
 
     def statics_std(self) -> np.ndarray:
-        """All static columns as standard-form limbs, u32 [K, L, T]."""
+        """All static columns as standard-form limbs, u32 [K, L, T].  The
+        staged prover's (`static_device`) and the tests'; the one-fetch
+        prover builds no T-length column on the host: it keeps the cyclic
+        registers' evaluations and expands the input registers on the
+        device (`input_values_std`, `input_gather_index`)."""
         L = self.field.params.L
         K = len(self.schema.static_registers)
         if K == 0:
             return np.zeros((0, L, self.trace_length), dtype=np.uint32)
         return np.stack([self.static_column_limbs(k, L) for k in range(K)])
+
+    def input_values_std(self) -> np.ndarray:
+        """The input registers' values, register after register (a nested
+        input flattened in rank order), as standard-form limbs u32
+        [L, sum of n_k]: what `input_gather_index` expands."""
+        values = [v for k in self.schema.input_registers for v in self.input_values[k]]
+        return ints_to_limbs(values, self.field.params.L)
+
+    def input_gather_index(self, device) -> torch.Tensor:
+        """int64 [K_in * T] on `device`, made there: entry j T + t is the
+        column of `input_values_std` that input register j holds at step t,
+        its value ((t + start_pos) mod T) / span (`_statics_struct`).  It
+        reads only the input shapes."""
+        T = self.trace_length
+        t = torch.arange(T, dtype=torch.int64, device=device)
+        struct = self._statics_struct()
+        parts, offset = [], 0
+        for k in self.schema.input_registers:
+            values, span, start = struct[k]
+            parts.append(offset + torch.remainder(t + start, T) // span)
+            offset += len(values)
+        return torch.cat(parts)
 
     # ----- execution trace (host) ---------------------------------------------
     def generate_execution_trace_std(self) -> np.ndarray:
@@ -314,10 +340,11 @@ class ProvingContext(_ContextBase):
         return self._trace_std
 
     def _statics_struct(self):
-        """Pattern-compressed static columns for the native generator:
-        per register (values, span, start_pos) with column[t] =
-        values[((t + start_pos) mod (len*span)) / span].  None when some
-        register type has no compressed form (then full columns are used)."""
+        """Pattern-compressed static columns for the native generator and
+        `input_gather_index`: per register (values, span, start_pos) with
+        column[t] = values[((t + start_pos) mod (len*span)) / span].  None
+        when some register type has no compressed form (then full columns
+        are used)."""
         T = self.trace_length
         out = []
         for k, reg in enumerate(self.schema.static_registers):

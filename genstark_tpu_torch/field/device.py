@@ -67,8 +67,10 @@ class DeviceField:
         """numpy u32 16-bit limbs (any shape) -> int32 tensor on the device,
         without a synchronization: on the card the limbs are written once
         into pinned host memory and copied on the current stream (the
-        caching host allocator keeps the block until that copy is done)."""
+        caching host allocator keeps the block until that copy is done).
+        Adds the int32 copy's bytes to `tracing.counters["upload_bytes"]`."""
         arr = np.ascontiguousarray(arr)
+        tracing.counters["upload_bytes"] += 4 * arr.size
         if self.device.type == "cpu":
             return torch.from_numpy(arr.astype(np.int32))
         host = torch.empty(arr.shape, dtype=_I32, pin_memory=True)

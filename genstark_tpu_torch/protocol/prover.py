@@ -2,14 +2,21 @@
 
 Counterpart of ``genstark_tpu/protocol/fused.py`` (`FusedProver`), single
 device, with the Fiat-Shamir transcript on the device: a warm prove
-uploads its inputs (trace, statics) asynchronously from pinned memory and
-synchronizes once, at the one fetch of the proof's bytes, as the JAX
-package's one-program default path does (`prove`, fused.py:1280-1361).
+uploads its inputs (the trace and the input registers' values)
+asynchronously from pinned memory and synchronizes once, at the one fetch
+of the proof's bytes, as the JAX package's one-program default path does
+(`prove`, fused.py:1280-1361).
 
 1. commit (`_stage_commit`): trace -> Montgomery, iNTT with T^-1 folded,
    LDE to Ne with R^-1 folded (the committed evaluations come out in
-   standard form), secret static registers likewise, leaf hashing (kernel
-   3) and the evaluation tree (kernel 2); its root stays on the device.
+   standard form); the input registers' columns expanded on the device
+   from their values by one gather through a kept index, interpolated, and
+   the secret ones extended likewise; leaf hashing (kernel 3) and the
+   evaluation tree (kernel 2); its root stays on the device.  No T-length
+   static column is made on the host: the cyclic registers (schema
+   constants, never secret) are interpolated and extended to the
+   composition domain at a Prover's first prove, and those evaluations are
+   kept (`_cyclic_evals`).
 2. composition + linear combination (`_lcomb_chunked` with one chunk):
    the coefficients are drawn on the device from prng(e_root)
    (protocol/fiat_shamir.py, `transcript_coefficients_dev`); constraints
@@ -44,8 +51,9 @@ Power tables longer than 4096 entries are uploaded factored — outer powers
 of seed^s and inner powers of seed — and regenerated on the device by one
 outer-table multiply (kernel 6; or consumed factored by kernel 4).  Every
 other field op is one elementwise kernel launch (kernel 5).  Tables, plans,
-the zerofier's inverse numerators and the tail's index structure are
-uploaded at a Prover's first prove and kept.  None of them reads an
+the zerofier's inverse numerators, the tail's index structure, the input
+registers' gather index and the cyclic registers' evaluations are made at
+a Prover's first prove and kept.  None of them reads an
 asserted value: the boundary quotients are the floor quotients of the trace
 polynomials by the zerofiers, which the interpolants I(x) do not move (see
 `BoundaryConstraints.evaluate_all_tables`), so one Prover proves every
@@ -104,7 +112,15 @@ class Prover:
             self.layer_sizes.append(n)
             n //= 4
         self.remainder_size = n
-        self.secret_idx = list(context.schema.secret_input_registers)
+        schema = context.schema
+        self.secret_idx = list(schema.secret_input_registers)
+        # the static registers by kind: the input registers' columns are
+        # expanded from each statement's values, the others (cycles and
+        # masks) are fixed by the schema and the input shapes, the key
+        self.input_regs = list(schema.input_registers)
+        self.cyclic_regs = [k for k in range(len(schema.static_registers))
+                            if k not in self.input_regs]
+        self.secret_pos = [self.input_regs.index(k) for k in self.secret_idx]
         self._kept = {}              # per-prover device tensors (see _keep)
         self.host_fallbacks = 0      # proves that took the host-sampled path
         # caps of the padded proof gather (fused.py:226-248): every index
@@ -237,31 +253,51 @@ class Prover:
         return self._transform(torch.nn.functional.pad(x, (0, n - x.shape[-1])), key)
 
     # ---------------------------------------------------------------- stages
-    def _stage_commit(self, trace_std: torch.Tensor, statics_std):
+    def _stage_commit(self, trace_std: torch.Tensor, input_values):
         """Trace interpolation, LDE, secret-register evaluations, evaluation
-        tree, from the uploaded standard-form trace [R, L, T] and statics
-        [K, L, T] (or None).  Returns (p_polys, static_polys, e_std, e_flat,
-        e_root), the root as int32 [8] words on the device."""
+        tree, from the uploaded standard-form trace [R, L, T] and input
+        registers' values [L, sum of n_k] (`input_values_std`; None without
+        input registers).  Returns (p_polys, input_polys, e_std, e_flat,
+        e_root): input_polys [K_in, L, T] or None, the root as int32 [8]
+        words on the device."""
         dev = self.dev
-        Ne = self.Ne
+        Ne, T = self.Ne, self.context.trace_length
         trace = _to_mont_batch(dev, trace_std)                      # [R, L, T]
         p_polys = self._transform(trace, "w_T_inv")
         del trace
         e_vectors = [self._lde(p_polys, Ne, "w_Ne_std")]            # [R, L, Ne] std
-        static_polys = None
-        if statics_std is not None:
-            statics = _to_mont_batch(dev, statics_std)              # [K, L, T]
-            static_polys = self._transform(statics, "w_T_inv")
+        input_polys = None
+        if input_values is not None:
+            gather = self._keep("input_idx", lambda: self.context.input_gather_index(dev.device))
+            # Montgomery form on the values, then one gather expands them
+            inputs = dev._to_mont(input_values).index_select(1, gather)
+            inputs = inputs.view(dev.L, len(self.input_regs), T).permute(1, 0, 2).contiguous()
+            input_polys = self._transform(inputs, "w_T_inv")        # [K_in, L, T]
+            del inputs
             if self.secret_idx:
                 # a device index: indexing by a list would upload it, a sync
                 idx = self._keep("secret_idx", lambda: tracing.upload(
-                    self.secret_idx, torch.int64, dev.device))
-                e_vectors.append(self._lde(static_polys.index_select(0, idx), Ne, "w_Ne_std"))
+                    self.secret_pos, torch.int64, dev.device))
+                e_vectors.append(self._lde(input_polys.index_select(0, idx), Ne, "w_Ne_std"))
         e_std = torch.cat(e_vectors).contiguous()                    # [V, L, Ne]
         del e_vectors
         leaves = self.hash.merge_element_rows(e_std, self.field.element_size)
         e_flat = self._commit_tree(leaves, Ne)
-        return p_polys, static_polys, e_std, e_flat, root_words(e_flat)
+        return p_polys, input_polys, e_std, e_flat, root_words(e_flat)
+
+    def _cyclic_evals(self) -> torch.Tensor:
+        """The cyclic registers' Montgomery evaluations over the
+        composition domain, [Kc, L, Nc] (a mesh: the rank's block): their
+        columns built, interpolated and extended at the first prove and
+        kept.  Nothing else reads their polynomials: a cyclic register is
+        never secret."""
+        def make():
+            cols = np.stack([self.context.static_column_limbs(k, self.dev.L)
+                             for k in self.cyclic_regs])
+            polys = self._transform(_to_mont_batch(self.dev, self.dev.from_numpy(cols)),
+                                    "w_T_inv")
+            return self._lde(polys, self.context.composition_domain_size, "w_Nc")
+        return self._keep("cyclic_evals", make)
 
     def _commit_tree(self, leaves: torch.Tensor, n: int) -> torch.Tensor:
         """The flat tree over the leaves [8, n] (a mesh: its part)."""
@@ -290,7 +326,7 @@ class Prover:
             (self.c_poly.d_coefficient_count, self.c_poly.b_coefficient_count, n_ps))
         return self.dev._from_mont(d), self.dev._from_mont(b), l
 
-    def _stage_lcomb(self, p_polys, static_polys, e_std, e_root) -> torch.Tensor:
+    def _stage_lcomb(self, p_polys, input_polys, e_std, e_root) -> torch.Tensor:
         """Composition polynomial + random linear combination -> L(x)
         [L, Ne] in standard form."""
         context = self.context
@@ -300,14 +336,19 @@ class Prover:
         Nc = context.composition_domain_size
         d_coeffs, b_coeffs, l_coeffs = self._coefficients(e_root)
 
-        # constraints over the composition domain, degree-adjusted, combined
-        static_evals = (self._lde(static_polys, Nc, "w_Nc")
-                        if static_polys is not None else [])
+        # constraints over the composition domain, degree-adjusted, combined;
+        # the static registers' evaluations in register order, the kept
+        # cyclic ones merged with this statement's input ones
+        input_evals = (self._lde(input_polys, Nc, "w_Nc")
+                       if input_polys is not None else None)
+        by_reg = dict(zip(self.input_regs, () if input_evals is None else input_evals))
+        by_reg.update(zip(self.cyclic_regs, self._cyclic_evals() if self.cyclic_regs else ()))
+        static_evals = [by_reg[k] for k in sorted(by_reg)]
         p_evals = self._lde(p_polys, Nc, "w_Nc")
         n_evals = self._next_evals(p_evals, Nc // T)
         with tracing.span("lcomb.constraints"):
             q_evals = context.evaluate_transition_constraints_over(
-                dev, p_evals, n_evals, [static_evals[k] for k in range(len(static_evals))])
+                dev, p_evals, n_evals, static_evals)
             qa = [q_evals[i] for i in range(q_evals.shape[0])]
             for gi, group in enumerate(c_poly.constraint_groups):
                 if group["degree"] == c_poly.combination_degree:
@@ -316,7 +357,7 @@ class Prover:
                 for i in group["indexes"]:
                     qa.append(dev.mont_mul(qa[i], powers))
             qc = dev.combine_many_mont(qa, d_coeffs)                # [L, Nc] std
-        del qa, q_evals, p_evals, n_evals, static_evals
+        del qa, q_evals, p_evals, n_evals, static_evals, by_reg, input_evals
         qc_poly = self._transform(qc, "w_Nc_inv")
         del qc
         qe = self._lde(qc_poly, Ne, "w_Ne")                         # [L, Ne] std
@@ -368,20 +409,24 @@ class Prover:
     def prove(self, trace_std: np.ndarray) -> StarkProof:
         """upload -> commit -> lcomb -> FRI -> tail -> ONE fetch -> host
         check -> `_assemble`, each stage a `tracing.span` named
-        prove.<stage>."""
+        prove.<stage>.  A warm prove uploads the trace [R, L, T] and the
+        input registers' values [L, sum of n_k] and nothing else: no static
+        column is built on the host (`context.statics_std` is the staged
+        prover's)."""
         dev = self.dev
         with tracing.span("prove.upload"):
-            statics_std = self.context.statics_std()
             # the inputs go up asynchronously: the one fetch is the prove's
-            # only synchronization
+            # only synchronization.  Of the static registers only the input
+            # registers' values go up, [L, sum of n_k], not their columns
             trace = dev.from_numpy(trace_std)
-            statics = dev.from_numpy(statics_std) if statics_std.shape[0] else None
+            inputs = (dev.from_numpy(self.context.input_values_std())
+                      if self.input_regs else None)
         with tracing.span("prove.commit"):
-            p_polys, static_polys, e_std, e_flat, e_root = self._stage_commit(trace, statics)
-        del trace, statics
+            p_polys, input_polys, e_std, e_flat, e_root = self._stage_commit(trace, inputs)
+        del trace, inputs
         with tracing.span("prove.lcomb"):
-            l_evals = self._stage_lcomb(p_polys, static_polys, e_std, e_root)
-        del p_polys, static_polys
+            l_evals = self._stage_lcomb(p_polys, input_polys, e_std, e_root)
+        del p_polys, input_polys
         with tracing.span("prove.fri"):
             flats, layers, roots = self._stage_fri(l_evals)
         del l_evals

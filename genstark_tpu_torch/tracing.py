@@ -1,7 +1,8 @@
 """Spans and counters of the port's prove, on the profiler's clock.
 
 `span(name)` marks one stretch of host work at a layer boundary of a prove
-(15 a request, 22 where it builds a Prover; none per kernel launch):
+(15 a request; a new Prover adds `prover.new` and a `prover.keep` for
+each thing it keeps; none per kernel launch):
 
 - with no profiler recording it takes two `time.time_ns()` stamps and
   keeps nothing (`seconds` reads its duration);
@@ -22,6 +23,12 @@ host (`fetch`) and each upload from pageable memory (`upload`).  A CPU
 tensor takes the same calls and counts the same, so a CPU run counts what
 the card would wait for.
 
+`counters["upload_bytes"]` is always on: the bytes of each host-to-device
+copy of the prove and serialize paths, added by `DeviceField.from_numpy`
+(the int32 limbs it copies) and by `upload` (the tensor made), on a CPU
+tensor as on the card.  A warm prove adds its trace and its input
+registers' values.
+
 `counters["trace_products"]` is always on: the Montgomery products of each
 native trace, added inside its `air.trace` span (`init + step * (T - 1)`,
 counted per schema at codegen by native/tracegen.py; the Python fallback
@@ -41,7 +48,7 @@ from . import kernels
 
 MAX_RECORDS = 1 << 16
 
-counters = {"syncs": 0, "trace_products": 0}
+counters = {"syncs": 0, "trace_products": 0, "upload_bytes": 0}
 
 Span = collections.namedtuple("Span", "name start_ns end_ns span parent request deltas")
 
@@ -122,4 +129,6 @@ def upload(values, dtype: torch.dtype, device) -> torch.Tensor:
     """A list or an array from pageable memory on `device`: torch copies it
     and waits for the copy (one sync)."""
     counters["syncs"] += 1
-    return torch.as_tensor(values, dtype=dtype, device=device)
+    t = torch.as_tensor(values, dtype=dtype, device=device)
+    counters["upload_bytes"] += t.nbytes
+    return t

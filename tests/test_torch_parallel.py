@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_parallel_cases as cases  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from genstark_tpu_torch.field import P32  # noqa: E402
+from genstark_tpu_torch.field import P32, P128  # noqa: E402
 from genstark_tpu_torch.parallel import can_distribute  # noqa: E402
 from genstark_tpu_torch.parallel.launch import RankError, run_ranks  # noqa: E402
 
@@ -83,7 +83,8 @@ def single():
         return {label: cases.prove_case(None, *args)[1] for label, args in (
             ("p32", (P32, 128, False, 64, cases.SHARDED_OPTS)),
             ("fri_drop", (P32, 128, False, 64, cases.FRI_DROP_OPTS)),
-            ("p32_values", (P32, 128, False, 64, cases.SHARDED_OPTS, (5,))))}
+            ("p32_values", (P32, 128, False, 64, cases.SHARDED_OPTS, (5,))),
+            ("p128_input_values", (P128, 64, True, 16, cases.TOY, (5,))))}
     finally:
         torch.set_num_threads(saved)
 
@@ -188,6 +189,19 @@ def test_sharded_new_values_reuse_the_prover(groups, single, jax_p32_values, wor
         got = rank["p32_values"]
         assert (got["provers"], got["fallbacks"]) == (1, 0)
         assert got["bytes"] == single["p32_values"] == jax_p32_values != single["p32"]
+
+
+@pytest.mark.parametrize("world", [4, 2, 1])
+def test_sharded_secret_input_after_another(groups, single, world):
+    """A p128 MiMC statement with a secret input, proved over the mesh on
+    the Stark that proved another first: one ShardedProver (the input
+    register expanded on every rank from its value, the cyclic register's
+    block of evaluations kept), and every rank's bytes are the
+    single-device proof of that statement alone."""
+    for rank in _ranks(groups, world):
+        got = rank["p128_input_values"]
+        assert (got["provers"], got["fallbacks"]) == (1, 0)
+        assert got["bytes"] == single["p128_input_values"]
 
 
 @pytest.mark.parametrize("world", [8, 4, 2, 1])

@@ -132,7 +132,7 @@ def mesh_cases(mesh):
 
 def all_cases(mesh):
     """Every rank-side case of the module, one group."""
-    from genstark_tpu_torch.field import P32, P64
+    from genstark_tpu_torch.field import P32, P64, P128
     t0 = time.monotonic()
     out = mesh_cases(mesh)
     out["halo"] = _halo_cases(mesh)
@@ -143,6 +143,11 @@ def all_cases(mesh):
     # seed 5's statement after seed 3's: other values at the same steps
     stark, data, fallbacks = prove_case(mesh, P32, 128, False, 64, SHARDED_OPTS, (3, 5))
     out["p32_values"] = {"bytes": data, "fallbacks": fallbacks, "provers": len(stark._provers)}
+    # input 5's secret-input statement after input 3's: the input register
+    # expanded from its value on every rank, the cyclic register's block kept
+    stark, data, fallbacks = prove_case(mesh, P128, 64, True, 16, TOY, (3, 5))
+    out["p128_input_values"] = {"bytes": data, "fallbacks": fallbacks,
+                                "provers": len(stark._provers)}
     from genstark_tpu_torch.parallel import make_mesh
     from genstark_tpu_torch.parallel.distributed import fetch
     mine = torch.full((2, 5), mesh.rank, dtype=torch.int32)
