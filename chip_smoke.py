@@ -64,67 +64,25 @@ import subprocess
 import sys
 import time
 
+# The pins and the step counts and options they are made at, and the
+# instruments the tests and scripts share, live in genstark_tpu_torch.testing.
+from genstark_tpu_torch.testing import (
+    BENCH_PIN, BENCH_STEPS, DEMO_MODULUS, DEMO_PIN, DEMO_STEPS, DIV_PIN, DRAM_SETS, FIB_PIN,
+    FIB_STEPS, GOLDILOCKS_64_PIN, LADDER_17_PIN, LARGE_PIN, LARGE_STEPS, LIB224_PIN,
+    MEM_BYTES_PER_S, MIMC64_18_PIN, MIMC192_18_PIN, MIMC256_PIN, P32_PIN, P64_64_PIN, P128_PIN,
+    P256_64_PIN, POINTMUL_PIN, POSEIDON16_PIN, RESCUE16_PIN, SOLINAS96_64_PIN,
+    SOLINAS160_64_PIN, SOLINAS192_64_PIN, TOY, candidates_needed, count_syncs, device_ms,
+    in_turn, is_port_kernel, odd_hex_roots, plain_level, profile_run, ptxas_report,
+    random_elements, word_kernels)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Pinned proof digests: (bytes, sha256) of the JAX package's proofs.
-P32_PIN = (3472, "db79f92dcacf2cf2d1eeb7cee8db4a4eeb1e5bc5f4d13e9b0cdaacab7cc95b75")
-P128_PIN = (7329, "3fa3bc9f84d3505912258df9974587b18b35619116a2787786b3beacd3cc4917")
-# MiMC-128, 2^13 steps, blake2s256, ext 16, 48/24 queries, secret input 3:
-# the JAX package's proof on the CPU (tests/test_torch_prover.py recomputes it).
-BENCH_PIN = (97254, "3143467fcd3034ebdc758ce12b9501aa4b5f1c7efa57d5df8beaf153403fd928")
-BENCH_STEPS = 2 ** 13
+
 # Kernels the bench, each MiMC-128 and MiMC-256 path (the digit route: P256
 # takes it at every size, as the JAX package routes every modulus its
 # solinas_spec takes) and their sharded ranks must launch.
 BENCH_KERNELS = ("dft_level", "hash_words", "hash_limbs", "lcomb_tail", "field_ew",
                  "outer_table", "sample_queries")
-TOY = {"extension_factor": 4, "exe_query_count": 8, "fri_query_count": 6}
-# MiMC over P256 = 2^256 - 351*2^32 + 1 (the reference's mimc256), 64 steps,
-# 64 constants, secret input 3: the bench options and the toy options over
-# P64 (tests/test_torch_prover_fields.py holds the same pins).
-P256_64_PIN = (40300, "aeca982219743b04f13dd8b6be2b855f951bb16fd4c837f841d62af059265be4")
-P64_64_PIN = (4614, "8f2cc12a4eea675682570374637c919519eb1c5628201c0d5b99a9a5892f6fe9")
-# MiMC over 2^64 - 2^32 + 1 (Plonky2's "Goldilocks" prime, the digit route
-# at L = 4), 64 steps, 64 constants, the toy options with blake2s256, secret
-# input 3: the JAX package's proof on the CPU
-# (tests/test_torch_digit_wide.py holds the port to it; its slow test
-# recomputes it).
-GOLDILOCKS_64_PIN = (5094, "90fc6d5ed4e181f7164c64d1cfc3c79bb7c377a25e512823e1a6d79bc5ec4b74")
-# The same toy proof over the solinas moduli of 96, 160 and 192 bits
-# (testing.SOLINAS96 / 160 / 192: the digit route at L = 6, 10 and 12): the
-# JAX package's proofs on the CPU (tests/test_torch_mid_limbs.py holds the
-# port to them; its slow test recomputes them).
-SOLINAS96_64_PIN = (6101, "2ab4b85fdfbb65d0860ca092931d6551945551ac0a6b61e7b588d1172e746676")
-SOLINAS160_64_PIN = (8582, "53b22224ff9817c671d7ce40852df4e1faa91cec951a5fe00314197c4f76a4b2")
-SOLINAS192_64_PIN = (9638, "47211d573e672cf92074c65644983ea1754c9ba1291645b484365b91e51501f9")
-# The division AIR (examples/mimc_torch.make_div_stark: a constraint that
-# divides by a register), P128, 64 steps, the toy options, seed 3: the JAX
-# package's proof on the CPU (tests/test_torch_inv.py recomputes it); equal to
-# plain MiMC's over the same 16 constants, since the quotient is nxt(0).
-DIV_PIN = (7120, "79478399421030511fab75c58263cbd4a74f3e0a19f2bd3eab362460f5b598f5")
-# MiMC-256, 2^13 steps, the bench options, secret input 3: the JAX package's
-# proof on the CPU (tests/test_torch_prover_fields.py recomputes it).
-MIMC256_PIN = (118019, "da7b087ffccb38cf15a6bafd33a0905c30dddd81881229018dc3f6a3f6b97236")
-# MiMC-256 at 2^18 steps (T = 2^18, Nc = 2^20, Ne = 2^22: every LDE to Ne on
-# the direct route), the bench options, secret input 3: the port's proof
-# from its plain versions on the CPU (`python -m examples.mimc_torch 262144 cpu
-# P256`, which prints its time and peak host memory).
-LARGE_STEPS = 2 ** 18
-LARGE_PIN = (197428, "77ac03bf41603b6dc55ee72ec00680901a5d0d8929cf792f2b7a61268ca8ad2f")
-# MiMC over P64 (not of solinas form: the radix-2 route, where the JAX
-# package also runs its radix-2 kernels) at 2^18 steps, the bench options,
-# secret input 3 (Ne = 2^22, the direct route's stage kernels 7/9 and kernel
-# 8): the port's proof from its plain versions on the CPU (`python -m
-# examples.mimc_torch 262144 cpu P64`; tests/test_torch_digit_wide.py's slow
-# test recomputes it).
-MIMC64_18_PIN = (148598, "3dfb7dbd57b47a767d57ba35cb708fce4f969ec2d8a30ebce0e9a6e43ad0ed07")
-# MiMC over the 192-bit solinas modulus 2^192 - 49 * 2^32 + 1 (the digit
-# route at L = 12) at 2^18 steps, the bench options, secret input 3: the
-# port's proof from its plain versions on the CPU (`python -m
-# examples.mimc_torch 262144 cpu '2^192 - 49*2^32 + 1'`: 1,077 s and 16.9 GiB
-# peak RSS on 8 CPU cores; tests/test_torch_mid_limbs.py's slow test
-# recomputes it).
-MIMC192_18_PIN = (181813, "72bd9bad6311b708bd92dff965bab9af9a4c1c4e6351ae6bb9ec187f03cf5dd8")
 # One more rung at 2^20 steps (Ne = 2^24): no pin; each kernel it launches is
 # held against its plain version at its largest shapes, and three proves
 # must agree.
@@ -134,14 +92,11 @@ LARGE_N = 2 ** 22
 # MiMC-128 (the bench's AIR, options and secret input over p128) up the JAX
 # package's proof ladder (BENCH_r05_ladder.json: 2^13, 2^17, 2^20 and 2^21
 # steps), every transform on the digit route (kernel 1).  2^17 steps (Ne =
-# 2^21) against the port's proof from its plain versions on the CPU
-# (`python -m examples.mimc_torch 131072 cpu`, which prints its time and peak
-# host memory; tests/test_torch_ladder.py's slow test recomputes it); 2^20
-# steps (Ne = 2^24, four levels of 64), the project's north star, whose
-# one-fetch, staged and sharded proofs must agree; 2^21 steps (Ne = 2^25,
-# five levels of 32), the ladder's top, whose three proves must agree.
+# 2^21) against LADDER_17_PIN; 2^20 steps (Ne = 2^24, four levels of 64),
+# the project's north star, whose one-fetch, staged and sharded proofs must
+# agree; 2^21 steps (Ne = 2^25, five levels of 32), the ladder's top, whose
+# three proves must agree.
 LADDER_STEPS = (2 ** 17, 2 ** 20, 2 ** 21)
-LADDER_17_PIN = (147726, "196baca816715b912220583b99f484afade3b63745aaf6ee213369f06f02b5d5")
 # The sharded prover (protocol/sharded.py) over ranks spawned by
 # parallel/launch.py: SHARDED_RANKS ranks sharing the one card over gloo
 # prove the bench and MiMC-256 at 2^18 steps, each against its pin, and
@@ -164,38 +119,6 @@ COLLECTIVES = {"all_to_all_single", "all_to_all_single splits", "all_gather", "a
 # H100 SXM NVLink 4, GB/s a direction (data sheet): only the analytic
 # split's projection for four cards reads it.
 NVLINK_GBPS = 450.0
-# The reference's Merkle-proof benchmark rows (its README; examples/rescue.py
-# and examples/poseidon.py options), depth 16, index 42, compiled from their
-# AirScript sources: Rescue (8 registers, 2^9 steps, p128, ext 16, 60/24
-# queries) and Poseidon (12 registers, 2^10 steps, p128, ext 32, 44/20),
-# the branch drawn from the prng (`branch_case`); and the lib224-import
-# Merkle proof (examples/merkle_import_torch.py, 6 registers, p224, depth 8,
-# index 42).  The port's proofs from its plain versions on the CPU
-# (tests/test_torch_script.py's slow tests recompute them and hold them
-# equal to the JAX package's).
-RESCUE16_PIN = (73999, "f33e927c61a45a3f6d45f620e66a6bd535517c64c2fbabdd241bb4dfa82819a3")
-POSEIDON16_PIN = (87655, "6831b6b4e480ccae3b09f2e19ba9f87050b0f0136358fa9510248928dffb663c")
-LIB224_PIN = (86843, "b039c5610f10eb278154453303498dd449ffa4e5cc92deabd6574a5520e192ee")
-# The reference's elliptic-curve point multiplication (examples/elliptic_torch.py:
-# pointmul.aa from the port's stdlib, 8 registers x 256 steps over P224, ext
-# 16, 48/24 queries; its constraints divide by registers): the port's proof
-# on the CPU (tests/test_torch_script.py's slow test holds it to the JAX
-# package's).
-POINTMUL_PIN = (80901, "1ae96e3fba29bbd5bbe889726d0f68e73a6885a004e7478788c7d5cc738ad44f")
-
-# The reference's two demos: the fibonacci at its largest size
-# (2^17 steps, p32, default options: ext 4, 80/40 queries, sha256; Ne =
-# 2^19) and the static-variables demo at its own (64 steps over the field
-# 96769: L = 2, not of solinas form, the radix-2 route; Ne = 256), with the
-# reference's oracle values (examples/fibonacci_torch.py EXPECTED,
-# examples/demo_static_torch.py EXPECTED_RESULT).  Pins: the JAX
-# package's proofs on the CPU (tests/test_torch_examples.py holds the demo's
-# and its slow tests recompute both).
-FIB_STEPS = 2 ** 17
-FIB_PIN = (150506, "d587e78a6557cba93d5f8bc10689bbcc3859258a6ca6577b9e071ffd4269c663")
-DEMO_STEPS = 64
-DEMO_PIN = (6744, "5b934baaabb63a82243317f415cd033047af8f07860844e1453811a611dcc5b4")
-DEMO_MODULUS = 96769
 
 # Kernels each other main path must launch.  MiMC over P64 at 2^18 steps
 # keeps the direct radix-2 route (kernels 8, 7 and 9), where the JAX package
@@ -207,39 +130,6 @@ RADIX2_LARGE_KERNELS = ("bfly_stage", "bfly_stage_split", "butterfly", "field_ew
 # of these, one that requires kernel 8 launches no kernel 1.
 RADIX2_KERNELS = ("butterfly", "bfly_stage", "bfly_stage_split")
 PROBE_KERNELS = ("mont_chain", "u32_chain")
-# The limb counts of the port's fields (P32, P64, P128, P224, P256, and the
-# solinas moduli of 96, 160 and 192 bits at L = 6, 10, 12):
-# kernels.FIELD_LS.
-FIELD_LIMBS = (2, 4, 6, 8, 10, 12, 14, 16)
-
-
-def dft_ks() -> dict:
-    """Kernel 1's k steps a slice at each L, as kernels.dft_slice gives them
-    (the host mirror of csrc/dft_level.cu dft_ks): a level of m <= 32 runs
-    one k step at every L, a larger one the slice's."""
-    from genstark_tpu_torch import kernels
-    return {L: (1, 2) if kernels.dft_slice(L) == 64 else (1,) for L in FIELD_LIMBS}
-
-
-def mangled(name: str, *args: int) -> str:
-    """The part of gs::name<args...>'s mangled name that names it:
-    mangled("field_ew_kernel", 8, 0) = "15field_ew_kernelILi8ELi0EE"."""
-    return f"{len(name)}{name}I" + "".join(f"Li{a}E" for a in args) + "E"
-
-
-def word_kernels() -> tuple:
-    """Every instantiation moved to the word product in one piece: kernel 5
-    at K = L/2 for mul, add and sub, kernels 8 and 7/9 at L, kernel 10 at K.
-    And kernel 1 at every limb count and k step of dft_ks(), whose A
-    fragments stay in registers.  Each must be in the build's register
-    report, without a spill."""
-    ks = dft_ks()
-    return tuple(
-        [mangled("field_ew_kernel", L // 2, op) for L in FIELD_LIMBS for op in (0, 1, 2)]
-        + [mangled(k, L) for k in ("butterfly_kernel", "butterfly_stages_kernel")
-           for L in FIELD_LIMBS]
-        + [mangled("mont_chain_kernel", L // 2) for L in FIELD_LIMBS]
-        + [mangled("dft_level_kernel", L, k) for L in FIELD_LIMBS for k in ks[L]])
 
 
 # The Merkle paths (p128) and the P224 paths (lib224-merkle-8, pointmul).
@@ -276,15 +166,10 @@ PLAIN_VERSIONS = (
      ("sample_sets_ref", "sample_indexes_ref")),
 )
 
-# The card's memory rate for the bytes bound, and its dense int8
-# tensor-core rate (one multiply-add is 2 ops) for kernel 1's digit
-# products (H100 SXM data sheet).
-MEM_BYTES_PER_S = 3.35e12
+# The card's dense int8 tensor-core rate (one multiply-add is 2 ops) for
+# kernel 1's digit products (H100 SXM data sheet); its memory rate is
+# testing.MEM_BYTES_PER_S.
 INT8_OPS_PER_S = 1.979e15
-# Elements (m x columns) of one call of the plain DFT level (`plain_level`
-# chunks a level by columns): its float64 digit products hold D^2 = 289
-# values an element at p128, 2.4 GB at 2^20 elements.
-PLAIN_LEVEL_ELEMS = 1 << 20
 # u32 ops per blake2s compression: 10 rounds of 8 G functions of 14 ops.
 BLAKE2S_BLOCK_OPS = 10 * 8 * 14
 # u32 ops per SHA-256 compression: 64 rounds of 24 (Sigma1 5, Ch 3, T1 4
@@ -335,60 +220,12 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return event_ms(fn, reps)
 
 
-def is_port_kernel(name: str) -> bool:
-    """A device kernel of the port's CUDA sources (namespace gs), by the
-    profiler's (demangled or mangled) name."""
-    return "gs::" in name or "_ZN2gs" in name
-
-
 def short_kernel_name(name: str) -> str:
     """gs::dft_level_kernel<8>(...) -> dft_level_kernel."""
     tail = name.split("gs::", 1)[1] if "gs::" in name else name
     for stop in "<( ":
         tail = tail.split(stop, 1)[0]
     return tail
-
-
-def profile_run(fn, reps: int = 1):
-    """(by_name, stages, wall_ms) of `reps` calls of fn() under
-    torch.profiler: the device time of every kernel, summed by name,
-    {name: (us, launches)} (empty when the profiler records no device
-    activity); the host wall of the prover's stage ranges (`prove.*`, which
-    the profiler also reports on the device's timeline, where they are left
-    out); and the calls' wall milliseconds."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-    by_name, stages = {}, {}
-    for e in prof.events():
-        if e.name.startswith("prove."):
-            if e.device_type == DeviceType.CPU:
-                stages[e.name] = stages.get(e.name, 0.0) + e.time_range.elapsed_us()
-        elif e.device_type == DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    return by_name, stages, wall_ms
-
-
-def device_ms(fn, reps: int = 20, per_call: int = 1):
-    """Mean device milliseconds per call of the port's kernels that fn()
-    launches, `per_call` launches a call (torch.profiler over `reps` calls
-    after one warm-up): the kernel's own time, without the Python wrapper's
-    host cost that the event means of `cuda_ms` include for short kernels.
-    The mean is taken over the launches the profiler recorded, which may
-    miss a few.  None when the profiler sees no port kernel."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    port = [(t, n) for name, (t, n) in profile_run(fn, reps)[0].items() if is_port_kernel(name)]
-    count = sum(n for _, n in port)
-    return sum(t for t, _ in port) / count / 1e3 * per_call if count else None
 
 
 def fmt_ms(ms) -> str:
@@ -398,15 +235,6 @@ def fmt_ms(ms) -> str:
 def max_abs_err(a, b) -> int:
     require(tuple(a.shape) == tuple(b.shape), f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
-
-
-def random_elements(rng, modulus: int, L: int, n: int):
-    """u32 [L, n] canonical limbs: random limbs, top limb kept below the
-    modulus's top limb (so every value is < p)."""
-    import numpy as np
-    limbs = rng.integers(0, 1 << 16, size=(L, n), dtype=np.int64)
-    limbs[L - 1] = rng.integers(0, modulus >> (16 * (L - 1)), size=n)
-    return limbs.astype(np.uint32)
 
 
 def check_dft(dev, field, rng, results):
@@ -513,32 +341,6 @@ def dft_level_cost(L: int, m: int, cols: int, tw, in_limbs: bool, out_digits: bo
                       + (D if out_digits else 4 * L) * m * cols),
             "work": [("int8_mma", 2 * m * cols * m * D * D), ("u32", m * cols * folds),
                      (("mont", L), m * cols * products)]}
-
-
-def plain_level(dev, w8, x, m: int, rest: int, tw, out_digits: bool = False):
-    """`run_dft_level_ref` over column chunks of PLAIN_LEVEL_ELEMS / m
-    columns, the same contract: unchunked, a p128 level of 2^25 points would
-    hold 77 GB of float64 digit products.  A chunk narrower than `rest` lies
-    inside one period of the twiddle; it takes the factored pair's rows of A
-    for its columns (direct panels have rest <= 64, below every chunk)."""
-    import torch
-    from genstark_tpu_torch.ntt import dft
-    if x.dim() == 4:                 # the transform's view [planes, pre, m, r]
-        x = x.permute(0, 2, 1, 3).reshape(x.shape[0], m, x.shape[1] * x.shape[3])
-    cols = x.shape[2]
-    chunk = max(1, min(cols, PLAIN_LEVEL_ELEMS // m))
-    parts = []
-    for i0 in range(0, cols, chunk):
-        tw_c, rest_c = tw, rest
-        if rest > chunk:
-            require("a" in tw, f"a direct twiddle panel of rest {rest} > {chunk} columns")
-            s = tw["b"].shape[-1]
-            require(chunk % s == 0, f"a chunk of {chunk} columns splits the twiddle's s = {s}")
-            h0 = (i0 % rest) // s
-            tw_c, rest_c = {"a": tw["a"][h0:h0 + chunk // s], "b": tw["b"]}, chunk
-        parts.append(dft.run_dft_level_ref(dev, w8, x[:, :, i0:i0 + chunk], m, rest_c, tw_c,
-                                           out_digits))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
 
 
 def check_dft_chain(device, field, plan, label: str, results, rates=None):
@@ -833,25 +635,6 @@ def tail_cost(args) -> dict:
 def p_minus_1(field, n: int):
     from genstark_tpu_torch.field.limbs import ints_to_limbs
     return ints_to_limbs([field.modulus - 1] * n, field.params.L)
-
-
-# Operand sets a timed kernel-5 call turns through, so that its inputs and
-# output come from device memory and not from the card's 50 MB L2, as its
-# bytes bound counts them: 8 sets of a, b and out at [16, 2^17], 192 MiB.
-DRAM_SETS = 8
-
-
-def in_turn(fn, sets):
-    """A call of fn on the next of `sets` (argument tuples) in turn; each
-    result is kept until its set comes round again, so every set writes
-    its own output buffer."""
-    outs, turn = [None] * len(sets), [0]
-
-    def call():
-        i = turn[0] = (turn[0] + 1) % len(sets)
-        outs[i] = None
-        outs[i] = fn(*sets[i])
-    return call
 
 
 def check_field_ew(device, fields, rng, results):
@@ -1318,35 +1101,6 @@ def check_mont_inv(kernels, device, fields, rng, results):
         r["max_abs_err"] = max(r["max_abs_err"], err)
 
 
-def candidates_needed(seed: bytes, count: int, max_: int, excl: int) -> int:
-    """Candidates the host sampler (protocol/queries.py) hashes before its
-    set is complete: the work this seed's set needs."""
-    from genstark_tpu_torch.protocol.queries import _sha256_int
-    state, taken, i = _sha256_int(seed), set(), 0
-    while len(taken) < count:
-        index = _sha256_int(state + i) % max_
-        if not (excl and index % excl == 0):
-            taken.add(index)
-        i += 1
-    return i
-
-
-def odd_hex_roots(rng, n: int, count: int, max_: int, excl: int):
-    """n roots (int32 [n, 8] LE words) whose state sha256(root) has an odd
-    hex length (a zero top nibble), each needing more candidates than one
-    window of kernel B (256) for its set: found on the host with
-    candidates_needed."""
-    import hashlib
-    import numpy as np
-    out = []
-    while len(out) < n:
-        root = rng.integers(0, 256, size=32, dtype=np.uint8).tobytes()
-        if (hashlib.sha256(root).digest()[0] >> 4 == 0
-                and candidates_needed(root, count, max_, excl) > 256):
-            out.append(np.frombuffer(root, dtype="<u4").view(np.int32))
-    return np.stack(out)
-
-
 def check_sample_queries(kernels, device, rng, results):
     """Kernel B against sample_sets_ref, bit for bit: the bench's six sets
     (48 execution positions over 2^17 excluding multiples of 16, 24 a FRI
@@ -1409,66 +1163,6 @@ def check_sample_queries(kernels, device, rng, results):
               flush=True)
         require(err == 0 and host, f"sample_queries kernel != plain version ({label})")
         r["max_abs_err"] = max(r["max_abs_err"], err)
-
-
-# The runtime's synchronizing calls, whose host time is the wait.
-SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
-              "cudaMemcpy", "cudaMemcpyAsync")
-
-
-def count_syncs(kernels, fn) -> dict:
-    """The synchronizing calls of one call of fn() (a warm prove): torch's
-    sync debug mode reports each one ("warn"; each warning recorded with
-    its site in the port and the port kernel launches made before it:
-    `after_first_kernel` counts those made after the call's first port
-    kernel); then torch.profiler over a second call gives the host ms spent
-    in the runtime's synchronizing calls (`host_wait_ms`, None where the
-    profiler records none)."""
-    import traceback
-    import warnings
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    launched = lambda: sum(kernels.launch_counts.values())
-    torch.cuda.synchronize()
-    start, records = launched(), []
-
-    def show(message, category, filename, lineno, file=None, line=None):
-        # a sync's warning, not torch's one-time notice that the mode is a
-        # prototype (which speaks of "synchronizing operations" too)
-        text = str(message)
-        if "synchroniz" in text and "prototype" not in text:
-            # the innermost frame of the port (torch names its C++ source)
-            # that is not tracing's sync helper
-            frames = [f for f in traceback.extract_stack() if "genstark_tpu_torch" in f.filename
-                      and os.path.basename(f.filename) != "tracing.py"]
-            site = (f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno} "
-                    f"{frames[-1].name}" if frames else f"{filename}:{lineno}")
-            records.append((launched() - start, site))
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = show
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-    waits = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in SYNC_CALLS:
-            us, n = waits.get(e.name, (0.0, 0))
-            waits[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    sites = {}
-    for _, site in records:
-        sites[site] = sites.get(site, 0) + 1
-    return {"syncs": len(records), "after_first_kernel": sum(n > 0 for n, _ in records),
-            "sites": sites,
-            "host_wait_ms": sum(us for us, _ in waits.values()) / 1e3 if waits else None,
-            "wait_calls": {k: [round(us / 1e3, 4), n] for k, (us, n) in waits.items()}}
 
 
 def host_fallbacks(stark):
@@ -1999,24 +1693,6 @@ def kernel_times(device, rates) -> dict:
     return out
 
 
-def ptxas_report(log: str):
-    """(kernel, 'N registers, S bytes spilled') per kernel entry in nvcc's
-    `-Xptxas -v` output; a name is the mangled one, e.g.
-    _ZN2gs17lcomb_tail_kernelILi16EEEv... for lcomb_tail_kernel<16>."""
-    out, name, spill = [], None, ""
-    for line in log.splitlines():
-        if "Function properties for" in line:
-            name, spill = line.split("for", 1)[1].strip(), ""
-        elif "spill stores" in line:
-            parts = line.replace(",", "").split()
-            spill = f", {int(parts[4]) + int(parts[8])} bytes spilled"
-        elif "Used" in line and "registers" in line and name:
-            regs = line.split("Used", 1)[1].split("registers")[0].strip()
-            out.append((name, f"{regs} registers{spill or ', no spills'}"))
-            name = None
-    return out
-
-
 def proof_digest(data: bytes):
     return len(data), hashlib.sha256(data).hexdigest()
 
@@ -2056,18 +1732,18 @@ def require_native(stark, label: str) -> float:
 
 
 def run_main_path(kernels, stark, assertions, inputs, pin, required, label: str,
-                  sync_log: dict, spread: int = 20, public=None, stats: dict = None):
+                  sync_log: dict, public=None, stats: dict = None):
     """One main path: a warm-up prove (with the g++ build of the schema's
     trace generator); the launch counts set to 0, one prove checked against
     its pin (where there is one), the counts and the peak device memory
     read, every plain version's calls counted (there must be none); the
-    proof parsed, re-serialized and verified (verify_ms best of 5);
-    best of 5 and the spread of `spread` proves with each prove's native
-    trace seconds; the synchronizing calls of one warm prove and the
-    host-sampled fallbacks (`check_one_fetch`, into sync_log); one profiled
-    prove (its wall, device time and busy share, with the best and median
-    prove seconds, into `stats` where given).  Returns (launches, proof
-    bytes, the profile's port kernel totals)."""
+    proof parsed, re-serialized and verified (verify_ms best of 5); the
+    synchronizing calls of one warm prove and the host-sampled fallbacks
+    (`check_one_fetch`, into sync_log); one profiled prove (its wall,
+    device time and busy share, with the peak device memory, into `stats`
+    where given).  Whole-prove seconds are the benchmark's (`python3 -m
+    benchmark.run`).  Returns (launches, proof bytes, the profile's port
+    kernel totals)."""
     import torch
     from genstark_tpu_torch.native import tracegen
     built = dict(tracegen.build_seconds)
@@ -2076,8 +1752,9 @@ def run_main_path(kernels, stark, assertions, inputs, pin, required, label: str,
     torch.cuda.synchronize()
     warmup = time.monotonic() - t0
     builds = {k: round(v, 3) for k, v in tracegen.build_seconds.items() if k not in built}
-    print(f"{label} g++ build of the trace generator in the warm-up: {builds or 'cached'} s; "
-          f"warm-up trace {require_native(stark, label):.6f} s", flush=True)
+    print(f"{label} warmup {warmup:.4f} s; g++ build of the trace generator in it: "
+          f"{builds or 'cached'} s; warm-up trace {require_native(stark, label):.6f} s; "
+          f"security {stark.security_level}", flush=True)
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     with plain_calls() as plain:
@@ -2096,25 +1773,10 @@ def run_main_path(kernels, stark, assertions, inputs, pin, required, label: str,
         require(got == pin, f"{label} proof differs from its pin {pin}")
     check_launches(label, launches, required)
     verify_proof(stark, assertions, data, public, label, reps=5)
-    times, traces = [], []
-    for _ in range(spread):
-        t0 = time.monotonic()
-        stark.prove(assertions, inputs)
-        torch.cuda.synchronize()
-        times.append(time.monotonic() - t0)
-        traces.append(require_native(stark, label))
-    ranked = sorted(times)
-    print(f"{label} warmup {warmup:.4f} s; prove best-of-5 {min(times[:5]):.6f} s; over "
-          f"{len(times)} proves median {ranked[len(ranked) // 2]:.6f} s, min "
-          f"{ranked[0]:.6f} s, max {ranked[-1]:.6f} s; security {stark.security_level}",
-          flush=True)
-    print(f"{label} native trace seconds: best-of-5 {min(traces[:5]):.6f}, median "
-          f"{sorted(traces)[len(traces) // 2]:.6f} over {len(traces)} proves", flush=True)
-    print(f"{label} prove seconds: {[round(t, 6) for t in times]}", flush=True)
     check_one_fetch(kernels, stark, lambda: stark.prove(assertions, inputs), label, sync_log)
     phase(f"{label}: where the time goes (torch.profiler, one prove)")
     if stats is not None:
-        stats.update(best_s=min(times[:5]), median_s=ranked[len(ranked) // 2], peak_bytes=peak)
+        stats["peak_bytes"] = peak
     totals = profile_prove(stark, assertions, inputs, stats)
     if stats is not None:
         stats["port_kernels_ms"] = {short: [us / 1e3, n] for short, (us, n) in totals.items()}
@@ -2985,7 +2647,7 @@ def main() -> int:
               f"{stark.air.secret_input_count} secret inputs, "
               f"{assertions[0].step + 1} steps, ext {stark.air.extension_factor}", flush=True)
         launches_, _, _ = run_main_path(kernels, stark, assertions, inputs, pin, required,
-                                        label, sync_log, spread=5, public=public)
+                                        label, sync_log, public=public)
         merkle_launches.append(launches_)
 
     phase(f"the reference's demos on the one-fetch path: fibonacci ({FIB_STEPS} steps, p32) "
@@ -3006,7 +2668,7 @@ def main() -> int:
                                  ("demo-static", DEMO_PIN, DEMO_KERNELS)):
         stark, assertions, inputs, _ = demo_cases[label]()
         launches_, _, _ = run_main_path(kernels, stark, assertions, inputs, pin, required,
-                                        label, sync_log, spread=5)
+                                        label, sync_log)
         demo_launches.append(launches_)
 
     phase("the staged prover: prove_staged against prove, bytes, pins, plain-version calls, "
@@ -3036,7 +2698,7 @@ def main() -> int:
           f"levels {dft_levels(16 * LARGE_STEPS)})")
     large_launches, large_data, large_totals = run_main_path(
         kernels, *mimc_path(LARGE_STEPS, P256), LARGE_PIN, BENCH_KERNELS, "mimc256-2^18",
-        sync_log, spread=10, stats=digit256["mimc256-2^18"])
+        sync_log, stats=digit256["mimc256-2^18"])
     del large_data
     torch.cuda.empty_cache()
     print(json.dumps({"path_kernel_totals": {
@@ -3050,7 +2712,7 @@ def main() -> int:
     stark, assertions, inputs = mimc_path(LARGE_STEPS, P64)
     mimc64_launches, mimc64_data, _ = run_main_path(
         kernels, stark, assertions, inputs, MIMC64_18_PIN, RADIX2_LARGE_KERNELS, "mimc64-2^18",
-        sync_log, spread=10)
+        sync_log)
     mimc64_staged, stats = run_staged(
         kernels, stark, assertions, inputs, MIMC64_18_PIN, STAGED_RADIX2, "mimc64-2^18",
         sync_log, smi_line, reps=3)

@@ -7,10 +7,11 @@ port in a given tree of this repository.
 Needs one CUDA card and the CUDA toolkit.  DIR (default: this checkout) is
 a tree of this repository, e.g. an earlier commit unpacked with `git
 archive`: its `genstark_tpu_torch` is imported and its kernels built in its
-own `_build/`.  The instrument is this checkout's `chip_smoke.py`
-(`in_turn` over `DRAM_SETS` operand sets, 192 MiB with the outputs, four
-times the card's 50 MB L2; `device_ms`), so two trees run in turns are
-measured alike.  Each of N rounds times every op over the sets in turn
+own `_build/`.  The instrument is this checkout's
+`genstark_tpu_torch/testing.py` (`in_turn` over `DRAM_SETS` operand sets,
+192 MiB with the outputs, four times the card's 50 MB L2; `device_ms`),
+loaded by path, since the package imported is DIR's: two trees run in
+turns are measured alike.  Each of N rounds times every op over the sets in turn
 (from device memory) and over one set (from L2), 48 calls each after a
 warm-up, each result first checked against the plain version.  Prints one
 JSON line: per op the rounds' device ms both ways, the bytes bound (3 L 4
@@ -30,8 +31,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def load_instrument():
-    spec = importlib.util.spec_from_file_location("chip_smoke_instrument",
-                                                  os.path.join(HERE, "chip_smoke.py"))
+    spec = importlib.util.spec_from_file_location(
+        "testing_instrument", os.path.join(HERE, "genstark_tpu_torch", "testing.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod

@@ -7,8 +7,8 @@ candidates' compression, or both replaced by a few integer ops (the copies'
 answers are wrong; only their times count), beside an empty kernel of the
 same grid.  Kernel A, one P256 element: the kernel at T and 2T batches
 (the slope is one batch's 30 steps and its update) through the library's
-own entry.  Every time is torch.profiler's device time (chip_smoke.py
-`device_ms`).
+own entry.  Every time is torch.profiler's device time
+(`genstark_tpu_torch.testing.device_ms`).
 
     python3 scripts/torch_kernel_parts.py        # on a machine with the card and nvcc
 
@@ -86,9 +86,9 @@ def parts_source(csrc: str) -> str:
 def main() -> int:
     import numpy as np
     import torch
-    import chip_smoke as cs
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.field import P256, create_prime_field
+    from genstark_tpu_torch.testing import device_ms, random_elements
     if not torch.cuda.is_available():
         print("torch_kernel_parts: no CUDA card", file=sys.stderr)
         return 1
@@ -127,15 +127,15 @@ def main() -> int:
                                  idx.data_ptr(), found.data_ptr(),
                                  torch.cuda.current_stream().cuda_stream)
     b = {"first window": kernels.sample_window(48),
-         "kernel": cs.device_ms(lambda: kernels.sample_queries(roots, specs))}
+         "kernel": device_ms(lambda: kernels.sample_queries(roots, specs))}
     for which, label in ((0, "empty kernel"), (1, "no state compression"),
                          (2, "no candidate compression"), (3, "neither")):
-        b[label] = cs.device_ms(part(which))
+        b[label] = device_ms(part(which))
     out["sample_queries, the bench's six sets"] = b
 
     # kernel A at T and 2T batches
     dev = create_prime_field(P256).device_field("cuda")
-    x = dev.from_numpy(cs.random_elements(rng, P256, 16, 1))
+    x = dev.from_numpy(random_elements(rng, P256, 16, 1))
     y = torch.empty_like(x)
     T, c = kernels.mont_inv_constant(P256, 16)
     fw = np.ascontiguousarray(kernels._field_words(dev))
@@ -143,7 +143,7 @@ def main() -> int:
     def inv(batches):
         return lambda: lib_main.gs_mont_inv(16, x.data_ptr(), y.data_ptr(), 1, kernels._u32p(c),
                                             batches, kernels._u32p(fw), kernels._stream(x))
-    a = {"batches": T, "kernel": cs.device_ms(inv(T)), "2T batches": cs.device_ms(inv(2 * T))}
+    a = {"batches": T, "kernel": device_ms(inv(T)), "2T batches": device_ms(inv(2 * T))}
     a["a batch"] = (a["2T batches"] - a["kernel"]) / T
     out["mont_inv, one P256 element"] = a
     print(json.dumps(out), flush=True)

@@ -9,8 +9,8 @@ The first form, per cell, after two warm-up requests (prove + serialize)
 of the cell's own statements:
 
 - `syncs`: one request of a fresh statement under torch's sync debug mode
-  (`chip_smoke.count_syncs`: each synchronizing call and its site in the
-  port) against the growth of `tracing.counters["syncs"]` over the same
+  (`genstark_tpu_torch.testing.count_syncs`: each synchronizing call and
+  its site in the port) against the growth of `tracing.counters["syncs"]` over the same
   request; then the same for a warm request (a statement proved before);
 - `clock`: three fresh requests under torch.profiler; each program span
   against the profiler's host range of the same name (the n-th against
@@ -132,8 +132,8 @@ def cost_check(reqs, n: int = 200_000) -> dict:
 
 
 def check_cell(name: str, seed: int) -> dict:
-    import chip_smoke
     from genstark_tpu_torch import kernels
+    from genstark_tpu_torch.testing import count_syncs
 
     reqs = Requests(name, seed, 16)
     reqs.fresh()
@@ -141,7 +141,7 @@ def check_cell(name: str, seed: int) -> dict:
     out = {"cell": name}
     for label, fn in (("fresh", reqs.fresh), ("warm", reqs.again)):
         deltas = []
-        syncs = chip_smoke.count_syncs(kernels, counted(fn, deltas))
+        syncs = count_syncs(kernels, counted(fn, deltas))
         out[label] = {"torch_syncs": syncs["syncs"], "counted_syncs": deltas[0],
                       "sites": syncs["sites"], "host_wait_ms": syncs["host_wait_ms"]}
     out["clock"] = clock_check(reqs)

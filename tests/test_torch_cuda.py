@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from genstark_tpu_torch import testing
 from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
 from genstark_tpu_torch.testing import (GOLDILOCKS, SOLINAS96, SOLINAS160, SOLINAS192,
                                         edge_input, edge_pairs, edge_values)
@@ -92,8 +93,7 @@ def test_pins_on_card(device):
     opts = {"extension_factor": 4, "exe_query_count": 8, "fri_query_count": 6}
     _, data = prove_mimc(64, device, modulus=P128, use_input=False, constant_count=32,
                          options=opts)
-    assert (len(data), hashlib.sha256(data).hexdigest()) == (
-        7329, "3fa3bc9f84d3505912258df9974587b18b35619116a2787786b3beacd3cc4917")
+    assert (len(data), hashlib.sha256(data).hexdigest()) == testing.P128_PIN
 
 
 ALL_FIELDS = pytest.mark.parametrize(
@@ -110,12 +110,11 @@ def test_mid_limb_toy_pins_on_card(device, modulus, pin):
     = 6, 10 and 12), the toy options with blake2s256: the JAX package's
     bytes."""
     import hashlib
-    import chip_smoke
     from examples.mimc_torch import prove_mimc
     opts = {"hash_algorithm": "blake2s256", "extension_factor": 4, "exe_query_count": 8,
             "fri_query_count": 6}
     _, data = prove_mimc(64, device, modulus=modulus, options=opts)
-    assert (len(data), hashlib.sha256(data).hexdigest()) == getattr(chip_smoke, pin)
+    assert (len(data), hashlib.sha256(data).hexdigest()) == getattr(testing, pin)
 
 
 def _pm1(field, n):
@@ -278,10 +277,9 @@ def test_inv_on_card_equals_plain(device, modulus):
 
 def test_division_pin_on_card(device):
     import hashlib
-    import chip_smoke
     from examples.mimc_torch import prove_div
     _, data = prove_div(64, device)
-    assert (len(data), hashlib.sha256(data).hexdigest()) == chip_smoke.DIV_PIN
+    assert (len(data), hashlib.sha256(data).hexdigest()) == testing.DIV_PIN
 
 
 def test_field_kernels_raise_on_unsupported_shapes(device):
@@ -355,8 +353,7 @@ def test_mimc256_pin_on_card(device):
     from examples.mimc_torch import prove_mimc
     from genstark_tpu_torch.field import P256
     _, data = prove_mimc(64, device, modulus=P256)
-    assert (len(data), hashlib.sha256(data).hexdigest()) == (
-        40300, "aeca982219743b04f13dd8b6be2b855f951bb16fd4c837f841d62af059265be4")
+    assert (len(data), hashlib.sha256(data).hexdigest()) == testing.P256_64_PIN
 
 
 def _stage_table(field, dev, n):
@@ -807,15 +804,14 @@ def _odd_hex_roots(rng, n):
 
 def test_sample_queries_spans_two_windows(device):
     """Kernel B on odd-hex states whose sets need more candidates than one
-    window of 256 (found on the host with chip_smoke.candidates_needed):
+    window of 256 (found on the host with testing.candidates_needed):
     equal to sample_sets_ref and the host sampler."""
-    import chip_smoke
     from genstark_tpu_torch import kernels
     from genstark_tpu_torch.protocol import device_queries as dq
     from genstark_tpu_torch.protocol.queries import get_pseudorandom_indexes
     rng = np.random.default_rng(29)
     specs = [(48, 1 << 17, 16, 32 * 48 + 512), (24, 1 << 13, 16, 32 * 24 + 512)]
-    roots_np = np.concatenate([chip_smoke.odd_hex_roots(rng, 1, *spec[:3]) for spec in specs])
+    roots_np = np.concatenate([testing.odd_hex_roots(rng, 1, *spec[:3]) for spec in specs])
     roots = torch.as_tensor(roots_np, device=device)
     before = kernels.launch_counts["sample_queries"]
     idx, found = kernels.sample_queries(roots, specs)
@@ -824,7 +820,7 @@ def test_sample_queries_spans_two_windows(device):
     assert torch.equal(idx, want_idx) and torch.equal(found, want_found)
     for s, (count, max_, excl, _) in enumerate(specs):
         seed = roots_np[s].view("<u4").tobytes()
-        assert chip_smoke.candidates_needed(seed, count, max_, excl) > 256
+        assert testing.candidates_needed(seed, count, max_, excl) > 256
         assert idx[s, :count].tolist() == get_pseudorandom_indexes(seed, count, max_, excl)
 
 

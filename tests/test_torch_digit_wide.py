@@ -6,9 +6,11 @@ sends through the digit DFT (genstark_tpu/ntt/__init__.py:248).
 Multi-level transforms of 2^10 to 2^13 points through the port's DFT levels
 (plain versions of kernel 1 on the CPU) against the radix-2 route's plain
 transform (`radix2.transform_ref`) and the JAX package's `ntt` / `intt` on
-the same numpy inputs, tolerance 0; proofs over 2^64 - 2^32 + 1 (kernel 1
-at L = 4) and over P64 at 2^18 steps (the radix-2 route's large-domain
-path) against chip_smoke.py's pins, whose `slow` tests recompute them."""
+the same numpy inputs (pinned as sha256 digests of the JAX outputs' limbs,
+which a `slow` test remakes), tolerance 0; proofs over 2^64 - 2^32 + 1
+(kernel 1 at L = 4) and over P64 at 2^18 steps (the radix-2 route's
+large-domain path) against pins (genstark_tpu_torch.testing), whose `slow`
+tests recompute them."""
 
 import hashlib
 
@@ -17,13 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from genstark_tpu import ntt as jax_ntt
 from genstark_tpu.field import create_prime_field as jax_field
 from genstark_tpu_torch import ntt
 from genstark_tpu_torch.field import P224, P256, create_prime_field
 from genstark_tpu_torch.ntt import DftPlan, Radix2Plan, dft, radix2, transform
-from genstark_tpu_torch.testing import GOLDILOCKS
+from genstark_tpu_torch.testing import GOLDILOCKS, GOLDILOCKS_64_PIN, LARGE_STEPS, MIMC64_18_PIN
 
 WIDE = pytest.mark.parametrize("modulus", [P224, P256], ids=["p224", "p256"])
 TOY = {"hash_algorithm": "blake2s256", "extension_factor": 4, "exe_query_count": 8,
@@ -53,14 +54,34 @@ def _digest(data: bytes):
     return len(data), hashlib.sha256(data).hexdigest()
 
 
+def _limbs_digest(limbs) -> str:
+    """sha256 of u32 limbs [B, L, n] as little-endian words."""
+    return hashlib.sha256(np.ascontiguousarray(limbs, dtype="<u4").tobytes()).hexdigest()
+
+
+# sha256 (`_limbs_digest`) of the JAX package's ntt of each case's input
+# (`_batch(modulus, 2, 2^bits, bits)`), and at 2^13 of its intt too.
+JAX_TRANSFORMS = {
+    (P224, 10): ["acd4cb576e3de677db992a5fca1bb193a03f0e868762a1dc8dcaa5a418e5c8a8"],
+    (P224, 11): ["e2d6555895a5e0b3daee8f22efdaa9c51914b428575e6e85425156b366188025"],
+    (P224, 12): ["022156fe8b9782cb091ab4c0f2b78aa9c5fb03e21581d1b117d3903e0b7538de"],
+    (P224, 13): ["a264dfc8e31d5282ec39eb2ee491636ef01222296aca550242ef13ccc85f51ef",
+                 "83e446a282329f912b14a74722fe7a5df59fd45624b0aa77140325ca6595ae50"],
+    (P256, 10): ["1812831dc5b90ab146ed34a39c500c184f74ea3f9d814cba601f5429c3589e57"],
+    (P256, 11): ["df2b8cdd9ffc25a8e1256ee7b45441b2665df54339d4fc254c1763784160ca70"],
+    (P256, 12): ["5ce41049bc1da240a11de60cbb02e0a8e13ae665d5a3932e71a3b031f7a74561"],
+    (P256, 13): ["80e5e363cd946383c5ebce67d3020dbdc1a6f890f27a5d152dd416e6f5c28ee1",
+                 "2d7ccae24bd3ac077145d6ce6b0550b590b2df0e3e22bb52dc8842326d3d34dd"],
+}
+
+
 @WIDE
 @pytest.mark.parametrize("bits", [10, 11, 12, 13])
 def test_digit_transform_matches_radix2_and_jax(modulus, bits):
     """The forward transform (scale 1) and the inverse (n^-1 folded into
     level 1's digits) through the DFT levels, against the radix-2 route's
     plain transform on plans of the same root and scale, and the forward
-    one against the JAX package's ntt (its intt at 2^13, one compile a
-    field)."""
+    one against the JAX package's ntt (its intt at 2^13): JAX_TRANSFORMS."""
     n = 1 << bits
     field = create_prime_field(modulus)
     dev = field.device_field("cpu")
@@ -74,11 +95,22 @@ def test_digit_transform_matches_radix2_and_jax(modulus, bits):
         got[name] = transform(dev, xt, plan)
         want = radix2.transform_ref(dev, xt, Radix2Plan(field, dev, n, r, scale))
         assert torch.equal(got[name], want), name
+    names = ("fwd", "inv") if bits == 13 else ("fwd",)
+    assert [_limbs_digest(dev.to_numpy(got[k])) for k in names] == \
+        JAX_TRANSFORMS[(modulus, bits)]
+
+
+@pytest.mark.slow
+@WIDE
+@pytest.mark.parametrize("bits", [10, 11, 12, 13])
+def test_digit_transform_pin_is_the_jax_packages(modulus, bits):
+    """The JAX package's ntt (and at 2^13 its intt) of each case's input
+    gives JAX_TRANSFORMS (one XLA:CPU compile a size and field)."""
     jf = jax_field(modulus)
-    assert np.array_equal(dev.to_numpy(got["fwd"]), np.asarray(jax_ntt.ntt(jf, jnp.asarray(x))))
-    if bits == 13:
-        assert np.array_equal(dev.to_numpy(got["inv"]),
-                              np.asarray(jax_ntt.intt(jf, jnp.asarray(x))))
+    x = jnp.asarray(_batch(modulus, 2, 1 << bits, bits))
+    fns = (jax_ntt.ntt, jax_ntt.intt) if bits == 13 else (jax_ntt.ntt,)
+    assert [_limbs_digest(np.asarray(fn(jf, x))) for fn in fns] == \
+        JAX_TRANSFORMS[(modulus, bits)]
 
 
 @pytest.mark.parametrize("modulus", [GOLDILOCKS, P224, P256],
@@ -117,7 +149,7 @@ def test_goldilocks_toy_pin():
     JAX package's bytes."""
     from examples.mimc_torch import prove_mimc
     _, data = prove_mimc(64, "cpu", modulus=GOLDILOCKS, options=TOY)
-    assert _digest(data) == chip_smoke.GOLDILOCKS_64_PIN
+    assert _digest(data) == GOLDILOCKS_64_PIN
 
 
 @pytest.mark.slow
@@ -131,17 +163,17 @@ def test_goldilocks_toy_pin_from_jax():
     controls = run_mimc(jstark.air.field, 64, constants, 3)
     assertions = [Assertion(0, 0, controls[0]), Assertion(63, 0, controls[-1])]
     assert _digest(jstark.serialize(jstark.prove(assertions, [[3]]))) == \
-        chip_smoke.GOLDILOCKS_64_PIN
+        GOLDILOCKS_64_PIN
     _, data = prove_mimc(64, "cpu", modulus=GOLDILOCKS, options=TOY)
     assert jstark.verify(assertions, jstark.parse(data))
 
 
 @pytest.mark.slow
 def test_mimc64_2_18_pin():
-    """Recompute chip_smoke's mimc64-2^18 pin (MiMC over P64, 2^18 steps,
+    """Recompute the mimc64-2^18 pin (MiMC over P64, 2^18 steps,
     the bench options: Ne = 2^22 on the radix-2 route's direct transforms)
     with the port's plain versions on the CPU (about 3 min, 3.8 GiB)."""
     from examples.mimc_torch import prove_mimc
     from genstark_tpu_torch.field import P64
-    _, data = prove_mimc(chip_smoke.LARGE_STEPS, "cpu", modulus=P64)
-    assert _digest(data) == chip_smoke.MIMC64_18_PIN
+    _, data = prove_mimc(LARGE_STEPS, "cpu", modulus=P64)
+    assert _digest(data) == MIMC64_18_PIN

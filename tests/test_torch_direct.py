@@ -23,9 +23,8 @@ from genstark_tpu.ntt import pallas_kernels as pk
 from genstark_tpu_torch.field import P64, P224, P256, create_prime_field
 from genstark_tpu_torch.field.limbs import power_series_mont_np
 from genstark_tpu_torch.ntt import Radix2Plan, radix2, transform
+from genstark_tpu_torch.testing import P64_64_PIN, P256_64_PIN
 
-P256_64_PIN = (40300, "aeca982219743b04f13dd8b6be2b855f951bb16fd4c837f841d62af059265be4")
-P64_64_PIN = (4614, "8f2cc12a4eea675682570374637c919519eb1c5628201c0d5b99a9a5892f6fe9")
 TOY = {"extension_factor": 4, "exe_query_count": 8, "fri_query_count": 6}
 
 

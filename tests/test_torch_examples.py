@@ -10,21 +10,20 @@ import hashlib
 import pytest
 import torch
 
-import chip_smoke
 from examples import demo_static, demo_static_torch, fibonacci, fibonacci_torch
 from genstark_tpu.protocol import Assertion as JaxAssertion
+from genstark_tpu_torch.testing import DEMO_PIN, FIB_PIN, FIB_STEPS
 
-# (bytes, sha256) of the JAX examples' proofs at the reference's sizes, default
-# options: the fibonacci at 2^6 steps, and the demo at 64 steps (chip_smoke's
-# pin, as is the fibonacci's at 2^17 steps).
+# (bytes, sha256) of the JAX example's proof of the fibonacci at 2^6 steps,
+# default options (the demo's at 64 steps is DEMO_PIN, the fibonacci's at
+# 2^17 steps FIB_PIN).
 FIB64_PIN = (7162, "08eaf79fc7d841e972e10a545006912aa1f982a1a59ed6873eb673394d56b92d")
-DEMO64_PIN = chip_smoke.DEMO_PIN
 
 CASES = {
     "fibonacci": (lambda: fibonacci_torch.fib_case(2 ** 6, device="cpu"),
                   lambda: fibonacci.make_fib_stark(2 ** 6), FIB64_PIN),
     "demo_static": (lambda: demo_static_torch.demo_case(64, device="cpu"),
-                    lambda: demo_static.make_demo_stark(64), DEMO64_PIN),
+                    lambda: demo_static.make_demo_stark(64), DEMO_PIN),
 }
 
 
@@ -73,7 +72,7 @@ def test_oracle_values():
 def test_run_entry_point(module, capsys):
     from genstark_tpu_torch.utils import Logger
     out = module.run(64, logger=Logger(), device="cpu", staged=True)
-    assert out["proof_bytes"] in (FIB64_PIN[0], DEMO64_PIN[0])
+    assert out["proof_bytes"] in (FIB64_PIN[0], DEMO_PIN[0])
     assert "STARK computed in" in capsys.readouterr().out
 
 
@@ -90,12 +89,12 @@ def test_pins_match_jax(name):
 
 @pytest.mark.slow
 def test_fibonacci_2_17_pin_matches_jax():
-    """chip_smoke.FIB_PIN, the fibonacci at the reference's largest size
+    """FIB_PIN, the fibonacci at the reference's largest size
     (2^17 steps, Ne = 2^19): the JAX example's proof (about 4-5 min of
     XLA:CPU and 3.3 GiB) and the port's on the CPU (some 15 s)."""
-    steps = chip_smoke.FIB_STEPS
+    steps = FIB_STEPS
     stark, assertions, inputs = fibonacci_torch.fib_case(steps, device="cpu")
-    assert _digest(stark.serialize(stark.prove(assertions, inputs))) == chip_smoke.FIB_PIN
+    assert _digest(stark.serialize(stark.prove(assertions, inputs))) == FIB_PIN
     jstark = fibonacci.make_fib_stark(steps)
     data = jstark.serialize(jstark.prove(_jax_assertions(assertions), inputs))
-    assert _digest(data) == chip_smoke.FIB_PIN
+    assert _digest(data) == FIB_PIN

@@ -15,10 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from genstark_tpu import ntt as jax_ntt
 from genstark_tpu.field import create_prime_field as jax_field
-from genstark_tpu_torch import ntt
+from genstark_tpu_torch import ntt, testing
 from genstark_tpu_torch.field import P128, create_prime_field
 from genstark_tpu_torch.ntt import DftPlan, dft, dft_levels, table_specs
 
@@ -106,8 +105,8 @@ def test_ladder_host_recipe(bits, count, size):
 
 @pytest.mark.parametrize("mode", ["factored", "direct", "none"])
 def test_plain_level_chunks_equal_the_whole_level(monkeypatch, mode):
-    """chip_smoke.plain_level (the plain DFT level in column chunks, which
-    chip_smoke holds kernel 1 against at 2^24 and 2^25 points) equals the
+    """testing.plain_level (the plain DFT level in column chunks, which
+    chip_smoke.py holds kernel 1 against at 2^24 and 2^25 points) equals the
     whole plain level, limbs in as the transform's strided view and digits
     in, chunks narrower than rest included."""
     field = create_prime_field(P128)
@@ -122,18 +121,18 @@ def test_plain_level_chunks_equal_the_whole_level(monkeypatch, mode):
     assert (tw is None) == (mode == "none") and (mode != "factored" or "a" in tw)
     x = dev.from_numpy(_elements(lvl, n))
     view = x.reshape(8, pre, m, rest)
-    monkeypatch.setattr(chip_smoke, "PLAIN_LEVEL_ELEMS", 2 ** 12)    # 128 or 256 columns
+    monkeypatch.setattr(testing, "PLAIN_LEVEL_ELEMS", 2 ** 12)    # 128 or 256 columns
     for given in (view, dft.encode_digits(view)):
         for out_digits in (False, True):
             want = dft.run_dft_level_ref(dev, plan.w8s[lvl], given, m, rest, tw, out_digits)
-            got = chip_smoke.plain_level(dev, plan.w8s[lvl], given, m, rest, tw, out_digits)
+            got = testing.plain_level(dev, plan.w8s[lvl], given, m, rest, tw, out_digits)
             assert torch.equal(got, want)
 
 
 @pytest.mark.slow
 def test_ladder_17_pin():
-    """Recompute chip_smoke's 2^17-step MiMC-128 pin with the port's plain
+    """Recompute the 2^17-step MiMC-128 pin (LADDER_17_PIN) with the port's plain
     versions on the CPU (about 2.5 min and 10 GiB of host memory)."""
     from examples.mimc_torch import prove_mimc
     _, data = prove_mimc(2 ** 17, "cpu")
-    assert (len(data), hashlib.sha256(data).hexdigest()) == chip_smoke.LADDER_17_PIN
+    assert (len(data), hashlib.sha256(data).hexdigest()) == testing.LADDER_17_PIN

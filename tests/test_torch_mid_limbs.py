@@ -12,9 +12,9 @@ on the CPU, where every wrapper runs its kernel's plain version:
   (`mont_pow_ref(x, p - 2)`, the batched `inv`) with the edge values
   (`testing.edge_pairs`: 0, 1, 2, p - 1, p - 2, R mod p, p >> 1) planted,
   against the JAX DeviceField and Python integers;
-- a toy MiMC proof against chip_smoke.py's pin of the JAX package's bytes,
-  which `slow` tests recompute, and the mimc192-2^18 pin of the port's own
-  plain versions (`slow`)."""
+- a toy MiMC proof against the pin of the JAX package's bytes
+  (genstark_tpu_torch.testing), which `slow` tests recompute, and the
+  mimc192-2^18 pin of the port's own plain versions (`slow`)."""
 
 import hashlib
 
@@ -23,19 +23,20 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from genstark_tpu import ntt as jax_ntt
 from genstark_tpu.field import create_prime_field as jax_field
 from genstark_tpu_torch import kernels, ntt
 from genstark_tpu_torch.field import create_prime_field
 from genstark_tpu_torch.field.limbs import ints_to_limbs, limbs_to_ints
 from genstark_tpu_torch.ntt import DftPlan, Radix2Plan, dft, radix2, transform
-from genstark_tpu_torch.testing import SOLINAS96, SOLINAS160, SOLINAS192, edge_pairs
+from genstark_tpu_torch.testing import (LARGE_STEPS, MIMC192_18_PIN, SOLINAS96, SOLINAS96_64_PIN,
+                                        SOLINAS160, SOLINAS160_64_PIN, SOLINAS192,
+                                        SOLINAS192_64_PIN, edge_pairs)
 
 MID = pytest.mark.parametrize("modulus", [SOLINAS96, SOLINAS160, SOLINAS192],
                               ids=["p96", "p160", "p192"])
-PINS = {SOLINAS96: chip_smoke.SOLINAS96_64_PIN, SOLINAS160: chip_smoke.SOLINAS160_64_PIN,
-        SOLINAS192: chip_smoke.SOLINAS192_64_PIN}
+PINS = {SOLINAS96: SOLINAS96_64_PIN, SOLINAS160: SOLINAS160_64_PIN,
+        SOLINAS192: SOLINAS192_64_PIN}
 TOY = {"hash_algorithm": "blake2s256", "extension_factor": 4, "exe_query_count": 8,
        "fri_query_count": 6}
 
@@ -208,10 +209,10 @@ def test_cli_takes_a_modulus_expression():
 
 @pytest.mark.slow
 def test_mimc192_2_18_pin():
-    """Recompute chip_smoke's mimc192-2^18 pin (MiMC over 2^192 - 49 2^32 +
+    """Recompute the mimc192-2^18 pin (MiMC over 2^192 - 49 2^32 +
     1, 2^18 steps, the bench options: Ne = 2^22 on the digit route) with the
     port's plain versions on the CPU (`python -m examples.mimc_torch 262144
     cpu '2^192 - 49*2^32 + 1'`)."""
     from examples.mimc_torch import prove_mimc
-    _, data = prove_mimc(chip_smoke.LARGE_STEPS, "cpu", modulus=SOLINAS192)
-    assert _digest(data) == chip_smoke.MIMC192_18_PIN
+    _, data = prove_mimc(LARGE_STEPS, "cpu", modulus=SOLINAS192)
+    assert _digest(data) == MIMC192_18_PIN

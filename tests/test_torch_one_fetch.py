@@ -10,14 +10,14 @@ import hashlib
 import pytest
 import torch
 
-import chip_smoke
 from examples.mimc_torch import prove_div, prove_mimc
 from genstark_tpu_torch.field import P32, P128
 from genstark_tpu_torch.field.device import DeviceField
 from genstark_tpu_torch.protocol.prover import Prover
+from genstark_tpu_torch.testing import DIV_PIN, P32_PIN, P128_PIN
 
 TOY = {"extension_factor": 4, "exe_query_count": 8, "fri_query_count": 6}
-PINS = [(P32, 16, chip_smoke.P32_PIN), (P128, 32, chip_smoke.P128_PIN)]
+PINS = [(P32, 16, P32_PIN), (P128, 32, P128_PIN)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -59,7 +59,7 @@ def test_disagreeing_positions_fall_back(monkeypatch):
         return packed
 
     monkeypatch.setattr(Prover, "_packed_tail", tampered)
-    assert _prove(P128, 32) == (chip_smoke.P128_PIN, 1)
+    assert _prove(P128, 32) == (P128_PIN, 1)
 
 
 def test_a_prove_fetches_once(monkeypatch):
@@ -89,7 +89,7 @@ def test_a_prove_fetches_once(monkeypatch):
     monkeypatch.setattr(Prover, "prove", scoped("prove", real_prove))
     monkeypatch.setattr(DeviceField, "inv", scoped("inv", real_inv))
     stark, data = prove_div(64, "cpu")
-    assert (len(data), hashlib.sha256(data).hexdigest()) == chip_smoke.DIV_PIN
+    assert (len(data), hashlib.sha256(data).hexdigest()) == DIV_PIN
     assert calls == {"prove": 1, "inv": 0}
     stark.prove(*_div_args(stark))
     assert calls == {"prove": 2, "inv": 0}

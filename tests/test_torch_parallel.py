@@ -3,12 +3,14 @@ genstark_tpu_torch.parallel.launch.run_ranks (a FileStore, no port), one
 4-rank, one 2-rank and one 1-rank group running every rank-side case
 (tests/torch_parallel_cases.py), and one 8-rank group (the JAX pins' mesh
 size) running the cases whose code turns on the rank count, against the
-port's single-device proofs,
-the JAX package's pins and `distributed_ntt` on the conftest's 8-device
-mesh, and both verifiers.  Exact comparisons.  The groups run in threads
-while the parent computes the JAX side; each has its own timeout."""
+port's single-device proofs, the JAX package's proofs and `distributed_ntt`
+outputs (on the conftest's 8-device mesh), pinned as digests that the `slow`
+tests remake, and both verifiers.  Exact comparisons.  The groups run in
+threads; each has its own timeout."""
 
 import concurrent.futures
+import hashlib
+import json
 import os
 import sys
 import time
@@ -19,10 +21,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_parallel_cases as cases  # noqa: E402
 
-import chip_smoke  # noqa: E402
 from genstark_tpu_torch.field import P32, P128  # noqa: E402
 from genstark_tpu_torch.parallel import can_distribute  # noqa: E402
 from genstark_tpu_torch.parallel.launch import RankError, run_ranks  # noqa: E402
+from genstark_tpu_torch.testing import P64_64_PIN  # noqa: E402
 
 # Far above the groups' ~15 s of work (a loaded test machine slows the
 # spawn): a timeout only fires on a hang.
@@ -30,6 +32,23 @@ GROUP_TIMEOUT_S = 300.0
 RAISE_TIMEOUT_S = 120.0
 # tests/test_sharded_prover.py's pin of the JAX package's p128 proof
 P128_SHARDED_PIN = (8119, "ea2c42e4b7fe34724f94d38b8c9452528df43f9946096fd6eda61bbf13740d9f")
+# The JAX package's single-device p32 proofs at test_sharded_prover.py's
+# configuration: seed 3, and seed 5 on a Stark that proved seed 3 first.
+JAX_P32_PIN = (4883, "9fef8665e2517422b03413a8a290c8189dc049f8253e2ba260d7f1d7eac3ff7b")
+JAX_P32_VALUES_PIN = (5656, "9d99a44446ea42a394cf7b86900e9a5d107e4b5965520b45ae81b9aa36097d94")
+# sha256 (`_ntt_digest`) of the JAX distributed_ntt's outputs on the
+# 8-device mesh, each case of NTT_CASES: the natural output, and the block
+# layout's shape and rows (natural_output=False).
+JAX_NTT_PINS = {
+    ("P32", 256): "1d574b0db4bb8d9c3b62b74595770697571f37a68bdaf949dc083421fbee5b9d",
+    ("P32", 1024): "7b848fae7ba6fe6a73ffa413a17cbfe0b573f4066df996e0b77f7f55899c0e1e",
+    ("P128", 256): "173dca2fd4f7728e0e6a401a5b11903cea73509e266252e6ca86a242889fdd9d",
+    ("P128", 1024): "bd3c71c69ae51ede800947710c9cb8339c6fc37995b0cdb3b40e7f4afbe63f06",
+}
+
+
+def _ntt_digest(ints, d_shape, d_ints) -> str:
+    return hashlib.sha256(json.dumps([ints, d_shape, d_ints]).encode()).hexdigest()
 
 
 def _timed(fn, *args):
@@ -89,9 +108,8 @@ def single():
         torch.set_num_threads(saved)
 
 
-@pytest.fixture(scope="module")
-def jax_ntt():
-    """The JAX `distributed_ntt` on the 8-device mesh, in the parent."""
+def _jax_ntt():
+    """The JAX `distributed_ntt` on the 8-device mesh: {case: _ntt_digest}."""
     import jax
     from genstark_tpu.field import create_prime_field as jax_field
     from genstark_tpu import field as jax_fields
@@ -104,21 +122,29 @@ def jax_ntt():
         f = jax_field(getattr(jax_fields, p_name))
         x = f.device.from_ints(cases.ntt_values(f, n))
         d = distributed_ntt(f, x, mesh, natural_output=False)
-        out[(p_name, n)] = (f.device.to_ints(distributed_ntt(f, x, mesh)), list(d.shape[1:]),
-                            f.device.to_ints(d.reshape(f.device.L, n)))
+        out[(p_name, n)] = _ntt_digest(f.device.to_ints(distributed_ntt(f, x, mesh)),
+                                       list(d.shape[1:]),
+                                       f.device.to_ints(d.reshape(f.device.L, n)))
     return out
+
+
+@pytest.mark.slow
+def test_distributed_ntt_pins_are_the_jax_packages():
+    """The JAX distributed_ntt gives JAX_NTT_PINS."""
+    assert _jax_ntt() == JAX_NTT_PINS
 
 
 @pytest.mark.parametrize("world", [8, 4, 2, 1])
 @pytest.mark.parametrize("case", cases.NTT_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
-def test_distributed_ntt_matches_single_and_jax(groups, jax_ntt, world, case):
+def test_distributed_ntt_matches_single_and_jax(groups, world, case):
     """(a) every rank's gathered output equals the port's single-device
     ntt, and the JAX distributed_ntt; with natural_output=False the ranks'
-    rows of the block layout D[k1, k2] equal the JAX function's."""
+    rows of the block layout D[k1, k2] equal the JAX function's
+    (JAX_NTT_PINS)."""
     for rank in _ranks(groups, world):
         equal_single, ints, d_shape, d_ints = rank["ntt"][case]
         assert equal_single
-        assert (ints, d_shape, d_ints) == jax_ntt[case]
+        assert _ntt_digest(ints, d_shape, d_ints) == JAX_NTT_PINS[case]
 
 
 @pytest.mark.parametrize("world", [4, 2, 1])
@@ -135,60 +161,64 @@ def test_can_distribute_matches_jax(n, devices):
     assert can_distribute(n, devices) == jax_can_distribute(n, devices)
 
 
-@pytest.mark.parametrize("world", [4, 2, 1])
-def test_sharded_p32_equals_single_and_jax(groups, single, world):
-    """(d) the sharded p32 proof at test_sharded_prover.py's configuration
-    equals the port's and the JAX package's single-device proof, with no
-    host-sampled fallback; the port's and the JAX package's verifiers
-    accept it."""
+def _jax_p32():
+    """The JAX package's p32 MiMC Stark at the sharded configuration, and
+    the assertions of a seed on it."""
     from examples.mimc import make_mimc_stark as jax_make_mimc_stark
     from examples.mimc import run_mimc as jax_run_mimc
     from genstark_tpu.protocol import Assertion as JaxAssertion
+    stark, constants = jax_make_mimc_stark(128, modulus=P32, use_input=False, constant_count=64,
+                                           options=cases.SHARDED_OPTS)
+
+    def assertions(seed):
+        controls = jax_run_mimc(stark.air.field, 128, constants, seed)
+        return [JaxAssertion(0, 0, controls[0]), JaxAssertion(127, 0, controls[-1])]
+    return stark, assertions
+
+
+@pytest.mark.slow
+def test_jax_p32_pins_are_the_jax_packages():
+    """One JAX Stark proves seed 3, then seed 5: JAX_P32_PIN, then
+    JAX_P32_VALUES_PIN (its structure-keyed prover cache)."""
+    stark, assertions = _jax_p32()
+    got = [cases.digest(stark.serialize(stark.prove(assertions(seed), [], [seed])))
+           for seed in (3, 5)]
+    assert got == [JAX_P32_PIN, JAX_P32_VALUES_PIN]
+
+
+@pytest.mark.parametrize("world", [4, 2, 1])
+def test_sharded_p32_equals_single_and_jax(groups, single, world):
+    """(d) the sharded p32 proof at test_sharded_prover.py's configuration
+    equals the port's and the JAX package's single-device proof
+    (JAX_P32_PIN), with no host-sampled fallback; the port's and the JAX
+    package's verifiers accept it."""
     from examples.mimc_torch import make_mimc_stark
     from genstark_tpu_torch.protocol import Assertion
     ranks = _ranks(groups, world)
     data = ranks[0]["p32"]["bytes"]
     assert all(r["p32"]["bytes"] == data and r["p32"]["fallbacks"] == 0 for r in ranks)
     assert data == single["p32"]
-    stark, constants = jax_make_mimc_stark(128, modulus=P32, use_input=False, constant_count=64,
-                                           options=cases.SHARDED_OPTS)
-    controls = jax_run_mimc(stark.air.field, 128, constants, 3)
-    assertions = [JaxAssertion(0, 0, controls[0]), JaxAssertion(127, 0, controls[-1])]
-    want = stark.serialize(stark.prove(assertions, [], [3]))
-    assert data == want
-    assert stark.verify(assertions, stark.parse(data))
+    assert cases.digest(data) == JAX_P32_PIN
+    stark, assertions = _jax_p32()
+    jassert = assertions(3)
+    assert stark.verify(jassert, stark.parse(data))
     port, _ = make_mimc_stark(128, "cpu", modulus=P32, use_input=False, constant_count=64,
                               options=cases.SHARDED_OPTS)
-    assert port.verify([Assertion(a.step, a.register, a.value) for a in assertions],
+    assert port.verify([Assertion(a.step, a.register, a.value) for a in jassert],
                        port.parse(data))
 
 
-@pytest.fixture(scope="module")
-def jax_p32_values():
-    """The JAX package's p32 proof of seed 5 at the sharded configuration,
-    on a Stark that proved seed 3 first (its structure-keyed prover cache)."""
-    from examples.mimc import make_mimc_stark as jax_make_mimc_stark
-    from examples.mimc import run_mimc as jax_run_mimc
-    from genstark_tpu.protocol import Assertion as JaxAssertion
-    stark, constants = jax_make_mimc_stark(128, modulus=P32, use_input=False, constant_count=64,
-                                           options=cases.SHARDED_OPTS)
-    for seed in (3, 5):
-        controls = jax_run_mimc(stark.air.field, 128, constants, seed)
-        data = stark.serialize(stark.prove(
-            [JaxAssertion(0, 0, controls[0]), JaxAssertion(127, 0, controls[-1])], [], [seed]))
-    return data
-
-
 @pytest.mark.parametrize("world", [4, 2, 1])
-def test_sharded_new_values_reuse_the_prover(groups, single, jax_p32_values, world):
+def test_sharded_new_values_reuse_the_prover(groups, single, world):
     """A second p32 statement, other values at the same steps, on the Stark
     that proved the first: one ShardedProver, and every rank's bytes are
     the single-device proof of that statement alone and the JAX package's
-    proof of it after the first."""
+    proof of it after the first (JAX_P32_VALUES_PIN)."""
     for rank in _ranks(groups, world):
         got = rank["p32_values"]
         assert (got["provers"], got["fallbacks"]) == (1, 0)
-        assert got["bytes"] == single["p32_values"] == jax_p32_values != single["p32"]
+        assert got["bytes"] == single["p32_values"] != single["p32"]
+        assert cases.digest(got["bytes"]) == JAX_P32_VALUES_PIN
 
 
 @pytest.mark.parametrize("world", [4, 2, 1])
@@ -216,9 +246,9 @@ def test_sharded_p128_equals_jax_pin(groups, world):
 @pytest.mark.parametrize("world", [4, 2, 1])
 def test_sharded_p64_secret_input_equals_pin(groups, world):
     """(f) P64, the toy options, 64 steps, a secret input register: the
-    radix-2 route, equal to chip_smoke's P64_64_PIN on every rank."""
+    radix-2 route, equal to P64_64_PIN on every rank."""
     for rank in _ranks(groups, world):
-        assert cases.digest(rank["p64"]["bytes"]) == chip_smoke.P64_64_PIN
+        assert cases.digest(rank["p64"]["bytes"]) == P64_64_PIN
         assert rank["p64"]["fallbacks"] == 0
 
 

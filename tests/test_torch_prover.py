@@ -1,6 +1,7 @@
 """The port's whole prover on the CPU: the pinned proof digests, byte
 identity with the JAX package's prover on the same AIR (converted from the
-JAX schema), and the JAX verifier accepting the port's bytes."""
+JAX schema; the JAX package's bytes pinned, and remade by the `slow`
+tests), and the JAX verifier accepting the port's bytes."""
 
 import hashlib
 
@@ -14,8 +15,12 @@ from genstark_tpu_torch import air, instantiate
 from genstark_tpu_torch.air.convert import schema_from_reference
 from genstark_tpu_torch.field import P32, P128
 from genstark_tpu_torch.protocol import Assertion
+from genstark_tpu_torch.testing import BENCH_PIN, BENCH_STEPS, P32_PIN, P128_PIN
 
 TOY = {"extension_factor": 4, "exe_query_count": 8, "fri_query_count": 6}
+# MiMC-128, 64 steps, secret input 3, the bench options (blake2s256, ext 16,
+# 48/24 queries): the JAX package's proof on the CPU.
+SECRET_INPUT_PIN = (27404, "f3cffb1cae924bb21ac2c64374479501416a8f73b66e61be1e7bdef164d09ad7")
 
 
 def _digest(data: bytes):
@@ -26,36 +31,47 @@ def test_p32_golden_pin():
     # tests/test_compat_vectors.py::test_golden_proof_bytes
     _, data = prove_mimc(64, "cpu", modulus=P32, use_input=False, constant_count=16,
                          options=TOY)
-    assert _digest(data) == (
-        3472, "db79f92dcacf2cf2d1eeb7cee8db4a4eeb1e5bc5f4d13e9b0cdaacab7cc95b75")
+    assert _digest(data) == P32_PIN
 
 
 def test_p128_pin():
     # tests/test_mxu_prover.py::test_mxu_proof_bytes_match_default
     _, data = prove_mimc(64, "cpu", modulus=P128, use_input=False, constant_count=32,
                          options=TOY)
-    assert _digest(data) == (
-        7329, "3fa3bc9f84d3505912258df9974587b18b35619116a2787786b3beacd3cc4917")
+    assert _digest(data) == P128_PIN
+
+
+def _jax_secret_input(steps: int):
+    """The JAX package's bench-shape MiMC Stark and its assertions of seed 3."""
+    jstark, constants = jax_make_mimc_stark(steps, use_input=True)
+    controls = jax_run_mimc(jstark.air.field, steps, constants, 3)
+    return jstark, [JaxAssertion(0, 0, controls[0]), JaxAssertion(steps - 1, 0, controls[-1])]
 
 
 def test_secret_input_proof_equals_jax_and_verifies():
     """The bench's shape (p128, blake2s256, ext 16, 48/24 queries, secret
-    input register) at 64 steps: the JAX schema converted to the port's, both
-    packages prove, the bytes are equal, and the JAX verifier accepts them."""
-    jstark, constants = jax_make_mimc_stark(64, use_input=True)
-    controls = jax_run_mimc(jstark.air.field, 64, constants, 3)
-    jassert = [JaxAssertion(0, 0, controls[0]), JaxAssertion(63, 0, controls[-1])]
-    want = jstark.serialize(jstark.prove(jassert, [[3]]))
-
+    input register) at 64 steps: the JAX schema converted to the port's, the
+    port's bytes are the JAX package's (SECRET_INPUT_PIN), and the JAX
+    verifier accepts them."""
+    jstark, jassert = _jax_secret_input(64)
     stark = instantiate(schema_from_reference(jstark.air.schema), "default",
                         {"hash_algorithm": "blake2s256", "extension_factor": 16,
                          "exe_query_count": 48, "fri_query_count": 24}, device="cpu")
     proof = stark.prove([Assertion(a.step, a.register, a.value) for a in jassert], [[3]])
     got = stark.serialize(proof)
-    assert _digest(got) == _digest(want)
+    assert _digest(got) == SECRET_INPUT_PIN
     assert stark.size_of(proof) == len(got)
     assert stark.security_level == jstark.security_level
     assert jstark.verify(jassert, jstark.parse(got))
+
+
+@pytest.mark.slow
+def test_secret_input_pin_is_the_jax_packages():
+    """The JAX package proves the statement of
+    test_secret_input_proof_equals_jax_and_verifies to SECRET_INPUT_PIN
+    (some minutes of XLA:CPU)."""
+    jstark, jassert = _jax_secret_input(64)
+    assert _digest(jstark.serialize(jstark.prove(jassert, [[3]]))) == SECRET_INPUT_PIN
 
 
 def test_schema_converter():
@@ -88,12 +104,8 @@ def test_assertion_conflict_raises():
 
 @pytest.mark.slow
 def test_bench_pin_matches_jax():
-    """Recompute the bench-config pin of chip_smoke.py with the JAX package
-    (MiMC-128, 2^13 steps, secret input 3; several minutes on the CPU)."""
-    import chip_smoke
-    steps = 2 ** 13
-    jstark, constants = jax_make_mimc_stark(steps, use_input=True)
-    controls = jax_run_mimc(jstark.air.field, steps, constants, 3)
-    jassert = [JaxAssertion(0, 0, controls[0]), JaxAssertion(steps - 1, 0, controls[-1])]
+    """Recompute BENCH_PIN with the JAX package (MiMC-128, 2^13 steps,
+    secret input 3; several minutes on the CPU)."""
+    jstark, jassert = _jax_secret_input(BENCH_STEPS)
     data = jstark.serialize(jstark.prove(jassert, [[3]]))
-    assert _digest(data) == chip_smoke.BENCH_PIN
+    assert _digest(data) == BENCH_PIN

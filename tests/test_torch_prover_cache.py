@@ -3,11 +3,14 @@ package's is, by the trace length, the input shapes and the asserted steps
 and registers: a statement B with other values at A's steps reuses A's
 Prover and proves the bytes a fresh Stark proves, which are the JAX
 package's bytes of B proved after A on one of its Starks (through its own
-structure-keyed `_fused_prover`); the verifier holds B's proof to B's
-values; a statement that asserts another step builds a second Prover.  A
-Prover holds no asserted value: its boundary stage divides P by Z with the
-remainder dropped, which is (P - I) / Z for every statement, checked on
-P = I + Z * Q.  Toy sizes on the CPU, exact comparisons."""
+structure-keyed `_fused_prover`), pinned in JAX_BYTES; the verifier holds
+B's proof to B's values; a statement that asserts another step builds a
+second Prover.  A Prover holds no asserted value: its boundary stage
+divides P by Z with the remainder dropped, which is (P - I) / Z for every
+statement, checked on P = I + Z * Q.  Toy sizes on the CPU, exact
+comparisons; the `slow` test remakes the pins with the JAX package."""
+
+import hashlib
 
 import pytest
 import torch
@@ -22,6 +25,7 @@ from genstark_tpu_torch.field import P32, P128
 from genstark_tpu_torch.protocol import Assertion
 from genstark_tpu_torch.protocol.boundary import BoundaryConstraints
 from genstark_tpu_torch.protocol.fri import StarkError
+from genstark_tpu_torch.testing import MIMC128_INPUT_3_5_PINS, P32_PIN
 
 TOY = {"extension_factor": 4, "exe_query_count": 8, "fri_query_count": 6}
 
@@ -75,30 +79,43 @@ class PoseidonHash:
 
 
 CASES = {"p32": Mimc(P32, False), "p128": Mimc(P128, True), "poseidon": PoseidonHash()}
+# (bytes, sha256) of the JAX package's proofs of A, B and the moved B, in
+# that order on one of its Starks (A over P32 is P32_PIN's statement; A and
+# B over P128 are tests/test_torch_static_columns.py's two).
+JAX_BYTES = {
+    "p32": [P32_PIN,
+            (3297, "d623ac1696343bdcaa8ea626bd4262557567aec90af482cf7c327e3fd23ebb27"),
+            (3339, "0c6fc6a2916c46a6476fe4ce01bb287624810ffe82fd7dd7d5bda99459dcd372")],
+    "p128": MIMC128_INPUT_3_5_PINS + [
+        (7558, "2ee0553e2bd29d63677c31699987332fc09c4fc332244e87505ac2c418a037da")],
+    "poseidon": [(11645, "7564418b1f5e3881e2b1e205d711d2627d89ac2886f7b96e9c2cd610ba57da3a"),
+                 (12029, "79716e7d6fb567383a69c54365140a7c1bd7c524e615c6e2b1bb9a83c90bdb70"),
+                 (11677, "37255ef320c523967ec2c764b6500102bf7355e578a3d23031581dde561ea746")],
+}
+
+
+def _digest(data: bytes):
+    return len(data), hashlib.sha256(data).hexdigest()
 
 
 @pytest.fixture(scope="module", params=list(CASES))
 def proved(request):
     """One Stark proves A (k = 3), B (k = 5) and the moved B in turn; fresh
-    Starks prove B and the moved B alone; one JAX Stark proves A, B and the
-    moved B in turn."""
+    Starks prove B and the moved B alone."""
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         case = CASES[request.param]
         stark = case.make()
-        a, _ = case.prove(stark, 3)
+        a, a_bytes = case.prove(stark, 3)
         b, b_bytes = case.prove(stark, 5)
         provers_after_b = len(stark._provers)
         _, b_fresh = case.prove(case.make(), 5)
         moved, moved_bytes = case.prove(stark, 5, moved=True)
         _, moved_fresh = case.prove(case.make(), 5, moved=True)
-        jstark = case.make(jax=True)
-        jax_bytes = [case.prove(jstark, k, moved, jax=True)[1]
-                     for k, moved in ((3, False), (5, False), (5, True))]
-        return dict(case=case, stark=stark, a=a, b=b, b_bytes=b_bytes, b_fresh=b_fresh,
-                    provers_after_b=provers_after_b, moved=moved, moved_bytes=moved_bytes,
-                    moved_fresh=moved_fresh, jax_bytes=jax_bytes)
+        return dict(case=case, name=request.param, stark=stark, a=a, a_bytes=a_bytes, b=b,
+                    b_bytes=b_bytes, b_fresh=b_fresh, provers_after_b=provers_after_b,
+                    moved=moved, moved_bytes=moved_bytes, moved_fresh=moved_fresh)
     finally:
         torch.set_num_threads(saved)
 
@@ -113,11 +130,23 @@ def test_new_values_reuse_the_prover(proved):
 
 
 def test_bytes_equal_the_jax_package(proved):
-    """B and the moved B, each proved on a Stark that proved A first, are
-    the JAX package's bytes of the same statements in the same order."""
-    _, jax_b, jax_moved = proved["jax_bytes"]
-    assert proved["b_bytes"] == jax_b
-    assert proved["moved_bytes"] == jax_moved
+    """A, then B and the moved B, each proved on a Stark that proved A
+    first, are the JAX package's bytes of the same statements in the same
+    order (JAX_BYTES)."""
+    assert [_digest(proved[k]) for k in ("a_bytes", "b_bytes", "moved_bytes")] == \
+        JAX_BYTES[proved["name"]]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", list(CASES))
+def test_jax_bytes_pins_are_the_jax_packages(name):
+    """One JAX Stark proves A, B and the moved B in turn: their digests are
+    JAX_BYTES (minutes of XLA:CPU for the Poseidon case)."""
+    case = CASES[name]
+    jstark = case.make(jax=True)
+    got = [_digest(case.prove(jstark, k, moved, jax=True)[1])
+           for k, moved in ((3, False), (5, False), (5, True))]
+    assert got == JAX_BYTES[name]
 
 
 def test_the_verifier_holds_the_proof_to_its_values(proved):

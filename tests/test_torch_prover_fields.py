@@ -6,7 +6,7 @@ In tier-1 the port's bytes are held to pins that the JAX package made once
 on the CPU (a live JAX prove of a 256-bit field costs minutes there); the
 AIR is the JAX package's schema converted by `air/convert.py`, and the
 port's own example AIR.  The `slow` tests recompute every pin with the JAX
-package, the MiMC-256 2^13-step pin of chip_smoke.py included, and check
+package, the MiMC-256 2^13-step pin included, and check
 that the JAX verifier accepts the port's bytes."""
 
 import hashlib
@@ -21,6 +21,7 @@ from genstark_tpu_torch import instantiate
 from genstark_tpu_torch.air.convert import schema_from_reference
 from genstark_tpu_torch.field import P64, P256
 from genstark_tpu_torch.protocol import Assertion
+from genstark_tpu_torch.testing import BENCH_STEPS, MIMC256_PIN, P64_64_PIN, P256_64_PIN
 
 BENCH = {"hash_algorithm": "blake2s256", "extension_factor": 16,
          "exe_query_count": 48, "fri_query_count": 24}
@@ -29,8 +30,8 @@ TOY = dict(BENCH, extension_factor=4, exe_query_count=8, fri_query_count=6)
 # (modulus, options, (bytes, sha256) of the JAX package's proof): MiMC,
 # 64 steps, 64 cyclic constants, secret input 3.
 CASES = {
-    "p256": (P256, BENCH, (40300, "aeca982219743b04f13dd8b6be2b855f951bb16fd4c837f841d62af059265be4")),
-    "p64": (P64, TOY, (4614, "8f2cc12a4eea675682570374637c919519eb1c5628201c0d5b99a9a5892f6fe9")),
+    "p256": (P256, BENCH, P256_64_PIN),
+    "p64": (P64, TOY, P64_64_PIN),
 }
 
 
@@ -82,14 +83,13 @@ def test_pins_match_jax_and_jax_verifies_port_bytes(case):
 
 @pytest.mark.slow
 def test_mimc256_pin_matches_jax():
-    """Recompute chip_smoke.py's MIMC256_PIN with the JAX package (MiMC-256,
+    """Recompute MIMC256_PIN with the JAX package (MiMC-256,
     2^13 steps, the bench options, secret input 3; over half an hour of
     XLA:CPU compilation), and check the port's CPU proof against it."""
-    import chip_smoke
-    steps = chip_smoke.BENCH_STEPS
+    steps = BENCH_STEPS
     jstark, jassert = _jax_mimc(steps, P256, BENCH)
     data = jstark.serialize(jstark.prove(jassert, [[3]]))
-    assert _digest(data) == chip_smoke.MIMC256_PIN
+    assert _digest(data) == MIMC256_PIN
     _, port = prove_mimc(steps, "cpu", modulus=P256)
     assert port == data
     assert jstark.verify(jassert, jstark.parse(port))

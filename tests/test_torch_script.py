@@ -5,7 +5,7 @@ compared node for node with their sharing), give equal host traces, and at
 toy depth and toy options the port's proofs of the three Merkle examples
 are accepted by both verifiers.  Every comparison is exact.
 
-The `slow` tests recompute chip_smoke.py's pins of the reference's Merkle
+The `slow` tests recompute the pins of the reference's Merkle
 configurations with the port on the CPU and hold them equal to a JAX prove.
 """
 
@@ -16,7 +16,6 @@ import sys
 import numpy as np
 import pytest
 
-import chip_smoke
 from examples import merkle_import as jax_merkle_import
 from examples import elliptic_torch, merkle_import_torch, poseidon_torch, rescue_torch
 from examples.mimc import MIMC_SCRIPT
@@ -33,6 +32,7 @@ from genstark_tpu_torch.air.convert import schema_from_reference
 from genstark_tpu_torch.air.module import AirModule
 from genstark_tpu_torch.air.script import compile_script
 from genstark_tpu_torch.stdlib import lib128_source, lib224_source, pointmul_source
+from genstark_tpu_torch.testing import LIB224_PIN, POINTMUL_PIN, POSEIDON16_PIN, RESCUE16_PIN
 from test_nested_inputs import TOY_AA
 
 
@@ -283,25 +283,25 @@ def _pin(data):
     return len(data), hashlib.sha256(data).hexdigest()
 
 
-# (chip_smoke pin, the port's case, the JAX source, its options)
+# (pin, the port's case, the JAX source, its options)
 SLOW_PINS = {
-    "rescue16": ("RESCUE16_PIN", lambda: rescue_torch.branch_case(16, 42, None, "cpu"),
+    "rescue16": (RESCUE16_PIN, lambda: rescue_torch.branch_case(16, 42, None, "cpu"),
                  _rescue_merkle_source, rescue_torch.MERKLE_OPTIONS),
-    "poseidon16": ("POSEIDON16_PIN", lambda: poseidon_torch.branch_case(16, 42, None, "cpu"),
+    "poseidon16": (POSEIDON16_PIN, lambda: poseidon_torch.branch_case(16, 42, None, "cpu"),
                    SCRIPTS["poseidon_merkle"], poseidon_torch.MERKLE_OPTIONS),
-    "lib224_8": ("LIB224_PIN", lambda: merkle_import_torch.merkle_proof_case(8, 42, None, "cpu"),
+    "lib224_8": (LIB224_PIN, lambda: merkle_import_torch.merkle_proof_case(8, 42, None, "cpu"),
                  lambda: jax_merkle_import.MERKLE_PROOF_SRC, merkle_import_torch.OPTIONS),
 }
 
 
 @pytest.mark.slow
 def test_pointmul_pin():
-    """chip_smoke.POINTMUL_PIN: the port's proof at the published options on
+    """POINTMUL_PIN: the port's proof at the published options on
     the CPU, equal to the JAX package's, verified by both."""
     from genstark_tpu.stdlib import pointmul_source as jax_pointmul_source
     stark, assertions, inputs = elliptic_torch.pointmul_case(None, "cpu")
     data = stark.serialize(stark.prove(assertions, inputs))
-    assert _pin(data) == chip_smoke.POINTMUL_PIN
+    assert _pin(data) == POINTMUL_PIN
     jstark = jax_instantiate(jax_pointmul_source(), "default",
                              dict(elliptic_torch.DEFAULT_OPTIONS))
     jassertions = [JaxAssertion(a.step, a.register, a.value) for a in assertions]
@@ -313,13 +313,13 @@ def test_pointmul_pin():
 @pytest.mark.slow
 @pytest.mark.parametrize("name", list(SLOW_PINS))
 def test_reference_merkle_pins(name):
-    """chip_smoke.py's pins of the reference's Merkle configurations: the
+    """The pins of the reference's Merkle configurations: the
     port's proof on the CPU, equal to the JAX package's proof (minutes of
     XLA:CPU compile each), verified by both."""
     pin, case, source, options = SLOW_PINS[name]
     stark, assertions, inputs, public = case()
     data = stark.serialize(stark.prove(assertions, inputs))
-    assert _pin(data) == getattr(chip_smoke, pin)
+    assert _pin(data) == pin
     jstark = jax_instantiate_script(source(), dict(options))
     jassertions = [JaxAssertion(a.step, a.register, a.value) for a in assertions]
     assert jstark.serialize(jstark.prove(jassertions, inputs)) == data

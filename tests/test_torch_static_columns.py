@@ -24,6 +24,7 @@ from genstark_tpu_torch.field import P128
 from genstark_tpu_torch.field.device import DeviceField
 from genstark_tpu_torch.protocol import Assertion
 from genstark_tpu_torch.protocol.prover import Prover, _to_mont_batch
+from genstark_tpu_torch.testing import MIMC128_INPUT_3_5_PINS
 
 TOY = {"extension_factor": 4, "exe_query_count": 8, "fri_query_count": 6}
 TOY_16 = {"hash_algorithm": "blake2s256", "extension_factor": 16,
@@ -105,8 +106,7 @@ CASES = {
 # (length, sha256) of the JAX package's proofs of the two statements, in a
 # row on one Stark (`test_pins_are_the_jax_packages` recomputes them)
 JAX_PINS = {
-    "mimc": [(7398, "a405f2588f439445d45d0cd61c3b91c722bb21e2fa3e14ffd1bfd9559cbba00a"),
-             (7077, "fcb65c1346e8971c93b3d694a1ea421bfbb9bca9de9947400595a7b9a46c1f9c")],
+    "mimc": MIMC128_INPUT_3_5_PINS,
     "poseidon": [(18826, "f250bec8de36e259af155abb803764da48705bc196b011091c9191e5e7c17415"),
                  (18729, "205088492469efd519c27cc14473a7c69b3948b189f434cdc600e4e904c4f97f")],
     "rescue": [(12970, "b3a9e672bab5c8bda966bc7067a56097aee438e4b22c8f5cd4856dfe6c9a49c7"),

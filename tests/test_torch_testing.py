@@ -1,20 +1,25 @@
 """The kernel checks' own instruments, on the CPU: the edge inputs of
 `genstark_tpu_torch.testing` meet as the pairs they claim to, in the plain
-versions the kernels are held against, and chip_smoke.py's build report
-names every word-product instantiation, also for a library built before.
-Numpy and the plain torch field only; no kernel is built."""
+versions the kernels are held against, and the build report that
+chip_smoke.py reads (`ptxas_report`, `word_kernels`) names every
+word-product instantiation, also for a library built before.  Numpy and
+the plain torch field only; no kernel is built."""
 
+import glob
 import os
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
-import chip_smoke
 from genstark_tpu_torch import kernels
 from genstark_tpu_torch.field import P32, P64, P128, P224, P256, create_prime_field
 from genstark_tpu_torch.field.limbs import limbs_to_ints, power_series_mont_np
 from genstark_tpu_torch.ntt import radix2
-from genstark_tpu_torch.testing import edge_input, edge_pairs, edge_values
+from genstark_tpu_torch.testing import (FIELD_LIMBS, edge_input, edge_pairs, edge_values, mangled,
+                                        ptxas_report, word_kernels)
 
 FIELDS = pytest.mark.parametrize("modulus", [96769, P32, P64, P128, P224, P256],
                                  ids=["demo", "p32", "p64", "p128", "p224", "p256"])
@@ -76,15 +81,15 @@ def test_transform_edges_meet_at_the_first_butterfly(modulus):
 
 
 def test_word_kernel_names_match_their_mangling():
-    """chip_smoke.word_kernels() names each instantiation by its mangled part:
+    """word_kernels() names each instantiation by its mangled part:
     60 of them (kernel 5's 24, kernels 8, 7/9 and 10 at eight L, kernel 1's
     12: KS = 1 and 2 at L = 2, 4, 6, 8, KS = 1 at L = 10 to 16, the k steps
     kernels.dft_slice gives), none inside another, each found in a register
     report of the nvcc -Xptxas -v form."""
-    assert chip_smoke.mangled("field_ew_kernel", 8, 0) == "15field_ew_kernelILi8ELi0EE"
-    assert chip_smoke.mangled("dft_level_kernel", 16, 1) == "16dft_level_kernelILi16ELi1EE"
-    assert chip_smoke.FIELD_LIMBS == kernels.FIELD_LS
-    parts = chip_smoke.word_kernels()
+    assert mangled("field_ew_kernel", 8, 0) == "15field_ew_kernelILi8ELi0EE"
+    assert mangled("dft_level_kernel", 16, 1) == "16dft_level_kernelILi16ELi1EE"
+    assert FIELD_LIMBS == kernels.FIELD_LS
+    parts = word_kernels()
     assert len(set(parts)) == len(parts) == 24 + 8 + 8 + 8 + 12
     assert not [(a, b) for a in parts for b in parts if a != b and a in b]
     log = "\n".join(
@@ -92,7 +97,7 @@ def test_word_kernel_names_match_their_mangling():
         f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         f"ptxas info    : Used {32 + i} registers, used 0 barriers, 380 bytes cmem[0]"
         for i, part in enumerate(parts))
-    report = chip_smoke.ptxas_report(log)
+    report = ptxas_report(log)
     assert [next(r for name, r in report if part in name) for part in parts] == [
         f"{32 + i} registers, 0 bytes spilled" for i in range(len(parts))]
 
@@ -120,3 +125,36 @@ def test_dft_fragment_budget_is_one_rule():
         src = fh.read()
     assert f"constexpr int kDftFragmentWords = {kernels.DFT_FRAGMENT_WORDS};" in src
     assert [kernels.dft_slice(L) for L in kernels.DFT_LS] == [64, 64, 64, 64, 32, 32, 32, 32]
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_each_pin_is_written_once():
+    """Every proof or transform digest among the port's files
+    (genstark_tpu_torch/, chip_smoke.py, scripts/torch_*.py,
+    tests/test_torch_*.py, tests/torch_*.py) is written in one place: a
+    pin that several files read lives in genstark_tpu_torch/testing.py."""
+    files = glob.glob(os.path.join(ROOT, "genstark_tpu_torch", "**", "*.py"), recursive=True)
+    for pattern in ("chip_smoke.py", "scripts/torch_*.py", "tests/test_torch_*.py",
+                    "tests/torch_*.py"):
+        files += glob.glob(os.path.join(ROOT, pattern))
+    seen = {}
+    for path in sorted(files):
+        with open(path) as fh:
+            for digest in re.findall(r'"([0-9a-f]{64})"', fh.read()):
+                seen.setdefault(digest, []).append(os.path.relpath(path, ROOT))
+    assert len(seen) > 30
+    assert {d: where for d, where in seen.items() if len(where) > 1} == {}
+
+
+def test_instruments_load_by_path_alone():
+    """scripts/torch_ew_dram.py loads this tree's testing.py by path to
+    measure another tree: the load imports neither torch nor the package."""
+    code = ("import sys; sys.path.insert(0, 'scripts'); import torch_ew_dram; "
+            "m = torch_ew_dram.load_instrument(); "
+            "print(m.DRAM_SETS, m.MEM_BYTES_PER_S, callable(m.device_ms), "
+            "'torch' in sys.modules, 'genstark_tpu_torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=60, check=True)
+    assert out.stdout.split() == ["8", "3350000000000.0", "True", "False", "False"]
