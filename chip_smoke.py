@@ -1175,7 +1175,9 @@ def host_fallbacks(stark):
 def check_one_fetch(kernels, stark, prove, label: str, sync_log: dict) -> None:
     """One warm prove synchronizes once after its first kernel (the
     proof's fetch), and no prove of the path fell back to the host
-    sampler."""
+    sampler.  One prove first, so that the counted ones replay the
+    Prover's recorded graph, as every warm prove does."""
+    prove()
     syncs = count_syncs(kernels, prove)
     fallbacks = host_fallbacks(stark)
     sync_log[label] = dict(syncs, host_fallbacks=fallbacks)

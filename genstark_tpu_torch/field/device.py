@@ -68,7 +68,12 @@ class DeviceField:
         without a synchronization: on the card the limbs are written once
         into pinned host memory and copied on the current stream (the
         caching host allocator keeps the block until that copy is done).
-        Adds the int32 copy's bytes to `tracing.counters["upload_bytes"]`."""
+        Adds the int32 copy's bytes to `tracing.counters["upload_bytes"]`.
+        Raises while the current stream records a CUDA graph."""
+        if self.device.type != "cpu" and torch.cuda.is_current_stream_capturing():
+            # a graph would replay the copy from a host block freed after it
+            raise RuntimeError("an upload while a CUDA graph records: make the tensor at the "
+                               "first prove and keep it")
         arr = np.ascontiguousarray(arr)
         tracing.counters["upload_bytes"] += 4 * arr.size
         if self.device.type == "cpu":

@@ -58,6 +58,16 @@ asserted value: the boundary quotients are the floor quotients of the trace
 polynomials by the zerofiers, which the interpolants I(x) do not move (see
 `BoundaryConstraints.evaluate_all_tables`), so one Prover proves every
 statement with the same asserted steps and registers.
+
+The stages read each statement's inputs from buffers the Prover keeps
+(`_load_inputs`), and nothing they enqueue depends on the host after the
+upload.  So on the card a single-device Prover records commit, lcomb, FRI
+and the packed tail as one CUDA graph at its second prove (`_capture`;
+the first stays eager and keeps what it makes) and replays it at every
+prove after: the host enqueues one graph instead of hundreds of launches.
+The graphs of a Stark's Provers share one memory pool (`Stark.graph_pool`).
+A CPU Prover, a ShardedProver (collectives) and the staged prover run
+eager.
 """
 
 from __future__ import annotations
@@ -123,6 +133,11 @@ class Prover:
         self.secret_pos = [self.input_regs.index(k) for k in self.secret_idx]
         self._kept = {}              # per-prover device tensors (see _keep)
         self.host_fallbacks = 0      # proves that took the host-sampled path
+        self._proved = False         # a prove has run: plans and tables are kept
+        self._graph = None           # the recorded device work (see _capture)
+        self._packed = None          # its packed tail buffer, which every replay rewrites
+        # the Stark's one pool for the graphs of all its Provers
+        self._pool = stark.graph_pool() if self._records_graph() else None
         # caps of the padded proof gather (fused.py:226-248): every index
         # section has a fixed length, so the one buffer has a fixed layout
         exe_q = self.index_generator.exe_query_count
@@ -412,29 +427,34 @@ class Prover:
         prove.<stage>.  A warm prove uploads the trace [R, L, T] and the
         input registers' values [L, sum of n_k] and nothing else: no static
         column is built on the host (`context.statics_std` is the staged
-        prover's)."""
+        prover's).  The stages read the inputs from the Prover's kept
+        buffers (`_load_inputs`); where `_records_graph`, the second prove
+        records the stages and the tail's device work as one CUDA graph
+        (`_capture`) and every prove from then on replays it, in one span,
+        `prove.replay`."""
         dev = self.dev
         with tracing.span("prove.upload"):
             # the inputs go up asynchronously: the one fetch is the prove's
             # only synchronization.  Of the static registers only the input
             # registers' values go up, [L, sum of n_k], not their columns
-            trace = dev.from_numpy(trace_std)
-            inputs = (dev.from_numpy(self.context.input_values_std())
-                      if self.input_regs else None)
-        with tracing.span("prove.commit"):
-            p_polys, input_polys, e_std, e_flat, e_root = self._stage_commit(trace, inputs)
-        del trace, inputs
-        with tracing.span("prove.lcomb"):
-            l_evals = self._stage_lcomb(p_polys, input_polys, e_std, e_root)
-        del p_polys, input_polys
-        with tracing.span("prove.fri"):
-            flats, layers, roots = self._stage_fri(l_evals)
-        del l_evals
-        with tracing.span("prove.tail"):
-            fri_cat, vals_cat = torch.cat(flats, dim=1), torch.cat(layers, dim=1)
-            del flats, layers
-            packed = self._packed_tail(e_flat, fri_cat, vals_cat, e_std, e_root, roots)
-            packed = np.ascontiguousarray(tracing.fetch(packed).numpy()).view(np.uint32)
+            trace, inputs = self._load_inputs(
+                dev.from_numpy(trace_std),
+                dev.from_numpy(self.context.input_values_std()) if self.input_regs else None)
+        if self._graph is None and self._proved and self._records_graph():
+            self._capture(trace, inputs)
+        if self._graph is not None:
+            with tracing.span("prove.replay"):
+                self._graph.replay()
+                tracing.counters["graph_replays"] += 1
+            with tracing.span("prove.tail"):
+                packed = np.ascontiguousarray(tracing.fetch(self._packed).numpy()).view(np.uint32)
+            stages = None
+        else:
+            stages = self._stages(trace, inputs)
+            with tracing.span("prove.tail"):
+                packed = self._packed_tail(*stages)
+                packed = np.ascontiguousarray(tracing.fetch(packed).numpy()).view(np.uint32)
+        self._proved = True
         with tracing.span("prove.assemble"):
             proof = self._assemble_device_sampled(packed)
             if proof is not None:
@@ -442,8 +462,67 @@ class Prover:
             # a set the candidate window did not fill, or positions that
             # differ from the host sampler's: the host-sampled path
             self.host_fallbacks += 1
+            if stages is None:
+                # a replay keeps only the packed buffer: run the stages again
+                stages = self._stages(trace, inputs)
+            e_flat, fri_cat, vals_cat, e_std = stages[:4]
             hp = self._host_plans(self._fetched_roots(packed))
             return self._assemble(self._gather(hp, e_flat, fri_cat, vals_cat, e_std), hp)
+
+    def _load_inputs(self, trace: torch.Tensor, inputs):
+        """The kept input buffers, holding this prove's uploaded trace [R,
+        L, T] and input registers' values [L, sum of n_k] (None without
+        input registers): the first prove's uploads become the buffers,
+        every later prove copies its uploads into them on the device.  The
+        stages read only these, so a recorded graph reads each statement's
+        inputs."""
+        kept = self._kept.get("inputs")
+        if kept is None:
+            kept = self._kept["inputs"] = (trace, inputs)
+        else:
+            kept[0].copy_(trace)
+            if inputs is not None:
+                kept[1].copy_(inputs)
+        return kept
+
+    def _stages(self, trace: torch.Tensor, inputs):
+        """commit -> lcomb -> FRI from the kept input buffers, each in its
+        span.  Returns (e_flat, fri_cat, vals_cat, e_std, e_root, FRI
+        roots): the FRI trees and layers concatenated, `_packed_tail`'s
+        arguments."""
+        with tracing.span("prove.commit"):
+            p_polys, input_polys, e_std, e_flat, e_root = self._stage_commit(trace, inputs)
+        with tracing.span("prove.lcomb"):
+            l_evals = self._stage_lcomb(p_polys, input_polys, e_std, e_root)
+        del p_polys, input_polys
+        with tracing.span("prove.fri"):
+            flats, layers, roots = self._stage_fri(l_evals)
+            del l_evals
+            fri_cat, vals_cat = torch.cat(flats, dim=1), torch.cat(layers, dim=1)
+        return e_flat, fri_cat, vals_cat, e_std, e_root, roots
+
+    def _records_graph(self) -> bool:
+        """Whether this Prover records its device work as a CUDA graph at
+        its second prove (the first makes and keeps its plans and tables,
+        whose uploads synchronize): a single-device Prover on the card."""
+        return self.dev.device.type == "cuda"
+
+    def _capture(self, trace: torch.Tensor, inputs) -> None:
+        """Record `_stages` and `_packed_tail` over the kept input buffers
+        as one CUDA graph on a side stream, into the Stark's one pool, and
+        keep it with the packed tail buffer, the one output a prove reads.
+        The rest of the graph's memory goes back to the pool, where the
+        graphs of the Stark's other Provers record over it: so a replayed
+        prove that takes the host-sampled path runs the stages again,
+        eager, for the trees and evaluations it gathers from.  Nothing
+        runs until the graph is replayed.  A step that cannot be recorded
+        (an upload, a synchronization) raises: no prove falls back to
+        eager after this.  Only this thread's calls can break the
+        recording ("thread_local")."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            packed = self._packed_tail(*self._stages(trace, inputs))
+        self._graph, self._packed = graph, packed
 
     # ------------------------------------------------ the one-fetch tail
     @staticmethod

@@ -72,7 +72,11 @@ FRI_SHARD_MIN_ROWS = 256
 
 class ShardedProver(Prover):
     """The one-fetch prover over a mesh: one instance per rank, the same
-    (Stark, context, assertions) on each."""
+    (Stark, context, assertions) on each.  Every prove runs eager: its
+    transforms and trees call collectives, which no CUDA graph records."""
+
+    def _records_graph(self) -> bool:
+        return False
 
     def __init__(self, stark, context, assertions, dev, mesh):
         super().__init__(stark, context, assertions, dev)

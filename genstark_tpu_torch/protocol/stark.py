@@ -77,6 +77,7 @@ class Stark:
         self.serializer = Serializer(air.field, air.trace_register_count,
                                      air.secret_input_count, self.hash.digest_size)
         self._provers = {}
+        self._graph_pool = None      # see graph_pool
         self.last_context = None
         self.mesh = None
         self.set_mesh(options.get("mesh"))
@@ -313,6 +314,27 @@ class Stark:
         else:
             prover.context = context
         return prover
+
+    def graph_pool(self):
+        """The memory pool that every CUDA graph of this Stark's Provers
+        records into (`torch.cuda.graph_pool_handle()`, made at the first
+        call).  Proves on one Stark run one after another, and each reads
+        its graph's outputs before the next replay, so one pool holds the
+        largest working set of the structures proved, not one per
+        structure."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
+    def graph_pool_bytes(self) -> Optional[int]:
+        """The device bytes that `graph_pool` holds: its segments in
+        `torch.cuda.memory_snapshot()`.  None where no Prover of this Stark
+        records a graph."""
+        if self._graph_pool is None:
+            return None
+        pool = tuple(self._graph_pool)
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == pool)
 
     def _validate_assertions(self, context, trace_std, assertions) -> None:
         registers, _, steps = trace_std.shape

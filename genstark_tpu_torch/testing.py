@@ -381,7 +381,8 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchr
 def count_syncs(kernels, fn) -> dict:
     """The synchronizing calls of one call of fn() (a warm prove): torch's
     sync debug mode reports each one ("warn"; each warning recorded with
-    its site in the port and the port kernel launches made before it:
+    its site in the port and the port kernel launches made before it, a
+    replay of a Prover's recorded graph counted as launches:
     `after_first_kernel` counts those made after the call's first port
     kernel); then torch.profiler over a second call gives the host ms spent
     in the runtime's synchronizing calls (`host_wait_ms`, None where the
@@ -391,7 +392,8 @@ def count_syncs(kernels, fn) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    launched = lambda: sum(kernels.launch_counts.values())
+    from genstark_tpu_torch import tracing
+    launched = lambda: sum(kernels.launch_counts.values()) + tracing.counters["graph_replays"]
     torch.cuda.synchronize()
     start, records = launched(), []
 

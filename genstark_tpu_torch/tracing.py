@@ -1,8 +1,9 @@
 """Spans and counters of the port's prove, on the profiler's clock.
 
 `span(name)` marks one stretch of host work at a layer boundary of a prove
-(15 a request; a new Prover adds `prover.new` and a `prover.keep` for
-each thing it keeps; none per kernel launch):
+(15 a request, 10 where the prove replays its recorded graph; a new Prover
+adds `prover.new` and a `prover.keep` for each thing it keeps; none per
+kernel launch):
 
 - with no profiler recording it takes two `time.time_ns()` stamps and
   keeps nothing (`seconds` reads its duration);
@@ -33,6 +34,11 @@ registers' values.
 native trace, added inside its `air.trace` span (`init + step * (T - 1)`,
 counted per schema at codegen by native/tracegen.py; the Python fallback
 adds nothing).  It costs one integer add a trace.
+
+`counters["graph_replays"]` is always on: +1 at each replay of a Prover's
+recorded CUDA graph (protocol/prover.py `Prover.prove`, inside its
+`prove.replay` span).  A replayed prove launches its kernels without their
+wrappers, so it adds nothing to `kernels.launch_counts`.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ from . import kernels
 
 MAX_RECORDS = 1 << 16
 
-counters = {"syncs": 0, "trace_products": 0, "upload_bytes": 0}
+counters = {"syncs": 0, "trace_products": 0, "upload_bytes": 0, "graph_replays": 0}
 
 Span = collections.namedtuple("Span", "name start_ns end_ns span parent request deltas")
 

@@ -234,6 +234,14 @@ def test_sharded_secret_input_after_another(groups, single, world):
         assert got["bytes"] == single["p128_input_values"]
 
 
+@pytest.mark.parametrize("world", [4, 2, 1])
+def test_sharded_prover_never_replays(groups, world):
+    """A ShardedProver records no CUDA graph (its transforms and trees call
+    collectives): its class says so, and no prove of any rank replayed one."""
+    for rank in _ranks(groups, world):
+        assert rank["graphs"] == {"replays": 0, "provers": [("ShardedProver", False)]}
+
+
 @pytest.mark.parametrize("world", [8, 4, 2, 1])
 def test_sharded_p128_equals_jax_pin(groups, world):
     """(e) the sharded p128 proof is the JAX package's pinned bytes

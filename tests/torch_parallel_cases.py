@@ -148,6 +148,10 @@ def all_cases(mesh):
     stark, data, fallbacks = prove_case(mesh, P128, 64, True, 16, TOY, (3, 5))
     out["p128_input_values"] = {"bytes": data, "fallbacks": fallbacks,
                                 "provers": len(stark._provers)}
+    # no prove of the rank replays a recorded graph, and the class records none
+    from genstark_tpu_torch import tracing
+    out["graphs"] = {"replays": tracing.counters["graph_replays"],
+                     "provers": [(type(p).__name__, p._records_graph()) for p in stark._provers.values()]}
     from genstark_tpu_torch.parallel import make_mesh
     from genstark_tpu_torch.parallel.distributed import fetch
     mine = torch.full((2, 5), mesh.rank, dtype=torch.int32)
